@@ -1,0 +1,92 @@
+"""JAX variables (numpy) → state dicts of the port's StyleGAN2 modules.
+
+The inverse of ``generator_params_from_torch`` and
+``discriminator_params_from_torch`` in ``gantrack_tpu/models/torch_compat.py``:
+HWIO → OIHW conv weights, ``[in, out]`` → ``[out, in]`` dense weights,
+HWC → CHW const inputs, and the discriminator epilogue's NHWC flatten
+order back to NCHW.  Takes nested dicts of arrays (``jax.device_get`` of
+the flax variables); imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _conv_w(x) -> torch.Tensor:
+    """HWIO -> OIHW."""
+    return _t(np.transpose(np.asarray(x), (3, 2, 0, 1)))
+
+
+def _fc(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["weight"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _mapping(sd, prefix: str, p: Mapping[str, Any]) -> None:
+    for name, sub in p.items():  # fc{i}, embed
+        _fc(sd, f"{prefix}.{name}", sub)
+
+
+def _layer(sd, prefix: str, p: Mapping[str, Any]) -> None:
+    """Conv / synthesis / toRGB layer: weight, bias, affine, noise strength."""
+    sd[f"{prefix}.weight"] = _conv_w(p["weight"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "affine" in p:
+        _fc(sd, f"{prefix}.affine", p["affine"])
+    if "noise_strength" in p:
+        sd[f"{prefix}.noise_strength"] = _t(p["noise_strength"])
+
+
+def generator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params", "emas", "noise_consts"}`` of the JAX ``Generator`` →
+    the port's ``Generator`` state dict."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _mapping(sd, "mapping", params["mapping"])
+    w_avg = variables.get("emas", {}).get("mapping", {}).get("w_avg")
+    if w_avg is not None:
+        sd["mapping.w_avg"] = _t(w_avg)
+    consts = variables.get("noise_consts", {}).get("synthesis", {})
+    for block, bp in params["synthesis"].items():
+        base = f"synthesis.{block}"
+        for name, lp in bp.items():
+            if name == "const":
+                sd[f"{base}.const"] = _t(np.transpose(np.asarray(lp), (2, 0, 1)))
+            else:
+                _layer(sd, f"{base}.{name}", lp)
+        for name, nc in consts.get(block, {}).items():
+            sd[f"{base}.{name}.noise_const"] = _t(nc["noise_const"])
+    return sd
+
+
+def discriminator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params"}`` of the JAX ``Discriminator`` → the port's state dict."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for block, bp in params.items():
+        if block == "mapping":
+            _mapping(sd, "mapping", bp)
+            continue
+        for name, lp in bp.items():
+            if name in ("fc", "out"):
+                continue
+            _layer(sd, f"{block}.{name}", lp)
+    ep = params["b4"]
+    in_ch = np.asarray(ep["conv"]["weight"]).shape[3]
+    fc_w = np.asarray(ep["fc"]["weight"]).T  # [out, H*W*C], NHWC flatten
+    out_features, res = fc_w.shape[0], 4
+    fc_w = fc_w.reshape(out_features, res, res, in_ch).transpose(0, 3, 1, 2)
+    sd["b4.fc.weight"] = _t(fc_w.reshape(out_features, -1))
+    sd["b4.fc.bias"] = _t(ep["fc"]["bias"])
+    _fc(sd, "b4.out", ep["out"])
+    return sd

@@ -1,0 +1,178 @@
+"""2D resampling: pad → zero-insert upsample → FIR filter → downsample.
+
+Port of ``gantrack_tpu/ops/upfirdn2d.py`` (``setup_filter``,
+``upfirdn2d``, ``filter2d``, ``upsample2d``, ``downsample2d``) on NCHW
+tensors.  The filter runs as a depthwise convolution; separable (1-D)
+filters run as a vertical then a horizontal pass.  The JAX module's
+banded-matrix lowerings are a TPU layout device and are not carried.
+The conv is :mod:`.conv2d_gradfix`'s, so the double backward of the
+penalties never forms a weight gradient for the constant filter.
+
+Numerics contract (as the JAX module): 1. zero-insert upsample by
+``up``; 2. zero-pad/crop by ``padding`` (relative to the upsampled
+grid); 3. *convolve* (flipped cross-correlation unless ``flip_filter``)
+with ``f * gain**(f.ndim/2)``; 4. keep every ``down``-th pixel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .conv2d_gradfix import conv2d
+
+IntOrPair = Union[int, Sequence[int]]
+
+
+def _parse_scaling(scaling: IntOrPair) -> Tuple[int, int]:
+    if isinstance(scaling, (int, np.integer)):
+        scaling = [int(scaling)] * 2
+    sx, sy = (int(v) for v in scaling)
+    assert sx >= 1 and sy >= 1, f"invalid scaling {scaling}"
+    return sx, sy
+
+
+def _parse_padding(padding: IntOrPair) -> Tuple[int, int, int, int]:
+    if isinstance(padding, (int, np.integer)):
+        padding = [int(padding)] * 2
+    padding = [int(v) for v in padding]
+    if len(padding) == 2:
+        px, py = padding
+        padding = [px, px, py, py]
+    px0, px1, py0, py1 = padding
+    return px0, px1, py0, py1
+
+
+def _get_filter_size(f: Optional[torch.Tensor]) -> Tuple[int, int]:
+    if f is None:
+        return 1, 1
+    assert f.ndim in (1, 2)
+    return int(f.shape[-1]), int(f.shape[0])
+
+
+def setup_filter(
+    f,
+    normalize: bool = True,
+    flip_filter: bool = False,
+    gain: float = 1,
+    separable: Optional[bool] = None,
+    device=None,
+) -> torch.Tensor:
+    """Prepare a FIR filter for :func:`upfirdn2d` (float32 tensor).
+
+    ``None`` → identity impulse; 1-D inputs become separable iff >= 8
+    taps (else outer product to 2-D); DC-normalise; optional flip; scale
+    by ``gain ** (ndim / 2)``.  Computed in float64 numpy, as the JAX
+    module does, then cast.
+    """
+    if f is None:
+        f = 1
+    f = np.asarray(f.cpu() if isinstance(f, torch.Tensor) else f, dtype=np.float64)
+    assert f.ndim in (0, 1, 2) and f.size > 0
+    if f.ndim == 0:
+        f = f[np.newaxis]
+    if separable is None:
+        separable = f.ndim == 1 and f.size >= 8
+    if f.ndim == 1 and not separable:
+        f = np.outer(f, f)
+    assert f.ndim == (1 if separable else 2)
+    if normalize:
+        f = f / np.sum(f)
+    if flip_filter:
+        f = np.flip(f, axis=tuple(range(f.ndim)))
+    f = f * (gain ** (f.ndim / 2))
+    return torch.tensor(np.ascontiguousarray(f), dtype=torch.float32, device=device)
+
+
+def _depthwise(x: torch.Tensor, f2d: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
+    """VALID strided cross-correlation of every channel with one [fh, fw] filter."""
+    c = x.shape[1]
+    w = f2d.to(x.dtype)[None, None].expand(c, 1, *f2d.shape)
+    return conv2d(x, w, stride=stride, groups=c)
+
+
+def upfirdn2d(
+    x: torch.Tensor,
+    f: Optional[torch.Tensor],
+    up: IntOrPair = 1,
+    down: IntOrPair = 1,
+    padding: IntOrPair = 0,
+    flip_filter: bool = False,
+    gain: float = 1,
+) -> torch.Tensor:
+    """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
+
+    Returns ``[N, C, out_h, out_w]`` with
+    ``out_h = (H*upy + pady0 + pady1 - fh) // downy + 1`` (same for w).
+    """
+    assert x.ndim == 4, f"expected NCHW, got shape {tuple(x.shape)}"
+    if f is None:
+        f = torch.ones([1, 1], dtype=torch.float32, device=x.device)
+    assert f.ndim in (1, 2)
+    upx, upy = _parse_scaling(up)
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    n, c, h, w = x.shape
+
+    # Zero-insert upsample: up-1 trailing zeros after every sample.
+    if upx > 1 or upy > 1:
+        x = x.reshape(n, c, h, 1, w, 1)
+        x = F.pad(x, [0, upx - 1, 0, 0, 0, upy - 1])
+        x = x.reshape(n, c, h * upy, w * upx)
+    # Pad (positive) and crop (negative).
+    x = F.pad(x, [max(px0, 0), max(px1, 0), max(py0, 0), max(py1, 0)])
+    x = x[:, :, max(-py0, 0): x.shape[2] - max(-py1, 0),
+          max(-px0, 0): x.shape[3] - max(-px1, 0)]
+    assert x.shape[2] >= f.shape[0] and x.shape[3] >= f.shape[-1], (
+        f"upsampled buffer {tuple(x.shape[2:])} smaller than filter {tuple(f.shape)}")
+
+    f = f * (gain ** (f.ndim / 2))
+    if not flip_filter:
+        f = f.flip(list(range(f.ndim)))
+    if f.ndim == 2:
+        return _depthwise(x, f, (downy, downx))
+    x = _depthwise(x, f[:, None], (downy, 1))
+    return _depthwise(x, f[None, :], (1, downx))
+
+
+def filter2d(x, f, padding: IntOrPair = 0, flip_filter: bool = False, gain: float = 1):
+    """FIR-filter NCHW images, output shape-matched to input."""
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [px0 + fw // 2, px1 + (fw - 1) // 2, py0 + fh // 2, py1 + (fh - 1) // 2]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
+
+
+def upsample2d(x, f, up: IntOrPair = 2, padding: IntOrPair = 0,
+               flip_filter: bool = False, gain: float = 1):
+    """Upsample NCHW images with output-centred padding and
+    ``gain * up_x * up_y`` DC compensation."""
+    upx, upy = _parse_scaling(up)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [
+        px0 + (fw + upx - 1) // 2,
+        px1 + (fw - upx) // 2,
+        py0 + (fh + upy - 1) // 2,
+        py1 + (fh - upy) // 2,
+    ]
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
+                     gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down: IntOrPair = 2, padding: IntOrPair = 0,
+                 flip_filter: bool = False, gain: float = 1):
+    """Downsample NCHW images with the given FIR filter."""
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [
+        px0 + (fw - downx + 1) // 2,
+        px1 + (fw - downx) // 2,
+        py0 + (fh - downy + 1) // 2,
+        py1 + (fh - downy) // 2,
+    ]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)

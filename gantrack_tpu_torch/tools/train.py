@@ -1,0 +1,252 @@
+"""Training launcher CLI of the PyTorch port.
+
+    python -m gantrack_tpu_torch.tools.train --outdir=runs --cfg=stylegan2 \\
+        --data=<dataset dir> --batch=32 --gamma=0.4096 --cbase=16384 --cmax=512 \\
+        --map-depth=2 --glr=0.0025 --dlr=0.0025 --aug=ada --target=0.6 \\
+        --mirror=1 --metrics=none
+
+Same flag names as ``gantrack_tpu/tools/train.py`` (``argparse`` here).
+This slice trains StyleGAN2-ADA on one CUDA device (``--device=cpu``
+trains on the CPU instead, for rehearsals at a tiny size):
+``--cfg=stylegan2`` only, ``--metrics=none`` only, no ``--batch-gpu``
+accumulation and no freeze-D; those raise.  The JAX CLI's ``--dtype``
+(read by nothing) and ``--metrics_cache`` (metrics: ROADMAP A6) are not
+taken.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List, Optional
+
+import gantrack_tpu_torch  # noqa: F401  (sets the JAX-free import mode first)
+
+import numpy as np
+import torch
+
+
+def _bool(value: str) -> bool:
+    v = value.strip().lower()
+    if v in ("1", "true", "t", "yes", "y"):
+        return True
+    if v in ("0", "false", "f", "no", "n"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
+
+
+def _list(value: str) -> List[str]:
+    return [] if value in ("", "none") else value.split(",")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m gantrack_tpu_torch.tools.train",
+                                description="Train StyleGAN2-ADA with the PyTorch port.")
+    p.add_argument("--outdir", required=True, help="Where to save the results")
+    p.add_argument("--cfg", required=True, choices=["stylegan3-t", "stylegan3-r", "stylegan2"])
+    p.add_argument("--data", required=True, help="Training data")
+    p.add_argument("--modalities", default="MR_nonrigid_CT,MR_MR_T2")
+    p.add_argument("--dataset", dest="dataset_name", default="Pelvis_2.1")
+    p.add_argument("--split", default="train")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="Train on the CUDA device (default) or on the CPU")
+    p.add_argument("--devices", "--gpus", dest="num_devices", type=int, default=None)
+    p.add_argument("--batch", type=int, required=True, help="Total batch size")
+    p.add_argument("--batch-gpu", dest="batch_gpu", type=int, default=None)
+    p.add_argument("--gamma", type=float, required=True, help="R1 weight")
+    p.add_argument("--cond", type=_bool, default=False)
+    p.add_argument("--mirror", type=_bool, default=False)
+    p.add_argument("--aug", choices=["noaug", "ada", "fixed"], default="ada")
+    p.add_argument("--ada_kimg", type=int, default=500)
+    p.add_argument("--aug_opts", type=_list, default=_list("xflip,xint,scale,rotate,aniso,xfrac"))
+    p.add_argument("--xint_max", type=float, default=0.05)
+    p.add_argument("--rotate_max", type=int, default=3)
+    p.add_argument("--xfrac_std", type=float, default=0.05)
+    p.add_argument("--scale_std", type=float, default=0.05)
+    p.add_argument("--aniso_std", type=float, default=0.05)
+    p.add_argument("--resume", default=None)
+    p.add_argument("--freezed", type=int, default=0)
+    p.add_argument("--p", dest="aug_p", type=float, default=0.2)
+    p.add_argument("--target", type=float, default=0.6)
+    p.add_argument("--cbase", type=int, default=32768)
+    p.add_argument("--cmax", type=int, default=512)
+    p.add_argument("--glr", type=float, default=None)
+    p.add_argument("--dlr", type=float, default=0.002)
+    p.add_argument("--map-depth", dest="map_depth", type=int, default=None)
+    p.add_argument("--mbstd-group", dest="mbstd_group", type=int, default=4)
+    p.add_argument("--desc", default=None)
+    p.add_argument("--metrics", type=_list, default=_list("fid50k_full"))
+    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--kimg", type=int, default=25000)
+    p.add_argument("--tick", type=int, default=4)
+    p.add_argument("--snap", type=int, default=50)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fp32", type=_bool, default=False)
+    p.add_argument("--num-fp16-res", dest="num_fp16_res", type=int, default=4)
+    p.add_argument("-n", "--dry-run", dest="dry_run", action="store_true")
+    return p
+
+
+def check_slice(opts) -> None:
+    """Reject what this slice does not run, naming where it is queued."""
+    if opts.cfg != "stylegan2":
+        raise SystemExit(f"--cfg={opts.cfg}: StyleGAN3 is not ported yet (ROADMAP A9)")
+    if opts.metrics:
+        raise SystemExit("--metrics: only 'none' in this slice (metrics: ROADMAP A6)")
+    if opts.num_devices not in (None, 1):
+        raise SystemExit("--devices: one device in this slice (data parallelism: ROADMAP A7)")
+    if opts.batch_gpu not in (None, opts.batch):
+        raise SystemExit("--batch-gpu: no gradient accumulation in this slice (ROADMAP A7)")
+    if opts.freezed:
+        raise SystemExit("--freezed: freeze-D is not ported yet")
+
+
+def resolve_config(opts) -> dict:
+    num_fp16_res = 0 if opts.fp32 else opts.num_fp16_res
+    return dict(
+        cfg=opts.cfg, batch_size=opts.batch, total_kimg=opts.kimg, kimg_per_tick=opts.tick,
+        snapshot_ticks=opts.snap, random_seed=opts.seed, metrics=opts.metrics,
+        dataset=opts.data, device=opts.device,
+        G=dict(z_dim=512, w_dim=512, channel_base=opts.cbase, channel_max=opts.cmax,
+               num_fp16_res=num_fp16_res, map_depth=opts.map_depth or 8),
+        D=dict(channel_base=opts.cbase, channel_max=opts.cmax, num_fp16_res=num_fp16_res,
+               mbstd_group=opts.mbstd_group),
+        glr=opts.glr if opts.glr is not None else 0.002,
+        dlr=opts.dlr, gamma=opts.gamma, ema_kimg=opts.batch * 10 / 32,
+        aug=opts.aug, target=opts.target,
+    )
+
+
+def main(argv: Optional[List[str]] = None) -> Optional[str]:
+    """Parse ``argv``, train; returns the run dir (None on a dry run)."""
+    opts = build_parser().parse_args(argv)
+    check_slice(opts)
+    c = resolve_config(opts)
+    desc = f"{opts.dataset_name}-{opts.cfg}-batch{opts.batch}-gamma{opts.gamma:g}"
+    if opts.desc:
+        desc += f"-{opts.desc}"
+    if opts.dry_run:
+        print(json.dumps(c, indent=2))
+        print("Dry run; exiting.")
+        return None
+    from ..utils.checkpoint import allocate_run_dir
+
+    run_dir = allocate_run_dir(opts.outdir, desc)
+    with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
+        json.dump(c, f, indent=2)
+    print(f"Run dir: {run_dir}")
+    train(c, opts, run_dir)
+    return run_dir
+
+
+def build_training(c: dict, opts, device: torch.device):
+    """Dataset, loader, networks, state, loss and stepper of a run."""
+    from ..data import InfiniteLoader, open_dataset
+    from ..models.stylegan2 import Discriminator, Generator
+    from ..training.augment import AugmentConfig, AugmentPipe
+    from ..training.loss import StyleGAN2Loss, StyleGAN2LossConfig
+    from ..training.step import TrainStepConfig, TrainStepper
+    from ..training.train_state import create_train_state
+
+    dataset_kwargs = dict(split=opts.split, xflip=opts.mirror, use_labels=opts.cond,
+                          random_seed=opts.seed)
+    if opts.data.endswith(".zip"):
+        dataset_kwargs["modalities"] = opts.modalities.split(",") if opts.modalities else None
+    dataset = open_dataset(opts.data, **dataset_kwargs)
+    res, channels = dataset.resolution, dataset.num_channels
+    if opts.cond and not dataset.has_labels:
+        raise SystemExit("--cond=True requires labels specified in dataset.json")
+    c_dim = dataset.label_dim if opts.cond else 0
+    print(f"Dataset: {dataset.name}  {len(dataset)} items  {res}x{res}x{channels}  "
+          f"labels={c_dim}  device={device}")
+
+    torch.manual_seed(opts.seed)
+    G = Generator(z_dim=c["G"]["z_dim"], c_dim=c_dim, w_dim=c["G"]["w_dim"],
+                  img_resolution=res, img_channels=channels,
+                  mapping_kwargs=dict(num_layers=c["G"]["map_depth"]),
+                  synthesis_kwargs=dict(channel_base=c["G"]["channel_base"],
+                                        channel_max=c["G"]["channel_max"],
+                                        num_fp16_res=c["G"]["num_fp16_res"])).to(device)
+    D = Discriminator(c_dim=c_dim, img_resolution=res, img_channels=channels,
+                      channel_base=c["D"]["channel_base"], channel_max=c["D"]["channel_max"],
+                      num_fp16_res=c["D"]["num_fp16_res"],
+                      epilogue_kwargs=dict(mbstd_group_size=c["D"]["mbstd_group"])).to(device)
+    state = create_train_state(G, D, c["glr"], c["dlr"], g_reg_interval=4, d_reg_interval=16)
+    generator = torch.Generator(device=device).manual_seed(opts.seed)
+    if opts.resume:
+        from ..utils.checkpoint import load_checkpoint, resolve_checkpoint_path
+
+        path = resolve_checkpoint_path(opts.resume)
+        if path is None:
+            raise SystemExit(f"--resume: no checkpoint found under {opts.resume}")
+        print(f"Resuming from {path}")
+        load_checkpoint(path, state, generator)
+
+    augment_fn = None
+    ada_target = None
+    if opts.aug != "noaug":
+        aug_cfg = AugmentConfig(**{
+            **{k: 1.0 for k in opts.aug_opts},
+            "xint_max": opts.xint_max, "rotate_max": opts.rotate_max / 360,
+            "xfrac_std": opts.xfrac_std, "scale_std": opts.scale_std,
+            "aniso_std": opts.aniso_std,
+        })
+        augment_fn = AugmentPipe(aug_cfg, res, res, channels)
+        if opts.aug == "ada":
+            ada_target = opts.target
+        elif not opts.resume:
+            state.ada_p = torch.tensor(opts.aug_p, device=device)
+
+    loss = StyleGAN2Loss(G, D, StyleGAN2LossConfig(r1_gamma=c["gamma"], style_mixing_prob=0.9,
+                                                   pl_weight=2.0), augment_fn=augment_fn)
+    label_bank = None
+    if c_dim > 0:
+        label_bank = torch.from_numpy(np.stack(
+            [dataset.get_label(i) for i in range(len(dataset))]).astype(np.float32)).to(device)
+    step_cfg = TrainStepConfig(
+        batch_size=opts.batch, z_dim=c["G"]["z_dim"], c_dim=c_dim, ema_kimg=c["ema_kimg"],
+        ema_rampup=None if opts.resume else 0.05, g_reg_interval=4, d_reg_interval=16,
+        ada_target=ada_target, ada_kimg=100 if opts.resume else opts.ada_kimg)
+    stepper = TrainStepper(loss, step_cfg, generator, label_bank=label_bank)
+    loader = InfiniteLoader(dataset, batch_size=opts.batch, seed=opts.seed,
+                            num_workers=opts.workers)
+    return dataset, loader, state, stepper
+
+
+def train(c: dict, opts, run_dir: str):
+    from ..training.loop import training_loop
+
+    # The reference trains without TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(c["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device=cuda: no CUDA device is available "
+                         "(--device=cpu trains on the CPU)")
+    dataset, loader, state, stepper = build_training(c, opts, device)
+    c_dim = stepper.cfg.c_dim
+
+    def sample_fn(state, grid_z, grid_c):
+        outs = []
+        with torch.no_grad():
+            for i in range(0, len(grid_z), opts.batch):
+                z = torch.from_numpy(grid_z[i:i + opts.batch]).to(device)
+                cl = torch.from_numpy(grid_c[i:i + opts.batch]).to(device) if c_dim else None
+                img = state.G_ema(z, cl, noise_mode="const")
+                outs.append(img.permute(0, 2, 3, 1).float().cpu().numpy())
+        return np.concatenate(outs)
+
+    try:
+        return training_loop(
+            run_dir=run_dir, stepper=stepper, state=state, loader=loader, device=device,
+            total_kimg=c["total_kimg"], kimg_per_tick=c["kimg_per_tick"],
+            snapshot_ticks=c["snapshot_ticks"], image_snapshot_ticks=c["snapshot_ticks"],
+            sample_fn=sample_fn)
+    finally:
+        loader.close()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

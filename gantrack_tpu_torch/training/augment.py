@@ -1,0 +1,387 @@
+"""ADA augmentation pipeline: pixel blitting and general geometric sections.
+
+Port of ``AugmentPipe`` in ``gantrack_tpu/training/augment.py`` on NCHW
+tensors, with the same static reflect-pad margin, transform composition,
+probability gating and ``debug_percentile`` path.  The geometric warp
+(upsample ×2 → affine grid-sample) is :func:`ops.upwarp.up_affine_warp`,
+which launches the CUDA kernel pair on the card.
+
+The colour, image-space filtering, noise and cutout sections are not in
+the medical (claro) recipe and are not ported yet (ROADMAP, queue A3):
+a config that enables them raises ``NotImplementedError``.
+
+Random draws use an explicit ``torch.Generator`` on the images' device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.upfirdn2d import downsample2d, setup_filter
+from ..ops.upwarp import up_affine_warp
+
+WAVELETS = {
+    "sym6": [
+        0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
+        -0.048311742585633, 0.4910559419267466, 0.787641141030194,
+        0.3379294217276218, -0.07263752278646252, -0.021060292512300564,
+        0.04472490177066578, 0.0017677118642428036, -0.007800708325034148,
+    ],
+}
+
+
+# ------------------------------------------------------- matrix helpers
+# Batched 3x3 homogeneous transforms [N, 3, 3] in float32.
+
+def _eye3(n, device):
+    return torch.eye(3, device=device).expand(n, 3, 3).clone()
+
+
+def translate2d(tx, ty):
+    m = _eye3(tx.shape[0], tx.device)
+    m[:, 0, 2] = tx
+    m[:, 1, 2] = ty
+    return m
+
+
+def scale2d(sx, sy):
+    m = _eye3(sx.shape[0], sx.device)
+    m[:, 0, 0] = sx
+    m[:, 1, 1] = sy
+    return m
+
+
+def rotate2d(theta):
+    m = _eye3(theta.shape[0], theta.device)
+    c, s = torch.cos(theta), torch.sin(theta)
+    m[:, 0, 0] = c
+    m[:, 0, 1] = -s
+    m[:, 1, 0] = s
+    m[:, 1, 1] = c
+    return m
+
+
+def translate2d_inv(tx, ty):
+    return translate2d(-tx, -ty)
+
+
+def scale2d_inv(sx, sy):
+    return scale2d(1.0 / sx, 1.0 / sy)
+
+
+def rotate2d_inv(theta):
+    return rotate2d(-theta)
+
+
+def _const(n, value, device):
+    return torch.full((n,), float(value), dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------- config
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Probability multipliers and magnitudes (same fields and defaults
+    as the JAX ``AugmentConfig``)."""
+
+    xflip: float = 0.0
+    rotate90: float = 0.0
+    xint: float = 0.0
+    xint_max: float = 0.125
+    scale: float = 0.0
+    rotate: float = 0.0
+    aniso: float = 0.0
+    xfrac: float = 0.0
+    scale_std: float = 0.2
+    rotate_max: float = 1.0
+    aniso_std: float = 0.2
+    xfrac_std: float = 0.125
+    brightness: float = 0.0
+    contrast: float = 0.0
+    lumaflip: float = 0.0
+    hue: float = 0.0
+    saturation: float = 0.0
+    brightness_std: float = 0.2
+    contrast_std: float = 0.5
+    hue_max: float = 1.0
+    saturation_std: float = 1.0
+    imgfilter: float = 0.0
+    imgfilter_bands: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    imgfilter_std: float = 1.0
+    noise: float = 0.0
+    cutout: float = 0.0
+    noise_std: float = 0.1
+    cutout_size: float = 0.5
+
+    @property
+    def has_geometric(self) -> bool:
+        return any(v > 0 for v in (self.xflip, self.rotate90, self.xint,
+                                   self.scale, self.rotate, self.aniso, self.xfrac))
+
+    @property
+    def unported_sections(self) -> Tuple[str, ...]:
+        names = ("brightness", "contrast", "lumaflip", "hue", "saturation",
+                 "imgfilter", "noise", "cutout")
+        return tuple(n for n in names if getattr(self, n) > 0)
+
+
+def medical_augment_config(**overrides) -> AugmentConfig:
+    """The medical ('bgc-mi') tuning: conservative blit + geometric
+    magnitudes for CT/MR slices (same values as the JAX package)."""
+    base = dict(
+        xflip=1.0, xint=1.0, xint_max=0.05,
+        scale=1.0, rotate=1.0, rotate_max=3.0 / 360.0,
+        aniso=1.0, xfrac=1.0,
+        scale_std=0.05, aniso_std=0.05, xfrac_std=0.05,
+    )
+    base.update(overrides)
+    return AugmentConfig(**base)
+
+
+# ------------------------------------------------- static margin (numpy)
+
+def _np_translate2d(tx, ty):
+    n = np.shape(tx)[0]
+    m = np.broadcast_to(np.eye(3), (n, 3, 3)).copy()
+    m[:, 0, 2] = tx
+    m[:, 1, 2] = ty
+    return m
+
+
+def _np_scale2d_inv(sx, sy):
+    n = np.shape(sx)[0]
+    m = np.broadcast_to(np.eye(3), (n, 3, 3)).copy()
+    m[:, 0, 0] = 1 / sx
+    m[:, 1, 1] = 1 / sy
+    return m
+
+
+def _np_rotate2d(theta):
+    n = np.shape(theta)[0]
+    m = np.broadcast_to(np.eye(3), (n, 3, 3)).copy()
+    c, s = np.cos(theta), np.sin(theta)
+    m[:, 0, 0] = c
+    m[:, 0, 1] = -s
+    m[:, 1, 0] = s
+    m[:, 1, 1] = c
+    return m
+
+
+def _sample_transforms(cfg: AugmentConfig, height: int, width: int,
+                       samples: int, seed: int) -> np.ndarray:
+    """Monte-Carlo G_inv draws at p=1 (the JAX draw sequence, in numpy)."""
+    rng = np.random.default_rng(seed)
+    n = samples
+    g = np.broadcast_to(np.eye(3), (n, 3, 3)).copy()
+    if cfg.xflip > 0:
+        i = rng.integers(0, 2, n)
+        g = g @ _np_scale2d_inv(1 - 2 * i, np.ones(n))
+    if cfg.rotate90 > 0:
+        i = rng.integers(0, 4, n)
+        g = g @ _np_rotate2d(np.pi / 2 * i)
+    if cfg.xint > 0:
+        t = (rng.random((n, 2)) * 2 - 1) * cfg.xint_max
+        g = g @ _np_translate2d(-np.round(t[:, 0] * width), -np.round(t[:, 1] * height))
+    if cfg.scale > 0:
+        s = np.exp2(np.clip(rng.standard_normal(n), -4.5, 4.5) * cfg.scale_std)
+        s = np.concatenate([s, [2 ** (4.5 * cfg.scale_std), 2 ** (-4.5 * cfg.scale_std)] * (n // 2)])[:n]
+        g = g @ _np_scale2d_inv(s, s)
+    if cfg.rotate > 0:
+        theta = (rng.random(n) * 2 - 1) * np.pi * cfg.rotate_max
+        g = g @ _np_rotate2d(theta)
+    if cfg.aniso > 0:
+        s = np.exp2(np.clip(rng.standard_normal(n), -4.5, 4.5) * cfg.aniso_std)
+        g = g @ _np_scale2d_inv(s, 1 / s)
+    if cfg.rotate > 0:
+        theta = (rng.random(n) * 2 - 1) * np.pi * cfg.rotate_max
+        g = g @ _np_rotate2d(theta)
+    if cfg.xfrac > 0:
+        t = np.clip(rng.standard_normal((n, 2)), -4.5, 4.5) * cfg.xfrac_std
+        g = g @ _np_translate2d(-t[:, 0] * width, -t[:, 1] * height)
+    return g
+
+
+def compute_static_margin(cfg: AugmentConfig, height: int, width: int,
+                          samples: int = 4096, seed: int = 0) -> Tuple[int, int, int, int]:
+    """Conservative static reflect-pad margins ``(mx0, mx1, my0, my1)``:
+    Monte-Carlo max corner excursion + wavelet halo, clipped to
+    ``[0, size-1]`` (same estimate as the JAX package)."""
+    if not cfg.has_geometric:
+        return (0, 0, 0, 0)
+    g = _sample_transforms(cfg, height, width, samples, seed)
+    cx = (width - 1) / 2
+    cy = (height - 1) / 2
+    corners = np.asarray([[-cx, -cy, 1], [cx, -cy, 1], [cx, cy, 1], [-cx, cy, 1]]).T
+    xy = (g @ corners)[:, :2, :]
+    hz_pad = len(WAVELETS["sym6"]) // 4
+    margin = np.stack([(-xy[:, 0]).max(), (-xy[:, 1]).max(), xy[:, 0].max(), xy[:, 1].max()])
+    margin = margin + np.asarray([hz_pad * 2 - cx, hz_pad * 2 - cy] * 2)
+    margin = np.clip(margin, 0, [width - 1, height - 1, width - 1, height - 1])
+    mx0, my0, mx1, my1 = np.ceil(margin).astype(int)
+    return int(mx0), int(mx1), int(my0), int(my1)
+
+
+def _reflect_pad(x: torch.Tensor, t: int, b: int, l: int, r: int) -> torch.Tensor:
+    """NCHW reflect padding as flipped-slice concats (same as JAX's)."""
+    parts = []
+    if t > 0:
+        parts.append(x[:, :, 1:t + 1].flip(2))
+    parts.append(x)
+    if b > 0:
+        parts.append(x[:, :, -b - 1:-1].flip(2))
+    x = torch.cat(parts, dim=2) if len(parts) > 1 else x
+    parts = []
+    if l > 0:
+        parts.append(x[:, :, :, 1:l + 1].flip(3))
+    parts.append(x)
+    if r > 0:
+        parts.append(x[:, :, :, -r - 1:-1].flip(3))
+    return torch.cat(parts, dim=3) if len(parts) > 1 else x
+
+
+# -------------------------------------------------------------- pipeline
+
+class AugmentPipe:
+    """Callable ``(images NCHW, p, generator) -> images``.
+
+    ``compute_dtype`` is the image-path dtype (bf16 by default, as in the
+    JAX pipe); transforms and sampling coordinates stay float32.
+    """
+
+    def __init__(self, cfg: AugmentConfig, height: int, width: int, num_channels: int,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        assert num_channels in (1, 2, 3)
+        if cfg.unported_sections:
+            raise NotImplementedError(
+                f"augment sections {cfg.unported_sections} are not ported yet "
+                "(ROADMAP queue A3: colour, image filter, noise, cutout)")
+        self.cfg = cfg
+        self.height = height
+        self.width = width
+        self.num_channels = num_channels
+        self.compute_dtype = compute_dtype
+        self.hz_geom = setup_filter(WAVELETS["sym6"])  # float32, CPU
+        self.hz_geom_taps = tuple(float(v) for v in self.hz_geom)
+        self.margin = compute_static_margin(cfg, height, width)
+        self._filters = {}
+
+    def _filter(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._filters:
+            self._filters[key] = self.hz_geom.to(device)
+        return self._filters[key]
+
+    def __call__(self, images: torch.Tensor, p, generator: Optional[torch.Generator] = None,
+                 debug_percentile: Optional[float] = None) -> torch.Tensor:
+        n, c, h, w = images.shape
+        assert (h, w, c) == (self.height, self.width, self.num_channels)
+        if not self.cfg.has_geometric:
+            return images
+        g_inv = self.sample_geometric(n, p, images.device, generator, debug_percentile)
+        return self.apply_geometric(images, g_inv)
+
+    def sample_geometric(self, n: int, p, device, generator: Optional[torch.Generator] = None,
+                         debug_percentile: Optional[float] = None) -> torch.Tensor:
+        """Draw the blit + geometric transforms: ``G_inv [n, 3, 3]``."""
+        cfg = self.cfg
+        width, height = self.width, self.height
+        p = torch.as_tensor(p, dtype=torch.float32, device=device)
+        dp = None if debug_percentile is None else torch.tensor(
+            float(debug_percentile), dtype=torch.float32, device=device)
+
+        def draw_u(*tail):
+            return torch.rand((n,) + tail, generator=generator, device=device)
+
+        def draw_n(*tail):
+            return torch.randn((n,) + tail, generator=generator, device=device)
+
+        def gate(mult, value, identity):
+            u = draw_u(*((1,) * (value.ndim - 1)))
+            return torch.where(u < mult * p, value, identity)
+
+        g_inv = _eye3(n, device)
+        if cfg.xflip > 0:
+            i = gate(cfg.xflip, torch.floor(draw_u() * 2), torch.zeros(n, device=device))
+            if dp is not None:
+                i = torch.floor(dp * 2).expand(n)
+            g_inv = g_inv @ scale2d_inv(1 - 2 * i, torch.ones_like(i))
+        if cfg.rotate90 > 0:
+            i = gate(cfg.rotate90, torch.floor(draw_u() * 4), torch.zeros(n, device=device))
+            if dp is not None:
+                i = torch.floor(dp * 4).expand(n)
+            g_inv = g_inv @ rotate2d_inv(-np.pi / 2 * i)
+        if cfg.xint > 0:
+            t = (draw_u(2) * 2 - 1) * cfg.xint_max
+            t = gate(cfg.xint, t, torch.zeros_like(t))
+            if dp is not None:
+                t = ((dp * 2 - 1) * cfg.xint_max).expand(n, 2)
+            g_inv = g_inv @ translate2d_inv(torch.round(t[:, 0] * width),
+                                            torch.round(t[:, 1] * height))
+        if cfg.scale > 0:
+            s = gate(cfg.scale, torch.exp2(draw_n() * cfg.scale_std), torch.ones(n, device=device))
+            if dp is not None:
+                s = torch.exp2(torch.special.erfinv(dp * 2 - 1) * cfg.scale_std).expand(n)
+            g_inv = g_inv @ scale2d_inv(s, s)
+        p_rot = 1 - torch.sqrt(torch.clamp(1 - cfg.rotate * p, 0, 1))  # P(pre OR post) = p
+        if cfg.rotate > 0:
+            theta = (draw_u() * 2 - 1) * np.pi * cfg.rotate_max
+            theta = torch.where(draw_u() < p_rot, theta, torch.zeros_like(theta))
+            if dp is not None:
+                theta = ((dp * 2 - 1) * np.pi * cfg.rotate_max).expand(n)
+            g_inv = g_inv @ rotate2d_inv(-theta)
+        if cfg.aniso > 0:
+            s = gate(cfg.aniso, torch.exp2(draw_n() * cfg.aniso_std), torch.ones(n, device=device))
+            if dp is not None:
+                s = torch.exp2(torch.special.erfinv(dp * 2 - 1) * cfg.aniso_std).expand(n)
+            g_inv = g_inv @ scale2d_inv(s, 1 / s)
+        if cfg.rotate > 0:
+            theta = (draw_u() * 2 - 1) * np.pi * cfg.rotate_max
+            theta = torch.where(draw_u() < p_rot, theta, torch.zeros_like(theta))
+            if dp is not None:
+                theta = torch.zeros_like(theta)
+            g_inv = g_inv @ rotate2d_inv(-theta)
+        if cfg.xfrac > 0:
+            t = draw_n(2) * cfg.xfrac_std
+            t = gate(cfg.xfrac, t, torch.zeros_like(t))
+            if dp is not None:
+                t = (torch.special.erfinv(dp * 2 - 1) * cfg.xfrac_std).expand(n, 2)
+            g_inv = g_inv @ translate2d_inv(t[:, 0] * width, t[:, 1] * height)
+        return g_inv
+
+    def warp_geometry(self, g_inv: torch.Tensor):
+        """Conjugate ``G_inv`` to the padded, upsampled grid.  Returns the
+        normalised ``theta [n, 2, 3]`` of the warp and its output size."""
+        n = g_inv.shape[0]
+        dev = g_inv.device
+        hz_pad = len(self.hz_geom_taps) // 4
+        mx0, mx1, my0, my1 = self.margin
+        h1, w1 = self.height + my0 + my1, self.width + mx0 + mx1
+        g_inv = translate2d(_const(n, (mx0 - mx1) / 2, dev), _const(n, (my0 - my1) / 2, dev)) @ g_inv
+        two = _const(n, 2.0, dev)
+        half = _const(n, -0.5, dev)
+        g_inv = scale2d(two, two) @ g_inv @ scale2d_inv(two, two)
+        g_inv = translate2d(half, half) @ g_inv @ translate2d_inv(half, half)
+        out_h = (self.height + hz_pad * 2) * 2
+        out_w = (self.width + hz_pad * 2) * 2
+        in_h, in_w = 2 * h1, 2 * w1
+        g_inv = (scale2d(_const(n, 2 / in_w, dev), _const(n, 2 / in_h, dev)) @ g_inv
+                 @ scale2d_inv(_const(n, 2 / out_w, dev), _const(n, 2 / out_h, dev)))
+        return g_inv[:, :2, :], out_h, out_w
+
+    def apply_geometric(self, images: torch.Tensor, g_inv: torch.Tensor) -> torch.Tensor:
+        """Reflect-pad, warp at 2x (fused upsample + affine bilinear), and
+        FIR-downsample back to the input size."""
+        in_dtype = images.dtype
+        x = images.to(self.compute_dtype)
+        mx0, mx1, my0, my1 = self.margin
+        hz_pad = len(self.hz_geom_taps) // 4
+        x = _reflect_pad(x, my0, my1, mx0, mx1)
+        theta, out_h, out_w = self.warp_geometry(g_inv)
+        x = up_affine_warp(x, theta, self.hz_geom_taps, out_h, out_w)
+        x = downsample2d(x, self._filter(x.device), down=2, padding=-hz_pad * 2,
+                         flip_filter=True)
+        return x.to(in_dtype)

@@ -1,0 +1,178 @@
+"""The training step: all phases of one batch, in plain PyTorch.
+
+Port of ``TrainStepper._device_step`` (``gantrack_tpu/training/step.py``):
+G-main, then G-reg (path length) every ``g_reg_interval`` steps, D-main,
+then D-reg (R1) every ``d_reg_interval`` steps; each phase's gradients
+are NaN/Inf-scrubbed before its Adam update; then the G-EMA with rampup
+and the ADA controller.  One process, one device: the JAX package's
+``shard_map`` split, jit fast path and host syncs are not carried, and
+gradient accumulation (``micro_batches > 1``) and the mesh-size
+invariance mode (``rng_mode="global_sample"``) wait for the
+data-parallel slice (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import stats
+from .loss import StyleGAN2Loss
+from .train_state import TrainState
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    batch_size: int
+    z_dim: int
+    c_dim: int = 0
+    ema_kimg: float = 10.0
+    ema_rampup: Optional[float] = 0.05
+    g_reg_interval: Optional[int] = 4
+    d_reg_interval: Optional[int] = 16
+    ada_target: Optional[float] = None      # None = ADA controller off
+    ada_interval: int = 4
+    ada_kimg: float = 500.0
+    micro_batches: int = 1
+    rng_mode: str = "device"
+
+
+def _scrub(grads):
+    """nan → 0, ±inf → ±1e5 (reference ``misc.nan_to_num``)."""
+    return [torch.nan_to_num(g, nan=0.0, posinf=1e5, neginf=-1e5) for g in grads]
+
+
+def _apply(opt: torch.optim.Optimizer, params, loss: torch.Tensor) -> None:
+    """Gradients of ``loss`` w.r.t. ``params`` only, scrubbed, then an
+    optimizer step."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    for p, g in zip(params, _scrub(grads)):
+        p.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+
+
+def update_ema(G_ema, G, batch_size: int, cur_nimg: int, ema_kimg: float,
+               ema_rampup: Optional[float]) -> None:
+    """``G_ema ← G + (G_ema − G)·β`` with ``β = 0.5^(batch / ema_nimg)``;
+    buffers (``w_avg``, noise constants) are copied from G."""
+    ema_nimg = ema_kimg * 1000.0
+    if ema_rampup is not None:
+        ema_nimg = min(ema_nimg, cur_nimg * ema_rampup)
+    beta = 0.5 ** (batch_size / max(ema_nimg, 1e-8))
+    with torch.no_grad():
+        for p_ema, p in zip(G_ema.parameters(), G.parameters()):
+            p_ema.copy_(p.lerp(p_ema, beta))
+        for b_ema, b in zip(G_ema.buffers(), G.buffers()):
+            b_ema.copy_(b)
+
+
+class TrainStepper:
+    """Runs one batch on ``state`` in place and returns its moments."""
+
+    def __init__(self, loss: StyleGAN2Loss, cfg: TrainStepConfig,
+                 generator: torch.Generator, label_bank: Optional[torch.Tensor] = None):
+        if cfg.micro_batches != 1:
+            raise NotImplementedError("micro_batches > 1 waits for the data-parallel slice "
+                                      "(ROADMAP A7)")
+        if cfg.rng_mode != "device":
+            raise NotImplementedError("rng_mode='global_sample' waits for the data-parallel "
+                                      "slice (ROADMAP A7)")
+        self.loss = loss
+        self.cfg = cfg
+        self.generator = generator
+        self.label_bank = label_bank
+
+    def phase_flags(self, step: int) -> Tuple[bool, bool]:
+        """Lazy-regularisation cadence for batch index ``step``."""
+        do_gpl = (self.cfg.g_reg_interval is not None and self.loss.cfg.pl_weight != 0
+                  and step % self.cfg.g_reg_interval == 0)
+        do_dr1 = (self.cfg.d_reg_interval is not None and self.loss.cfg.r1_gamma != 0
+                  and step % self.cfg.d_reg_interval == 0)
+        return do_gpl, do_dr1
+
+    def _sample_zc(self, n: int, device):
+        z = torch.randn((n, self.cfg.z_dim), generator=self.generator, device=device)
+        c = None
+        if self.cfg.c_dim > 0:
+            if self.label_bank is not None:
+                idx = torch.randint(0, self.label_bank.shape[0], (n,), generator=self.generator,
+                                    device=device)
+                c = self.label_bank[idx]
+            else:
+                idx = torch.randint(0, self.cfg.c_dim, (n,), generator=self.generator,
+                                    device=device)
+                c = torch.nn.functional.one_hot(idx, self.cfg.c_dim).float()
+        return z, c
+
+    def __call__(self, state: TrainState, real_img, real_c=None) -> stats.Moments:
+        return self.run(state, real_img, real_c, *self.phase_flags(state.step))
+
+    def run(self, state: TrainState, real_img: torch.Tensor, real_c: Optional[torch.Tensor],
+            do_gpl: bool, do_dr1: bool,
+            draws: Optional[Dict[str, torch.Tensor]] = None) -> stats.Moments:
+        """One batch with the given regularisation phases.  ``draws`` may
+        hand in what the step would otherwise draw: ``z_gmain``,
+        ``z_gpl``, ``z_dmain`` (and ``c_*``), ``pl_noise``."""
+        cfg, loss, gen = self.cfg, self.loss, self.generator
+        draws = draws or {}
+        b = real_img.shape[0]
+        dev = real_img.device
+        if cfg.c_dim == 0:
+            real_c = None
+        cur_nimg = float(state.cur_nimg)
+        g_params = list(state.G.parameters())
+        d_params = list(state.D.parameters())
+
+        def zc(phase):
+            if f"z_{phase}" in draws:
+                return draws[f"z_{phase}"], draws.get(f"c_{phase}")
+            return self._sample_zc(b, dev)
+
+        # G-main.
+        z, c = zc("gmain")
+        loss_g, m = loss.gmain(z, c, gen, state.ada_p, cur_nimg)
+        _apply(state.opt_g, g_params, loss_g)
+        moments = m
+
+        # G-reg (path length).
+        if do_gpl:
+            z, c = zc("gpl")
+            loss_pl, new_pl_mean, m = loss.gpl(z, c, gen, state.pl_mean, draws.get("pl_noise"))
+            _apply(state.opt_g, g_params, loss_pl * float(cfg.g_reg_interval))
+            state.pl_mean = new_pl_mean
+            moments = stats.merge(moments, m)
+
+        # D-main (updates w_avg from the fake pass).
+        z, c = zc("dmain")
+        loss_d, m = loss.dmain(z, c, real_img, real_c, gen, state.ada_p, cur_nimg)
+        _apply(state.opt_d, d_params, loss_d)
+        moments = stats.merge(moments, m)
+
+        # D-reg (R1).
+        if do_dr1:
+            loss_r1, m = loss.dr1(real_img, real_c, gen, state.ada_p, cur_nimg)
+            _apply(state.opt_d, d_params, loss_r1 * float(cfg.d_reg_interval))
+            moments = stats.merge(moments, m)
+
+        update_ema(state.G_ema, state.G, cfg.batch_size, state.cur_nimg, cfg.ema_kimg,
+                   cfg.ema_rampup)
+
+        # ADA controller: sign feedback every ada_interval batches.
+        if cfg.ada_target is not None:
+            sr = moments["Loss/signs/real"]
+            state.ada_signs = state.ada_signs + sr[:2]
+            if (state.step + 1) % cfg.ada_interval == 0:
+                mean_sign = state.ada_signs[1] / state.ada_signs[0].clamp(min=1.0)
+                adjust = (torch.sign(mean_sign - cfg.ada_target)
+                          * (cfg.batch_size * cfg.ada_interval) / (cfg.ada_kimg * 1000.0))
+                state.ada_p = (state.ada_p + adjust).clamp(min=0.0)
+                state.ada_signs = torch.zeros_like(state.ada_signs)
+        moments = stats.report(moments, "Progress/augment", state.ada_p)
+
+        state.step += 1
+        state.cur_nimg += cfg.batch_size
+        return moments

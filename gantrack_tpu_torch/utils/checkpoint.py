@@ -1,0 +1,137 @@
+"""Full-state checkpoints, PNG image grids and run directories.
+
+A checkpoint holds everything a step mutates: G, D and G_ema state
+dicts, both optimizers, ``pl_mean``, the ADA state, the step counters
+and the step generator's state, so a resumed run continues exactly.
+Image grids are written by a small numpy + ``zlib`` PNG encoder (no
+image library is needed).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import struct
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def save_checkpoint(ckpt_dir: str, state, generator: Optional[torch.Generator] = None) -> str:
+    """Write ``<ckpt_dir>/state-<step>.pt`` atomically; returns its path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"state-{state.step:08d}.pt")
+    payload = {
+        "G": state.G.state_dict(),
+        "D": state.D.state_dict(),
+        "G_ema": state.G_ema.state_dict(),
+        "opt_g": state.opt_g.state_dict(),
+        "opt_d": state.opt_d.state_dict(),
+        "pl_mean": state.pl_mean.detach().cpu(),
+        "ada_p": state.ada_p.detach().cpu(),
+        "ada_signs": state.ada_signs.detach().cpu(),
+        "step": state.step,
+        "cur_nimg": state.cur_nimg,
+        "generator": generator.get_state() if generator is not None else None,
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, state, generator: Optional[torch.Generator] = None):
+    """Restore ``state`` (and ``generator``) in place from ``path``."""
+    device = state.pl_mean.device
+    payload = torch.load(path, map_location=device, weights_only=True)
+    state.G.load_state_dict(payload["G"])
+    state.D.load_state_dict(payload["D"])
+    state.G_ema.load_state_dict(payload["G_ema"])
+    state.opt_g.load_state_dict(payload["opt_g"])
+    state.opt_d.load_state_dict(payload["opt_d"])
+    state.pl_mean = payload["pl_mean"].to(device)
+    state.ada_p = payload["ada_p"].to(device)
+    state.ada_signs = payload["ada_signs"].to(device)
+    state.step = int(payload["step"])
+    state.cur_nimg = int(payload["cur_nimg"])
+    if generator is not None and payload["generator"] is not None:
+        generator.set_state(payload["generator"].cpu())
+    return state
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    entries = sorted(e for e in os.listdir(ckpt_dir) if re.fullmatch(r"state-\d+\.pt", e))
+    return os.path.join(ckpt_dir, entries[-1]) if entries else None
+
+
+def resolve_checkpoint_path(checkpoint: str) -> Optional[str]:
+    """A ``state-*.pt`` file, or the latest one in a run dir's
+    ``checkpoints/`` or in the directory itself."""
+    if os.path.isfile(checkpoint):
+        return checkpoint
+    if os.path.isdir(checkpoint):
+        return (latest_checkpoint(os.path.join(checkpoint, "checkpoints"))
+                or latest_checkpoint(checkpoint))
+    return None
+
+
+def encode_png(pixels: np.ndarray) -> bytes:
+    """8-bit grayscale ``[H, W]`` or RGB ``[H, W, 3]`` → PNG bytes."""
+    assert pixels.dtype == np.uint8 and pixels.ndim in (2, 3)
+    h, w = pixels.shape[:2]
+    color_type = 0 if pixels.ndim == 2 else 2
+    rows = pixels.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()  # filter 0
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1),
+                    grid_size: Optional[tuple] = None) -> None:
+    """Export an ``[N, H, W, C]`` batch as one PNG grid (2-channel pairs
+    side by side, as the JAX package writes them)."""
+    lo, hi = drange
+    img = (np.asarray(images, np.float32) - lo) * (255 / (hi - lo))
+    img = np.rint(img).clip(0, 255).astype(np.uint8)
+    n, h, w, c = img.shape
+    if grid_size is None:
+        gw = max(int(np.ceil(np.sqrt(n))), 1)
+        gh = int(np.ceil(n / gw))
+    else:
+        gw, gh = grid_size
+    grid = np.zeros((gh * h, gw * w, c), dtype=np.uint8)
+    for i in range(min(n, gw * gh)):
+        y, x = divmod(i, gw)
+        grid[y * h:(y + 1) * h, x * w:(x + 1) * w] = img[i]
+    if c == 1:
+        pixels = grid[:, :, 0]
+    elif c == 2:
+        pixels = np.concatenate([grid[:, :, 0], grid[:, :, 1]], axis=1)
+    else:
+        pixels = grid
+    with open(path, "wb") as f:
+        f.write(encode_png(np.ascontiguousarray(pixels)))
+
+
+def allocate_run_dir(outdir: str, desc: str) -> str:
+    """Create the next ``NNNNN-<desc>`` run dir under ``outdir``.
+
+    The same as ``gantrack_tpu.utils.config.allocate_run_dir``, which the
+    port cannot import: ``gantrack_tpu/utils/__init__.py`` imports the JAX
+    checkpoint module, so any import from ``gantrack_tpu.utils`` loads jax.
+    """
+    os.makedirs(outdir, exist_ok=True)
+    ids = [int(m.group(1)) for name in os.listdir(outdir) if (m := re.match(r"^(\d+)-", name))]
+    run_dir = os.path.join(outdir, f"{max(ids, default=-1) + 1:05d}-{desc}")
+    os.makedirs(run_dir, exist_ok=False)
+    return run_dir

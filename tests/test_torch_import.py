@@ -1,0 +1,74 @@
+"""The port imports no JAX (or any package the card machine lacks).
+
+Checked in a fresh interpreter with ``JAX_PLATFORMS`` unset, the case in
+which ``gantrack_tpu/__init__.py`` would import jax unless the port
+switches its compile cache off first.  ``chip_smoke.py`` imports only the
+port, and without a CUDA device it fails and prints no result.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "click", "PIL", "psutil", "yaml")
+
+
+@pytest.mark.parametrize("module", [
+    "gantrack_tpu_torch.tools.train",
+    "gantrack_tpu_torch.training.loop",
+    "gantrack_tpu_torch.models.bridge",
+    "gantrack_tpu_torch.data",
+])
+def test_port_imports_no_jax(module):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "GANTRACK_JAX_CACHE")}
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "import gantrack_tpu.data.dataset, gantrack_tpu.data.loader, "
+            "gantrack_tpu.data.preprocess.packaging; "
+            f"print(sorted(m for m in {FORBIDDEN!r} if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_port_sources_name_no_forbidden_package():
+    pkg = os.path.join(ROOT, "gantrack_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, name)) as f:
+                for line in f:
+                    words = line.strip().split()
+                    if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                        top = words[1].split(".")[0]
+                        assert top not in FORBIDDEN, (name, line)
+
+
+def test_chip_smoke_imports_only_the_port():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    tops = {name.split(".")[0] for name in names}
+    assert "gantrack_tpu_torch" in tops
+    assert not tops & {*FORBIDDEN, "gantrack_tpu"}, tops
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_cuda(where, tmp_path):
+    script = os.path.join(ROOT, "chip_smoke.py")
+    if where == "alone":  # a directory that holds chip_smoke.py and nothing else
+        with open(script) as f:
+            (tmp_path / "chip_smoke.py").write_text(f.read())
+        script = str(tmp_path / "chip_smoke.py")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}  # no device, on any machine
+    out = subprocess.run([sys.executable, script], cwd=os.path.dirname(script), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,243 @@
+"""The port's training slice against the JAX package, at a tiny width.
+
+* Each loss phase (G-main, G-reg, D-main, D-reg): loss and parameter
+  gradients against ``jax.value_and_grad`` of the JAX phase.
+* One whole step with both regularisers (two lazy-reg Adam updates of G,
+  two of D, the G-EMA and one ADA update) against the JAX
+  ``TrainStepper._device_step``.
+
+Same weights (carried by ``models.bridge``), const noise, style mixing 0,
+and the augment pipe fixed by ``debug_percentile`` on both sides.  What
+JAX draws inside the step (the latents and the path-length noise) is
+drawn here with JAX's own keys and handed to the port.  Tolerances: 1e-4
+on losses and gradients (two nested differentiations through G or D and
+the augment chain); 1e-5 on parameters after an Adam step, whose
+updates are ±lr-sized.
+
+Then four steps of the full port stepper (random noise, style mixing,
+random augment draws) on the CPU must stay finite.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gantrack_tpu.models import stylegan2 as jsg2
+from gantrack_tpu.parallel.mesh import create_mesh
+from gantrack_tpu.training import augment as jaug
+from gantrack_tpu.training import loss as jloss
+from gantrack_tpu.training import step as jstep
+from gantrack_tpu.training.train_state import create_train_state as j_create_state
+from gantrack_tpu.training.train_state import lazy_reg_adam as j_adam
+from gantrack_tpu_torch.models import bridge
+from gantrack_tpu_torch.models import stylegan2 as tsg2
+from gantrack_tpu_torch.training import augment as taug
+from gantrack_tpu_torch.training import loss as tloss
+from gantrack_tpu_torch.training import step as tstep
+from gantrack_tpu_torch.training.train_state import create_train_state
+
+torch.set_num_threads(1)
+
+RES, ZDIM, BATCH = 16, 8, 4
+PCT = 0.3
+GLR = DLR = 0.002
+TOL = dict(rtol=1e-4, atol=1e-4)
+G_KW = dict(z_dim=ZDIM, c_dim=0, w_dim=ZDIM, img_resolution=RES, img_channels=1,
+            mapping_kwargs=dict(num_layers=2),
+            synthesis_kwargs=dict(channel_base=128, channel_max=32, num_fp16_res=0))
+D_KW = dict(c_dim=0, img_resolution=RES, img_channels=1, channel_base=128, channel_max=32,
+            num_fp16_res=0, epilogue_kwargs=dict(mbstd_group_size=2))
+LOSS_KW = dict(r1_gamma=1.0, style_mixing_prob=0.0, pl_weight=2.0, noise_mode="const")
+STEP_KW = dict(batch_size=BATCH, z_dim=ZDIM, ada_target=0.6, ada_interval=4)
+
+
+def _perturb(tree, rng, scale=0.1):
+    return jax.tree.map(
+        lambda a: np.asarray(a) + scale * rng.standard_normal(np.shape(a)).astype(np.float32),
+        tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_setup():
+    g, d = jsg2.Generator(**G_KW), jsg2.Discriminator(**D_KW)
+    pipe = jaug.AugmentPipe(jaug.medical_augment_config(), RES, RES, 1, impl="gather",
+                            compute_dtype=jnp.float32)
+    loss = jloss.StyleGAN2Loss(g, d, jloss.StyleGAN2LossConfig(**LOSS_KW),
+                               augment_fn=functools.partial(pipe, debug_percentile=PCT))
+    opt_g = j_adam(GLR, reg_interval=4)
+    opt_d = j_adam(DLR, reg_interval=16)
+    state = jax.jit(lambda key: j_create_state(
+        g, d, key, opt_g, opt_d, z_dim=ZDIM, c_dim=0, img_resolution=RES,
+        img_channels=1))(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    params_g = _perturb(jax.device_get(state.params_g), rng)
+    state = state.replace(
+        params_g=params_g,
+        params_g_ema=_perturb(params_g, rng, 0.01),
+        params_d=_perturb(jax.device_get(state.params_d), rng),
+        emas_g=_perturb(jax.device_get(state.emas_g), rng),
+        step=jnp.asarray(3, jnp.int32),            # (step + 1) % ada_interval == 0
+        cur_nimg=jnp.asarray(1000, jnp.int32),     # G-EMA beta strictly inside (0, 1)
+        ada_p=jnp.asarray(0.2, jnp.float32),
+        opt_g=opt_g.init(params_g),
+    )
+    stepper = jstep.TrainStepper(loss, opt_g, opt_d, jstep.TrainStepConfig(**STEP_KW),
+                                 create_mesh(1))
+    return loss, state, stepper
+
+
+def _port_setup(jstate):
+    g, d, g_ema = tsg2.Generator(**G_KW), tsg2.Discriminator(**D_KW), tsg2.Generator(**G_KW)
+    consts = jax.device_get(jstate.consts_g)
+    emas = jax.device_get(jstate.emas_g)
+    g.load_state_dict(bridge.generator_state_dict_from_jax(
+        {"params": jax.device_get(jstate.params_g), "emas": emas, **consts}))
+    g_ema.load_state_dict(bridge.generator_state_dict_from_jax(
+        {"params": jax.device_get(jstate.params_g_ema), "emas": emas, **consts}))
+    d.load_state_dict(bridge.discriminator_state_dict_from_jax(
+        {"params": jax.device_get(jstate.params_d)}))
+    state = create_train_state(g, d, GLR, DLR)
+    state.G_ema.load_state_dict(g_ema.state_dict())
+    state.step = int(jstate.step)
+    state.cur_nimg = int(jstate.cur_nimg)
+    state.ada_p = torch.tensor(float(jstate.ada_p))
+    pipe = taug.AugmentPipe(taug.medical_augment_config(), RES, RES, 1,
+                            compute_dtype=torch.float32)
+    loss = tloss.StyleGAN2Loss(state.G, state.D, tloss.StyleGAN2LossConfig(**LOSS_KW),
+                               augment_fn=functools.partial(pipe, debug_percentile=PCT))
+    return state, loss
+
+
+def _nchw(x):
+    return torch.tensor(np.transpose(np.asarray(x), (0, 3, 1, 2)))
+
+
+def _reals(seed=5):
+    return np.random.default_rng(seed).standard_normal((BATCH, RES, RES, 1)).astype(np.float32)
+
+
+def _step_draws(jstate):
+    """The latents and path-length noise ``_device_step`` draws."""
+    rng_dev = jax.random.fold_in(jax.random.fold_in(jstate.rng, jstate.step), 0)
+    k = jax.random.split(rng_dev, 8)
+    z = {name: np.array(jax.random.normal(k[i], (BATCH, ZDIM), jnp.float32))
+         for name, i in (("gmain", 0), ("gpl", 2), ("dmain", 4))}
+    k_noise = jax.random.split(k[3], 3)[1]
+    pl_noise = jax.random.normal(k_noise, (BATCH // 2, RES, RES, 1))
+    return k, z, pl_noise
+
+
+def _assert_grads(port_module, port_grads, jax_grads, kind):
+    names = [n for n, _ in port_module.named_parameters()]
+    if kind == "G":
+        want = bridge.generator_state_dict_from_jax({"params": jax.device_get(jax_grads)})
+    else:
+        want = bridge.discriminator_state_dict_from_jax({"params": jax.device_get(jax_grads)})
+    assert set(names) == set(want)
+    for name, g in zip(names, port_grads):
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("phase", ["gmain", "gpl", "dmain", "dr1"])
+def test_phase_loss_and_grads_match_jax(phase):
+    jl, jstate, _ = _jax_setup()
+    state, tl = _port_setup(jstate)
+    k, z, pl_noise = _step_draws(jstate)
+    extras_g = {"emas": jstate.emas_g, **jstate.consts_g}
+    vars_g = {"params": jstate.params_g, **extras_g}
+    reals = _reals()
+    gen = torch.Generator().manual_seed(0)
+    ada_p, nimg = jstate.ada_p, jnp.float32(1000.0)
+    if phase == "gmain":
+        fn = lambda p: jl.gmain(p, extras_g, {"params": jstate.params_d}, jnp.asarray(z["gmain"]),
+                                None, k[1], ada_p, nimg)
+        (jl_val, _), jgrads = jax.jit(jax.value_and_grad(fn, has_aux=True))(jstate.params_g)
+        t_val, _ = tl.gmain(torch.from_numpy(z["gmain"]), None, gen, state.ada_p, 1000.0)
+    elif phase == "gpl":
+        fn = lambda p: jl.gpl(p, extras_g, jnp.asarray(z["gpl"]), None, k[3], jstate.pl_mean)
+        (jl_val, (j_pl, _)), jgrads = jax.jit(jax.value_and_grad(fn, has_aux=True))(
+            jstate.params_g)
+        t_val, t_pl, _ = tl.gpl(torch.from_numpy(z["gpl"]), None, gen, state.pl_mean,
+                                _nchw(pl_noise))
+        np.testing.assert_allclose(float(t_pl), float(j_pl), **TOL)
+    elif phase == "dmain":
+        fn = lambda p: jl.dmain(p, vars_g, jnp.asarray(z["dmain"]), None, jnp.asarray(reals),
+                                jnp.zeros((BATCH, 0)), k[5], ada_p, nimg)
+        (jl_val, (new_emas, _)), jgrads = jax.jit(jax.value_and_grad(fn, has_aux=True))(
+            jstate.params_d)
+        t_val, _ = tl.dmain(torch.from_numpy(z["dmain"]), None, _nchw(reals), None, gen,
+                            state.ada_p, 1000.0)
+        np.testing.assert_allclose(state.G.mapping.w_avg.numpy(),
+                                   np.asarray(new_emas["mapping"]["w_avg"]), **TOL)
+    else:
+        fn = lambda p: jl.dr1(p, jnp.asarray(reals), jnp.zeros((BATCH, 0)), k[6], ada_p, nimg)
+        (jl_val, _), jgrads = jax.jit(jax.value_and_grad(fn, has_aux=True))(jstate.params_d)
+        t_val, _ = tl.dr1(_nchw(reals), None, gen, state.ada_p, 1000.0)
+    module = state.G if phase.startswith("g") else state.D
+    params = list(module.parameters())
+    t_grads = torch.autograd.grad(t_val, params, allow_unused=True)
+    t_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, t_grads)]
+    np.testing.assert_allclose(float(t_val.detach()), float(jl_val), **TOL)
+    _assert_grads(module, t_grads, jgrads, "G" if phase.startswith("g") else "D")
+
+
+def test_full_step_matches_jax():
+    """Adam updates of all four phases, the G-EMA, pl_mean and one ADA update."""
+    _, jstate, jstepper = _jax_setup()
+    state, tl = _port_setup(jstate)
+    _, z, pl_noise = _step_draws(jstate)
+    reals = _reals()
+    new_j, _ = jax.jit(functools.partial(jstepper._device_step, True, True))(
+        jstate, jnp.asarray(reals), jnp.zeros((BATCH, 0), jnp.float32))
+    stepper = tstep.TrainStepper(tl, tstep.TrainStepConfig(**STEP_KW), torch.Generator())
+    draws = {f"z_{k}": torch.from_numpy(v) for k, v in z.items()}
+    draws["pl_noise"] = _nchw(pl_noise)
+    moments = stepper.run(state, _nchw(reals), None, True, True, draws=draws)
+
+    assert state.step == 4 and state.cur_nimg == 1000 + BATCH
+    new_j = jax.device_get(new_j)
+    for module, params, emas in ((state.G, new_j.params_g, new_j.emas_g),
+                                 (state.G_ema, new_j.params_g_ema, new_j.emas_g)):
+        want = bridge.generator_state_dict_from_jax(
+            {"params": params, "emas": emas, **new_j.consts_g})
+        for name, value in module.state_dict().items():
+            np.testing.assert_allclose(value.numpy(), want[name].numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+    want_d = bridge.discriminator_state_dict_from_jax({"params": new_j.params_d})
+    for name, value in state.D.state_dict().items():
+        np.testing.assert_allclose(value.numpy(), want_d[name].numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    np.testing.assert_allclose(float(state.pl_mean), float(new_j.pl_mean), **TOL)
+    np.testing.assert_allclose(float(state.ada_p), float(new_j.ada_p), **TOL)
+    assert float(state.ada_p) != 0.2  # the controller moved p
+    np.testing.assert_allclose(state.ada_signs.numpy(), np.asarray(new_j.ada_signs), **TOL)
+    assert "Loss/pl_penalty" in moments and "Loss/r1_penalty" in moments
+
+
+def test_four_port_steps_stay_finite():
+    torch.manual_seed(0)
+    g, d = tsg2.Generator(**G_KW), tsg2.Discriminator(**D_KW)
+    state = create_train_state(g, d, GLR, DLR)
+    pipe = taug.AugmentPipe(taug.medical_augment_config(), RES, RES, 1)
+    loss = tloss.StyleGAN2Loss(g, d, tloss.StyleGAN2LossConfig(r1_gamma=1.0), augment_fn=pipe)
+    state.ada_p = torch.tensor(0.5)
+    stepper = tstep.TrainStepper(loss, tstep.TrainStepConfig(**STEP_KW),
+                                 torch.Generator().manual_seed(0))
+    p0 = [p.detach().clone() for p in g.parameters()]
+    reals = _nchw(_reals())
+    seen = set()
+    for _ in range(4):
+        moments = stepper(state, reals)
+        seen |= set(moments)
+        for name, m in moments.items():
+            assert torch.isfinite(m).all(), name
+    assert {"Loss/pl_penalty", "Loss/r1_penalty", "Loss/G/loss", "Loss/D/loss"} <= seen
+    assert state.step == 4
+    assert any(not torch.equal(a, b) for a, b in zip(p0, g.parameters()))
+    for p in list(g.parameters()) + list(d.parameters()) + list(state.G_ema.parameters()):
+        assert torch.isfinite(p).all()
