@@ -1,11 +1,19 @@
-"""JAX variables (numpy) → state dicts of the port's StyleGAN2 modules.
+"""JAX variables (numpy) → state dicts of the port's modules.
 
-The inverse of ``generator_params_from_torch`` and
-``discriminator_params_from_torch`` in ``gantrack_tpu/models/torch_compat.py``:
-HWIO → OIHW conv weights, ``[in, out]`` → ``[out, in]`` dense weights,
-HWC → CHW const inputs, and the discriminator epilogue's NHWC flatten
-order back to NCHW.  Takes nested dicts of arrays (``jax.device_get`` of
-the flax variables); imports no JAX.
+* StyleGAN2: the inverse of ``generator_params_from_torch`` and
+  ``discriminator_params_from_torch`` in
+  ``gantrack_tpu/models/torch_compat.py``: HWIO → OIHW conv weights,
+  ``[in, out]`` → ``[out, in]`` dense weights, HWC → CHW const inputs,
+  and the discriminator epilogue's NHWC flatten order back to NCHW.
+* InceptionV3 (``gantrack_tpu/models/inception.py``): HWIO → OIHW convs,
+  the folded ``bn_scale`` / ``bn_offset``, the ``output`` dense layer;
+  from the nested flax variables or from the flat ``a/b/c`` keys of a
+  converted ``.npz``.
+* The random-projection detector's matrices, which both packages apply
+  to images flattened in HWC order, carry over as they are.
+
+Takes nested dicts of arrays (``jax.device_get`` of the flax variables);
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -90,3 +98,45 @@ def discriminator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str,
     sd["b4.fc.bias"] = _t(ep["fc"]["bias"])
     _fc(sd, "b4.out", ep["out"])
     return sd
+
+
+def inception_state_dict_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flat ``"Mixed_5b/branch1x1/conv/kernel"``-style arrays (the
+    ``.npz`` of ``tools/convert_detector.py``) → the port's
+    ``InceptionV3Features`` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        if key == "__variant__":
+            continue
+        parts = key.split("/")
+        a = np.asarray(value)
+        if parts[-1] == "kernel" and a.ndim == 4:
+            sd[".".join([*parts[:-1], "weight"])] = _conv_w(a)
+        elif parts[-1] == "kernel":
+            sd[".".join([*parts[:-1], "weight"])] = _t(a.T)
+        else:
+            sd[".".join(parts)] = _t(a)
+    return sd
+
+
+def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params"}`` of the JAX ``InceptionV3Features`` → the port's
+    state dict."""
+    flat: Dict[str, Any] = {}
+
+    def walk(prefix, tree):
+        for name, sub in tree.items():
+            key = f"{prefix}/{name}" if prefix else name
+            if isinstance(sub, Mapping):
+                walk(key, sub)
+            else:
+                flat[key] = sub
+
+    walk("", variables["params"])
+    return inception_state_dict_from_flat(flat)
+
+
+def random_projection_from_jax(matrices) -> list:
+    """The JAX random-projection detector's matrices (its ``params``) →
+    the port's, as float32 tensors."""
+    return [_t(m) for m in matrices]

@@ -23,7 +23,7 @@ import torch.nn as nn
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.modulated_conv2d import modulated_conv2d
-from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..ops.upfirdn2d import downsample2d, filter_taps, setup_filter, upsample2d
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> torch.Tensor:
@@ -31,8 +31,12 @@ def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> to
 
 
 def _filter_buffer(module: nn.Module, taps: Sequence[int]) -> None:
-    # Non-persistent: a constant, not part of the state dict.
-    module.register_buffer("resample_filter", setup_filter(list(taps)), persistent=False)
+    # Non-persistent: a constant, not part of the state dict.  Its host
+    # taps go to upfirdn2d beside it, so the FIR kernels never read the
+    # device filter back.
+    f = setup_filter(list(taps))
+    module.register_buffer("resample_filter", f, persistent=False)
+    module.resample_taps = filter_taps(f)
 
 
 class FullyConnected(nn.Module):
@@ -82,7 +86,7 @@ class Conv2dLayer(nn.Module):
         w = (self.weight * self.weight_gain).to(x.dtype)
         f = self.resample_filter if (self.up > 1 or self.down > 1) else None
         x = conv2d_resample(x, w, f=f, up=self.up, down=self.down, padding=self.padding,
-                            flip_weight=(self.up == 1))
+                            flip_weight=(self.up == 1), taps=self.resample_taps)
         act_gain = self.act_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
@@ -175,7 +179,8 @@ class SynthesisLayer(nn.Module):
         f = self.resample_filter if self.up > 1 else None
         x = modulated_conv2d(x, self.weight.to(x.dtype), styles, noise=noise, up=self.up,
                              padding=self.padding, resample_filter=f,
-                             flip_weight=(self.up == 1), fused_modconv=fused_modconv)
+                             resample_taps=self.resample_taps, flip_weight=(self.up == 1),
+                             fused_modconv=fused_modconv)
         act_gain = self.act_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
@@ -253,7 +258,7 @@ class SynthesisBlock(nn.Module):
             x = self.conv0(x, next(w_iter), **kw)
             x = self.conv1(x, next(w_iter), **kw)
         if img is not None:
-            img = upsample2d(img, self.resample_filter)
+            img = upsample2d(img, self.resample_filter, taps=self.resample_taps)
         if self.is_last or self.architecture == "skip":
             y = self.torgb(x, next(w_iter), fused_modconv=fused_modconv).float()
             img = img + y if img is not None else y
@@ -364,7 +369,7 @@ class DiscriminatorBlock(nn.Module):
             img = img.to(dtype)
             y = self.fromrgb(img)
             x = x + y if x is not None else y
-            img = (downsample2d(img, self.resample_filter)
+            img = (downsample2d(img, self.resample_filter, taps=self.resample_taps)
                    if self.architecture == "skip" else None)
         if self.architecture == "resnet":
             y = self.skip(x, gain=np.sqrt(0.5))

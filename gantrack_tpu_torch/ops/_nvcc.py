@@ -5,7 +5,8 @@ the build needs no PyTorch headers (seconds, not minutes).  It is built
 at first use into ``build/gantrack_tpu_torch/`` at the repository root,
 under a name keyed by a hash of the source and the flags, so an edited
 source is rebuilt and concurrent builds do not collide.  A missing
-``nvcc`` raises: there is no fallback.
+``nvcc`` raises: there is no fallback.  :func:`build_all` starts one
+``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -27,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LOCK = threading.Lock()
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Per source: {"seconds": build time or 0.0 when cached, "log": nvcc output}.
 BUILD_INFO: Dict[str, dict] = {}
@@ -45,6 +50,8 @@ def find_nvcc() -> str:
 def load_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>``; cached per process."""
     with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
         if source in _LIBS:
             return _LIBS[source]
         src_path = os.path.join(CSRC_DIR, source)
@@ -72,3 +79,29 @@ def load_library(source: str) -> ctypes.CDLL:
         BUILD_INFO[source] = info
         _LIBS[source] = ctypes.CDLL(so_path)
         return _LIBS[source]
+
+
+def build_all() -> Dict[str, dict]:
+    """Build and load every source of ``csrc/``, one ``nvcc`` each, all
+    started together; returns ``BUILD_INFO`` of those sources."""
+    sources = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(load_library, sources))
+    return {s: BUILD_INFO[s] for s in sources}
+
+
+def check_planes(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` is a contiguous CUDA ``[P, H, W]`` tensor of
+    float32 or bfloat16, the layout the kernels of ``csrc/`` take."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if t.ndim != 3 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous [P, H, W] tensor, got "
+                         f"shape {tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

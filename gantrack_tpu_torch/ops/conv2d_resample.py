@@ -61,9 +61,11 @@ def conv2d_resample(
     groups: int = 1,
     flip_weight: bool = True,
     flip_filter: bool = False,
+    taps=None,
 ) -> torch.Tensor:
     """Convolve ``[N, I, H, W]`` by ``[O, I//groups, kh, kw]`` with optional
-    FIR-filtered up/downsampling (see the JAX module for the contract)."""
+    FIR-filtered up/downsampling (see the JAX module for the contract).
+    ``taps`` are the filter's host taps (``upfirdn2d.filter_taps(f)``)."""
     assert x.ndim == 4 and w.ndim == 4
     kh, kw = int(w.shape[2]), int(w.shape[3])
     fw, fh = _get_filter_size(f)
@@ -82,22 +84,23 @@ def conv2d_resample(
     pad = [px0, px1, py0, py1]
 
     if kw == 1 and kh == 1 and down > 1 and up == 1:
-        x = upfirdn2d(x, f, down=down, padding=pad, flip_filter=flip_filter)
+        x = upfirdn2d(x, f, down=down, padding=pad, flip_filter=flip_filter, taps=taps)
         return _conv2d(x, w, groups=groups, flip_weight=flip_weight)
 
     if kw == 1 and kh == 1 and up > 1 and down == 1:
         x = _conv2d(x, w, groups=groups, flip_weight=flip_weight)
-        return upfirdn2d(x, f, up=up, padding=pad, gain=up**2, flip_filter=flip_filter)
+        return upfirdn2d(x, f, up=up, padding=pad, gain=up**2, flip_filter=flip_filter,
+                         taps=taps)
 
     if down > 1 and up == 1:
-        x = upfirdn2d(x, f, padding=pad, flip_filter=flip_filter)
+        x = upfirdn2d(x, f, padding=pad, flip_filter=flip_filter, taps=taps)
         return _conv2d(x, w, stride=down, groups=groups, flip_weight=flip_weight)
 
     if up > 1:
         x = _conv2d_up(x, w, up, pad, groups, flip_weight)
-        x = upfirdn2d(x, f, gain=up**2, flip_filter=flip_filter)
+        x = upfirdn2d(x, f, gain=up**2, flip_filter=flip_filter, taps=taps)
         if down > 1:
-            x = upfirdn2d(x, f, down=down, flip_filter=flip_filter)
+            x = upfirdn2d(x, f, down=down, flip_filter=flip_filter, taps=taps)
         return x
 
     return _conv2d(x, w, padding=pad, groups=groups, flip_weight=flip_weight)

@@ -27,6 +27,7 @@ def modulated_conv2d(
     down: int = 1,
     padding: int = 0,
     resample_filter: Optional[torch.Tensor] = None,
+    resample_taps=None,                  # upfirdn2d.filter_taps(resample_filter)
     demodulate: bool = True,
     flip_weight: bool = True,
     fused_modconv: bool = False,
@@ -44,7 +45,7 @@ def modulated_conv2d(
     if not fused_modconv:
         x = x * styles[:, :, None, None].to(x.dtype)
         x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up, down=down,
-                            padding=padding, flip_weight=flip_weight)
+                            padding=padding, flip_weight=flip_weight, taps=resample_taps)
         if demodulate:
             x = x * dcoefs[:, :, None, None].to(x.dtype)
         if noise is not None:
@@ -56,7 +57,7 @@ def modulated_conv2d(
     w = w.to(x.dtype).reshape(batch * out_ch, in_ch, kh, kw)
     xg = x.reshape(1, batch * in_ch, *x.shape[2:])
     xg = conv2d_resample(xg, w, f=resample_filter, up=up, down=down, padding=padding,
-                         groups=batch, flip_weight=flip_weight)
+                         groups=batch, flip_weight=flip_weight, taps=resample_taps)
     x = xg.reshape(batch, out_ch, *xg.shape[2:])
     if noise is not None:
         x = x + noise.to(x.dtype)

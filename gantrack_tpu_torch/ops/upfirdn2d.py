@@ -2,11 +2,25 @@
 
 Port of ``gantrack_tpu/ops/upfirdn2d.py`` (``setup_filter``,
 ``upfirdn2d``, ``filter2d``, ``upsample2d``, ``downsample2d``) on NCHW
-tensors.  The filter runs as a depthwise convolution; separable (1-D)
-filters run as a vertical then a horizontal pass.  The JAX module's
+tensors.
+
+* :func:`upfirdn2d` runs every call that fits the FIR kernels' contract
+  (a separable filter; ``up`` or ``down`` in {1, 2} on both axes, not
+  both 2; any padding) through :class:`.fir.Fir`: on a CUDA tensor that
+  launches the hand-written kernels K5–K7 of ``csrc/fir.cu``, on a CPU
+  tensor it computes the plain form.  Outside the contract a CPU tensor
+  takes :func:`upfirdn2d_plain` and a CUDA tensor raises.
+* :func:`upfirdn2d_plain` is the plain PyTorch version: a depthwise
+  convolution (separable filters as a vertical then a horizontal pass)
+  over a zero-inserted, padded copy.  The conv is
+  :mod:`.conv2d_gradfix`'s, so its double backward never forms a weight
+  gradient for the constant filter.
+
+The kernels take the filter's taps from the host: :func:`filter_taps`
+computes them once, when a filter is set up, and callers pass them as
+``taps=`` beside the filter tensor, so no call reads a device filter
+back (which would synchronise the stream).  The JAX module's
 banded-matrix lowerings are a TPU layout device and are not carried.
-The conv is :mod:`.conv2d_gradfix`'s, so the double backward of the
-penalties never forms a weight gradient for the constant filter.
 
 Numerics contract (as the JAX module): 1. zero-insert upsample by
 ``up``; 2. zero-pad/crop by ``padding`` (relative to the upsampled
@@ -25,6 +39,7 @@ import torch.nn.functional as F
 from .conv2d_gradfix import conv2d
 
 IntOrPair = Union[int, Sequence[int]]
+Taps = Tuple[Tuple[float, ...], Tuple[float, ...]]
 
 
 def _parse_scaling(scaling: IntOrPair) -> Tuple[int, int]:
@@ -87,6 +102,33 @@ def setup_filter(
     return torch.tensor(np.ascontiguousarray(f), dtype=torch.float32, device=device)
 
 
+def filter_taps(f) -> Optional[Taps]:
+    """The separable factors ``(taps_y, taps_x)`` of a host filter as
+    :func:`setup_filter` made it (before flip and gain), or None when a
+    2-D filter is not of rank 1.  A 1-D filter is its own factor on both
+    axes; a rank-1 2-D filter is split with equal magnitude on each axis,
+    so ``setup_filter([1, 3, 3, 1])`` gives ``[1, 3, 3, 1] / 8`` twice."""
+    if isinstance(f, torch.Tensor):
+        if f.device.type != "cpu":
+            raise ValueError("filter_taps reads a host filter; compute the taps when the "
+                             "filter is set up, before it moves to the device")
+        f = f.detach().numpy()
+    a = np.asarray(f, dtype=np.float64)
+    if a.ndim == 1:
+        t = tuple(a.tolist())
+        return t, t
+    assert a.ndim == 2
+    i, j = np.unravel_index(int(np.abs(a).argmax()), a.shape)
+    p = a[i, j]
+    if p == 0:
+        return None
+    s = np.sqrt(abs(p))
+    ty, tx = a[:, j] / s, a[i, :] * (s / p)
+    if not np.allclose(np.outer(ty, tx), a, rtol=1e-5, atol=1e-6 * abs(p)):
+        return None
+    return tuple(ty.tolist()), tuple(tx.tolist())
+
+
 def _depthwise(x: torch.Tensor, f2d: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
     """VALID strided cross-correlation of every channel with one [fh, fw] filter."""
     c = x.shape[1]
@@ -102,12 +144,40 @@ def upfirdn2d(
     padding: IntOrPair = 0,
     flip_filter: bool = False,
     gain: float = 1,
+    taps: Optional[Taps] = None,
 ) -> torch.Tensor:
     """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
 
     Returns ``[N, C, out_h, out_w]`` with
     ``out_h = (H*upy + pady0 + pady1 - fh) // downy + 1`` (same for w).
+    ``taps`` is ``filter_taps(f)``, computed when ``f`` was set up; a CUDA
+    tensor needs it unless ``f`` is None or on the host.
     """
+    from .fir import Fir, fir_spec  # here: fir.py imports this module
+
+    spec, why = fir_spec(f, taps, up, down, padding, flip_filter, gain)
+    if spec is None:
+        if x.device.type == "cpu":
+            return upfirdn2d_plain(x, f, up, down, padding, flip_filter, gain)
+        raise ValueError(f"upfirdn2d on {x.device}: {why}; the FIR kernels take a separable "
+                         "filter with up or down in {1, 2} on both axes, not both 2")
+    n, c, h, w = x.shape
+    out = Fir.apply(x.reshape(n * c, h, w).contiguous(), spec)
+    return out.reshape(n, c, *out.shape[1:])
+
+
+def upfirdn2d_plain(
+    x: torch.Tensor,
+    f: Optional[torch.Tensor],
+    up: IntOrPair = 1,
+    down: IntOrPair = 1,
+    padding: IntOrPair = 0,
+    flip_filter: bool = False,
+    gain: float = 1,
+) -> torch.Tensor:
+    """The plain PyTorch version of :func:`upfirdn2d` (any filter and
+    factors, any device): depthwise convolution over a zero-inserted,
+    padded copy."""
     assert x.ndim == 4, f"expected NCHW, got shape {tuple(x.shape)}"
     if f is None:
         f = torch.ones([1, 1], dtype=torch.float32, device=x.device)
@@ -138,18 +208,18 @@ def upfirdn2d(
     return _depthwise(x, f[None, :], (1, downx))
 
 
-def filter2d(x, f, padding: IntOrPair = 0, flip_filter: bool = False, gain: float = 1):
+def filter2d(x, f, padding: IntOrPair = 0, flip_filter: bool = False, gain: float = 1,
+             taps: Optional[Taps] = None):
     """FIR-filter NCHW images, output shape-matched to input."""
     px0, px1, py0, py1 = _parse_padding(padding)
     fw, fh = _get_filter_size(f)
     p = [px0 + fw // 2, px1 + (fw - 1) // 2, py0 + fh // 2, py1 + (fh - 1) // 2]
-    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain, taps=taps)
 
 
-def upsample2d(x, f, up: IntOrPair = 2, padding: IntOrPair = 0,
-               flip_filter: bool = False, gain: float = 1):
-    """Upsample NCHW images with output-centred padding and
-    ``gain * up_x * up_y`` DC compensation."""
+def upsample2d_args(f, up: IntOrPair = 2, padding: IntOrPair = 0, gain: float = 1) -> dict:
+    """The :func:`upfirdn2d` arguments of :func:`upsample2d`:
+    output-centred padding and ``gain * up_x * up_y`` DC compensation."""
     upx, upy = _parse_scaling(up)
     px0, px1, py0, py1 = _parse_padding(padding)
     fw, fh = _get_filter_size(f)
@@ -159,12 +229,19 @@ def upsample2d(x, f, up: IntOrPair = 2, padding: IntOrPair = 0,
         py0 + (fh + upy - 1) // 2,
         py1 + (fh - upy) // 2,
     ]
-    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
-                     gain=gain * upx * upy)
+    return dict(up=up, padding=p, gain=gain * upx * upy)
+
+
+def upsample2d(x, f, up: IntOrPair = 2, padding: IntOrPair = 0,
+               flip_filter: bool = False, gain: float = 1, taps: Optional[Taps] = None):
+    """Upsample NCHW images with output-centred padding and
+    ``gain * up_x * up_y`` DC compensation."""
+    return upfirdn2d(x, f, flip_filter=flip_filter, taps=taps,
+                     **upsample2d_args(f, up, padding, gain))
 
 
 def downsample2d(x, f, down: IntOrPair = 2, padding: IntOrPair = 0,
-                 flip_filter: bool = False, gain: float = 1):
+                 flip_filter: bool = False, gain: float = 1, taps: Optional[Taps] = None):
     """Downsample NCHW images with the given FIR filter."""
     downx, downy = _parse_scaling(down)
     px0, px1, py0, py1 = _parse_padding(padding)
@@ -175,4 +252,4 @@ def downsample2d(x, f, down: IntOrPair = 2, padding: IntOrPair = 0,
         py0 + (fh - downy + 1) // 2,
         py1 + (fh - downy) // 2,
     ]
-    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain, taps=taps)

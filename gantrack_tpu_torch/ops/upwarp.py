@@ -9,8 +9,8 @@ augmentation.
   ``csrc/upwarp.cu``: K1 (:class:`UpWarp`) never builds the 2x canvas; K2
   (:class:`UpSplat`) is its exact adjoint, written as a deterministic
   gather.  Each is the other's backward, so autograd closes to any order.
-* On a CPU tensor it runs the plain version: :func:`upsample2d` followed
-  by the gather sampler of :mod:`.grid_sample`, which autograd
+* On a CPU tensor it runs the plain version: the plain ``upsample2d``
+  followed by the gather sampler of :mod:`.grid_sample`, which autograd
   differentiates to any order.
 
 Both sample at the same positions: the 2x-canvas position of output
@@ -26,9 +26,11 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ._nvcc import check_planes as _check_planes
+from ._nvcc import check_rc as _check_rc
 from ._nvcc import load_library
 from .grid_sample import bilinear_gather
-from .upfirdn2d import upsample2d
+from .upfirdn2d import upfirdn2d_plain, upsample2d_args
 
 __all__ = ["up_affine_warp", "up_affine_warp_plain", "warp_coefficients",
            "UpWarp", "UpSplat", "LAUNCHES"]
@@ -56,27 +58,12 @@ def _fir_array(taps: Tuple[float, ...]):
     return (ctypes.c_float * NUM_TAPS)(*taps)
 
 
-def _check_planes(t: torch.Tensor, name: str) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
-    if t.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-    if t.ndim != 3 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous [P, H, W] tensor, got "
-                         f"shape {tuple(t.shape)} contiguous={t.is_contiguous()}")
-
-
 def _check_coeffs(coeffs: torch.Tensor, planes: torch.Tensor) -> None:
     if (coeffs.device != planes.device or coeffs.dtype != torch.float32
             or tuple(coeffs.shape) != (planes.shape[0], 6) or not coeffs.is_contiguous()):
         raise ValueError(f"coeffs must be a contiguous float32 [P, 6] tensor on "
                          f"{planes.device}, got {tuple(coeffs.shape)} {coeffs.dtype} "
                          f"on {coeffs.device}")
-
-
-def _check_rc(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
 def upwarp_planes(planes: torch.Tensor, coeffs: torch.Tensor, taps: Tuple[float, ...],
@@ -180,8 +167,9 @@ def sample_positions(coeffs: torch.Tensor, out_h: int, out_w: int):
 
 def up_affine_warp_plain(img: torch.Tensor, coeffs: torch.Tensor, fir: torch.Tensor,
                          out_h: int, out_w: int) -> torch.Tensor:
-    """Plain PyTorch version: upsample2d, then the gather sampler."""
-    up = upsample2d(img, fir, up=2)
+    """Plain PyTorch version: the plain ``upsample2d`` (never the FIR
+    kernel), then the gather sampler."""
+    up = upfirdn2d_plain(img, fir, **upsample2d_args(fir, 2))
     fx, fy = sample_positions(coeffs, out_h, out_w)
     return bilinear_gather(up, fx, fy)
 

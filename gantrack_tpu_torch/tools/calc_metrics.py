@@ -1,0 +1,144 @@
+"""Quality metrics of a trained generator (FID, KID, precision/recall, IS).
+
+    python -m gantrack_tpu_torch.tools.calc_metrics --network=<run dir or state-*.pt> \\
+        --metrics=fid10k,kid10k --data=<dataset dir> --cbase=16384 --cmax=512 --map-depth=2
+
+Same flag names as ``gantrack_tpu/tools/calc_metrics.py`` (``argparse``
+here), without its ``--resolution`` and ``--channels``, which nothing
+reads: the dataset gives both.  Loads G_ema from a checkpoint of the
+port (a ``state-*.pt`` file, or the latest one of a run directory),
+evaluates every metric for every modality of 2-channel data, and appends
+``metric-<mode>-<metric>.jsonl`` rows to the run directory.  Runs on the CUDA device; ``--device=cpu``
+runs on the CPU instead.  Without ``--detector-weights`` (a converted
+InceptionV3 ``.npz``) the detector is the random projection, whose FID
+is only comparable with itself.  NVIDIA pickles are ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import List, Optional, Sequence
+
+import gantrack_tpu_torch  # noqa: F401  (sets the JAX-free import mode first)
+
+import torch
+
+from .train import _bool
+
+
+def evaluate_metrics(G_ema, metrics: Sequence[str], dataset, detector, device: torch.device,
+                     batch_size: int, modalities: Optional[Sequence[str]] = None,
+                     cache_dir: Optional[str] = None, run_dir: Optional[str] = None,
+                     kimg: Optional[int] = None, snapshot_path: Optional[str] = None) -> dict:
+    """Run and report ``metrics`` of ``G_ema`` for each modality (one pass
+    for 1- or 3-channel data, one per channel of 2-channel data); returns
+    ``{name: value}``, names prefixed with the modality."""
+    from ..metrics import MetricOptions, calc_metric, report_metric
+
+    def generator(z, c):
+        return G_ema(z, c, noise_mode="const")
+
+    modes = ([(None, None)] if dataset.num_channels != 2
+             else list((m, i) for i, m in enumerate(modalities or ["mode0", "mode1"])))
+    results = {}
+    for mode_name, mode_idx in modes:
+        opts = MetricOptions(generator=generator, z_dim=G_ema.z_dim, c_dim=G_ema.c_dim,
+                             dataset=dataset, detector=detector, mode_idx=mode_idx,
+                             batch_size=batch_size, cache_dir=cache_dir, device=device)
+        for m in metrics:
+            rd = calc_metric(m, opts, mode_name=mode_name)
+            report_metric(rd, run_dir=run_dir, snapshot_path=snapshot_path, kimg=kimg)
+            results.update({f"{mode_name or ''}{k}": v for k, v in rd["results"].items()})
+    return results
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m gantrack_tpu_torch.tools.calc_metrics",
+                                description="Evaluate quality metrics of a trained checkpoint.")
+    p.add_argument("--network", dest="checkpoint", required=True,
+                   help="Checkpoint (state-*.pt) or run dir")
+    p.add_argument("--metrics", default="fid10k", help="Comma-separated metric names")
+    p.add_argument("--data", required=True, help="Dataset path (zip or shard dir)")
+    p.add_argument("--split", default="train")
+    p.add_argument("--modalities", default=None, help="Comma-separated (multimodal zips)")
+    p.add_argument("--mirror", type=_bool, default=False)
+    p.add_argument("--detector-weights", dest="detector_weights", default=None,
+                   help="Converted InceptionV3 weights .npz (tools/convert_detector.py)")
+    p.add_argument("--cache-dir", dest="cache_dir", default=None)
+    p.add_argument("--cfg", choices=["stylegan2", "stylegan3-t", "stylegan3-r"],
+                   default="stylegan2")
+    p.add_argument("--cbase", type=int, default=32768)
+    p.add_argument("--cmax", type=int, default=512)
+    p.add_argument("--map-depth", dest="map_depth", type=int, default=None)
+    p.add_argument("--batch", type=int, default=None,
+                   help="Extraction batch (default: resolution-scaled, 256 at <=256^2)")
+    p.add_argument("--cond", type=_bool, default=False,
+                   help="Conditional checkpoint: rebuild G with the dataset's label_dim")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="Evaluate on the CUDA device (default) or on the CPU")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Parse ``argv`` and evaluate; returns ``{name: value}``."""
+    from ..data import open_dataset
+    from ..metrics import check_metric, make_inception_detector
+    from ..metrics.metric_utils import auto_metric_batch
+    from ..models.stylegan2 import Generator
+    from ..utils.checkpoint import resolve_checkpoint_path
+
+    opts = build_parser().parse_args(argv)
+    metric_list = [m for m in opts.metrics.split(",") if m]
+    for m in metric_list:
+        try:
+            check_metric(m)
+        except ValueError as e:
+            raise SystemExit(f"--metrics: {e}") from None
+    if opts.cfg != "stylegan2":
+        raise SystemExit(f"--cfg={opts.cfg}: StyleGAN3 is not ported yet (ROADMAP A9)")
+    if opts.checkpoint.endswith((".pkl", ".pickle")):
+        raise SystemExit("--network: NVIDIA pickles are not read yet (ROADMAP A11)")
+    device = torch.device(opts.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device=cuda: no CUDA device is available "
+                         "(--device=cpu evaluates on the CPU)")
+    # The reference evaluates without TF32; so do the detector convs here.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    modalities = opts.modalities.split(",") if opts.modalities else None
+    kwargs = dict(split=opts.split, xflip=opts.mirror)
+    if opts.data.endswith(".zip") and modalities:
+        kwargs["modalities"] = modalities
+    dataset = open_dataset(opts.data, **kwargs)
+    c_dim = 0
+    if opts.cond:
+        if not dataset.has_labels:
+            raise SystemExit("--cond requires a labelled dataset")
+        c_dim = dataset.label_dim
+
+    path = resolve_checkpoint_path(opts.checkpoint)
+    if path is None:
+        raise SystemExit(f"--network: no checkpoint found under {opts.checkpoint}")
+    print(f"Loading {path}")
+    G_ema = Generator(z_dim=512, c_dim=c_dim, w_dim=512, img_resolution=dataset.resolution,
+                      img_channels=dataset.num_channels,
+                      mapping_kwargs=dict(num_layers=opts.map_depth or 8),
+                      synthesis_kwargs=dict(channel_base=opts.cbase, channel_max=opts.cmax))
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    G_ema.load_state_dict(payload["G_ema"])
+    G_ema = G_ema.to(device).eval().requires_grad_(False)
+
+    ckpt_dir = os.path.dirname(os.path.abspath(path))
+    run_dir = os.path.dirname(ckpt_dir) if os.path.basename(ckpt_dir) == "checkpoints" else ckpt_dir
+    detector = make_inception_detector(opts.detector_weights, device=device)
+    return evaluate_metrics(
+        G_ema, metric_list, dataset, detector, device,
+        batch_size=opts.batch or auto_metric_batch(dataset.resolution), modalities=modalities,
+        cache_dir=opts.cache_dir, run_dir=run_dir, snapshot_path=path)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

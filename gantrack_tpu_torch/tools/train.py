@@ -3,15 +3,17 @@
     python -m gantrack_tpu_torch.tools.train --outdir=runs --cfg=stylegan2 \\
         --data=<dataset dir> --batch=32 --gamma=0.4096 --cbase=16384 --cmax=512 \\
         --map-depth=2 --glr=0.0025 --dlr=0.0025 --aug=ada --target=0.6 \\
-        --mirror=1 --metrics=none
+        --mirror=1 --metrics=fid50k_full
 
 Same flag names as ``gantrack_tpu/tools/train.py`` (``argparse`` here).
 This slice trains StyleGAN2-ADA on one CUDA device (``--device=cpu``
-trains on the CPU instead, for rehearsals at a tiny size):
-``--cfg=stylegan2`` only, ``--metrics=none`` only, no ``--batch-gpu``
-accumulation and no freeze-D; those raise.  The JAX CLI's ``--dtype``
-(read by nothing) and ``--metrics_cache`` (metrics: ROADMAP A6) are not
-taken.
+trains on the CPU instead, for rehearsals at a tiny size) and evaluates
+``--metrics`` of G_ema at every ``--metric-snap``-th snapshot, with the
+InceptionV3 of ``--detector-weights`` or, without weights, the random
+projection detector.  ``--cfg=stylegan2`` only, no ``--batch-gpu``
+accumulation, no freeze-D and no ``--metric-async``; those raise.  The
+JAX CLI's ``--dtype`` (read by nothing) and ``--rng-impl`` (a TPU
+generator) are not taken.
 """
 
 from __future__ import annotations
@@ -78,6 +80,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mbstd-group", dest="mbstd_group", type=int, default=4)
     p.add_argument("--desc", default=None)
     p.add_argument("--metrics", type=_list, default=_list("fid50k_full"))
+    p.add_argument("--metrics_cache", type=_bool, default=False,
+                   help="Cache the dataset features under <run dir>/metric-cache")
+    p.add_argument("--metric-snap", dest="metric_snap", type=int, default=1,
+                   help="Evaluate metrics only on every N-th snapshot")
+    p.add_argument("--metric-async", dest="metric_async", action="store_true",
+                   help="Not taken yet: metrics run in the loop's thread (ROADMAP C6)")
+    p.add_argument("--detector-weights", dest="detector_weights", default=None,
+                   help="Converted InceptionV3 weights .npz for FID (tools/convert_detector.py)")
     p.add_argument("--workers", type=int, default=1)
     p.add_argument("--kimg", type=int, default=25000)
     p.add_argument("--tick", type=int, default=4)
@@ -93,8 +103,18 @@ def check_slice(opts) -> None:
     """Reject what this slice does not run, naming where it is queued."""
     if opts.cfg != "stylegan2":
         raise SystemExit(f"--cfg={opts.cfg}: StyleGAN3 is not ported yet (ROADMAP A9)")
-    if opts.metrics:
-        raise SystemExit("--metrics: only 'none' in this slice (metrics: ROADMAP A6)")
+    from ..metrics import check_metric
+
+    for m in opts.metrics:
+        try:
+            check_metric(m)
+        except ValueError as e:
+            raise SystemExit(f"--metrics: {e}") from None
+    if opts.metric_snap < 1:
+        raise SystemExit("--metric-snap: must be at least 1")
+    if opts.metric_async:
+        raise SystemExit("--metric-async: metrics run in the loop's thread; the background "
+                         "thread is queued with ROADMAP C6")
     if opts.num_devices not in (None, 1):
         raise SystemExit("--devices: one device in this slice (data parallelism: ROADMAP A7)")
     if opts.batch_gpu not in (None, opts.batch):
@@ -228,6 +248,22 @@ def train(c: dict, opts, run_dir: str):
     dataset, loader, state, stepper = build_training(c, opts, device)
     c_dim = stepper.cfg.c_dim
 
+    metric_fn = None
+    if c["metrics"]:
+        from ..metrics import make_inception_detector
+        from ..metrics.metric_utils import auto_metric_batch
+        from .calc_metrics import evaluate_metrics
+
+        detector = make_inception_detector(opts.detector_weights, seed=0, device=device)
+        cache_dir = os.path.join(run_dir, "metric-cache") if opts.metrics_cache else None
+
+        def metric_fn(state, kimg=None):
+            return evaluate_metrics(
+                state.G_ema, c["metrics"], dataset, detector, device,
+                batch_size=auto_metric_batch(dataset.resolution),
+                modalities=opts.modalities.split(","), cache_dir=cache_dir, run_dir=run_dir,
+                kimg=kimg)
+
     def sample_fn(state, grid_z, grid_c):
         outs = []
         with torch.no_grad():
@@ -243,7 +279,8 @@ def train(c: dict, opts, run_dir: str):
             run_dir=run_dir, stepper=stepper, state=state, loader=loader, device=device,
             total_kimg=c["total_kimg"], kimg_per_tick=c["kimg_per_tick"],
             snapshot_ticks=c["snapshot_ticks"], image_snapshot_ticks=c["snapshot_ticks"],
-            sample_fn=sample_fn)
+            sample_fn=sample_fn, metrics=c["metrics"], metric_fn=metric_fn,
+            metric_snapshot_every=opts.metric_snap)
     finally:
         loader.close()
 

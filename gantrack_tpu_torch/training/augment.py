@@ -383,5 +383,5 @@ class AugmentPipe:
         theta, out_h, out_w = self.warp_geometry(g_inv)
         x = up_affine_warp(x, theta, self.hz_geom_taps, out_h, out_w)
         x = downsample2d(x, self._filter(x.device), down=2, padding=-hz_pad * 2,
-                         flip_filter=True)
+                         flip_filter=True, taps=(self.hz_geom_taps, self.hz_geom_taps))
         return x.to(in_dtype)

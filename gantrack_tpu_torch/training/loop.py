@@ -1,9 +1,11 @@
-"""Training loop: ticks, ``stats.jsonl``, image grids, snapshots.
+"""Training loop: ticks, ``stats.jsonl``, image grids, snapshots, metrics.
 
 Port of ``gantrack_tpu/training/loop.py``.  Same tick report (field
-names), real/fake grids and full-state snapshots.  Metrics are not in
-this slice (ROADMAP A6), so there is no metric thread; the loop keeps
-the step's moments on the device and fetches them once per tick.
+names), real/fake grids, full-state snapshots and metric evaluation at
+every ``metric_snapshot_every``-th snapshot (a metric failure is logged
+and training goes on).  The metrics run in the loop's thread: the JAX
+loop's ``metric_async`` thread is queued with ROADMAP C6.  The loop
+keeps the step's moments on the device and fetches them once per tick.
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 import os
 import resource
 import time
-from typing import Callable, Optional
+import traceback
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,12 +62,17 @@ def training_loop(
     snapshot_ticks: Optional[int] = 50,
     image_snapshot_ticks: Optional[int] = 50,
     sample_fn: Optional[Callable[[TrainState, np.ndarray, np.ndarray], np.ndarray]] = None,
+    metrics: Sequence[str] = (),
+    metric_fn: Optional[Callable[..., dict]] = None,
+    metric_snapshot_every: int = 1,
     verbose: bool = True,
 ) -> TrainState:
     """Run until ``total_kimg``; returns the final state.
 
     ``sample_fn(state, grid_z, grid_c) -> images`` (NHWC numpy) renders
-    G_ema samples for the fakes grid.
+    G_ema samples for the fakes grid; ``metric_fn(state, kimg=...) ->
+    {name: value}`` evaluates ``metrics`` on every
+    ``metric_snapshot_every``-th snapshot (and on the last one).
     """
     start_time = time.time()
     collector = stats_lib.Collector()
@@ -81,6 +89,17 @@ def training_loop(
         save_image_grid(sample_fn(state, grid_z, grid_c),
                         os.path.join(run_dir, "fakes_init.png"), grid_size=(gw, gh))
 
+    def run_metrics(kimg: int) -> None:
+        # A metric failure must not end a long training run: the snapshot
+        # holds the state, so log it and go on.
+        try:
+            for name, value in metric_fn(state, kimg=kimg).items():
+                print(f"metric {name}: {value:.4f}", flush=True)
+        except Exception as e:  # noqa: BLE001 (deliberate isolation)
+            print(f"metric evaluation failed at kimg {kimg} (continuing): {e!r}", flush=True)
+            traceback.print_exc()
+
+    snapshot_idx = 0
     cur_tick = 0
     tick_start_nimg = state.cur_nimg
     tick_start_time = time.time()
@@ -136,6 +155,10 @@ def training_loop(
                             grid_size=(gw, gh))
         if snapshot_ticks is not None and cur_tick > 0 and (done or cur_tick % snapshot_ticks == 0):
             save_checkpoint(os.path.join(run_dir, "checkpoints"), state, stepper.generator)
+            snapshot_idx += 1
+            if (metric_fn is not None and metrics
+                    and (done or (snapshot_idx - 1) % max(metric_snapshot_every, 1) == 0)):
+                run_metrics(state.cur_nimg // 1000)
 
         cur_tick += 1
         tick_start_nimg = state.cur_nimg

@@ -80,9 +80,12 @@ class StyleGAN2Loss:
         blur_size = int(np.floor(blur_sigma * 3))
         if blur_size <= 0:
             return img
-        t = torch.arange(-blur_size, blur_size + 1, device=img.device, dtype=torch.float32)
-        f = torch.exp2(-(t / blur_sigma).square())
-        return filter2d(img, f / f.sum())
+        # Built on the host, so the FIR kernel gets its taps without a sync.
+        t = np.arange(-blur_size, blur_size + 1, dtype=np.float32)
+        f = np.exp2(-np.square(t / np.float32(blur_sigma)))
+        f = f / f.sum()
+        taps = tuple(f.tolist())
+        return filter2d(img, torch.from_numpy(f).to(img.device), taps=(taps, taps))
 
     def blur_sigma(self, cur_nimg: float) -> float:
         if self.cfg.blur_fade_kimg <= 0:

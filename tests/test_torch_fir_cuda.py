@@ -1,0 +1,129 @@
+"""The FIR CUDA kernels (K5 same, K6 down2, K7 up2) against their plain
+PyTorch version.
+
+Needs an NVIDIA card and ``nvcc``; skips without a card.  Imports no JAX,
+so it runs on a machine that has none:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_fir_cuda.py
+
+Tolerances: float32 1e-5 of the largest reference value (the same terms,
+summed in another order); bfloat16 input 1e-2 of it against the plain
+version in float32 on the same rounded input (the output's bf16 rounding
+dominates); gradients of both orders 1e-5 in float32.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from gantrack_tpu_torch.ops import fir
+from gantrack_tpu_torch.training.augment import WAVELETS
+
+ufd = importlib.import_module("gantrack_tpu_torch.ops.upfirdn2d")
+
+F4 = ufd.setup_filter([1, 3, 3, 1])
+SYM6 = ufd.setup_filter(WAVELETS["sym6"])
+F5 = ufd.setup_filter([1, 4, 6, 4, 1])  # generic tap count (not unrolled)
+
+# (filter, up, down, padding [px0, px1, py0, py1], flip, gain, shape)
+CASES = [
+    (F4, 1, 1, 0, False, 4.0, (2, 5, 35, 37)),             # G up-conv post-filter
+    (F4, 1, 1, 2, False, 1.0, (2, 5, 32, 30)),             # D down-conv pre-filter
+    (F4, 1, 2, 1, False, 1.0, (2, 5, 32, 34)),             # D skip
+    (F4, 2, 1, [2, 1, 2, 1], False, 4.0, (2, 1, 16, 17)),  # G image skip (upsample2d)
+    (SYM6, 1, 2, -1, True, 1.0, (3, 1, 60, 60)),           # augment crop-downsample
+    (F4, 1, 1, [3, 1, -1, 2], True, 1.0, (1, 4, 21, 19)),
+    (F4, 2, 1, [-1, 2, 0, -2], False, 1.0, (1, 3, 13, 11)),
+    (F5, 1, 2, [2, 2, 1, 3], False, 1.0, (2, 2, 24, 25)),
+    # Several 16 x 32 output tiles per plane, with ragged edges.
+    (F4, 2, 1, [1, 2, 2, 1], False, 4.0, (1, 2, 40, 45)),
+    (SYM6, 1, 2, -1, True, 1.0, (1, 2, 100, 90)),
+    (F5, 1, 1, [3, -1, 0, 2], False, 1.0, (1, 2, 50, 70)),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the FIR kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _run(x, f, up, down, padding, flip, gain, kernel):
+    fn = ufd.upfirdn2d if kernel else ufd.upfirdn2d_plain
+    kw = dict(taps=ufd.filter_taps(f)) if kernel else {}
+    return fn(x, f.to(x.device), up=up, down=down, padding=padding, flip_filter=flip, gain=gain,
+              **kw)
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_fir_kernel_matches_plain_on_card(cuda_device, case):
+    f, up, down, padding, flip, gain, shape = CASES[case]
+    rng = np.random.default_rng(case)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    before = dict(fir.LAUNCHES)
+    got = _run(x, f, up, down, padding, flip, gain, kernel=True)
+    ref = _run(x, f, up, down, padding, flip, gain, kernel=False)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert _max_err(got, ref) <= 1e-5 * float(ref.abs().max())
+    form = "up2" if up == 2 else "down2" if down == 2 else "same"
+    assert fir.LAUNCHES[f"fir_{form}"] == before[f"fir_{form}"] + 1
+
+    xb = x.bfloat16()
+    got_b = _run(xb, f, up, down, padding, flip, gain, kernel=True)
+    ref_b = _run(xb.float(), f, up, down, padding, flip, gain, kernel=False)
+    assert got_b.dtype == torch.bfloat16
+    assert _max_err(got_b, ref_b) <= 1e-2 * float(ref_b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_fir_autograd_to_second_order_on_card(cuda_device, case):
+    """Gradient and gradient of gradient through the kernels (each
+    backward is the adjoint kernel) equal autograd of the plain version."""
+    f, up, down, padding, flip, gain, shape = CASES[case]
+    rng = np.random.default_rng(100 + case)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+
+    def r1_like(kernel):
+        xs = x.clone().requires_grad_(True)
+        y = _run(xs, f, up, down, padding, flip, gain, kernel)
+        w = torch.from_numpy(np.random.default_rng(7).standard_normal(y.shape).astype(np.float32))
+        (gx,) = torch.autograd.grad((F.softplus(y) * w.to(y.device)).sum(), xs, create_graph=True)
+        (ggx,) = torch.autograd.grad(gx.square().sum(), xs)
+        return gx.detach(), ggx
+
+    gk, ggk = r1_like(True)
+    gp, ggp = r1_like(False)
+    assert _max_err(gk, gp) <= 1e-5 * float(gp.abs().max())
+    assert _max_err(ggk, ggp) <= 1e-5 * float(ggp.abs().max())
+
+
+@pytest.mark.cuda
+def test_fir_kernel_walks_more_planes_than_one_grid(cuda_device):
+    """P above the 65535 blocks of gridDim.z (as metric batches reach)."""
+    x = torch.randn((70000, 6, 6), device=cuda_device)
+    spec = fir.FirSpec("same", (0.25, 0.5, 0.25), (0.5, 0.5), (1, 1, 0, 1))
+    torch.testing.assert_close(fir.fir_planes(x, spec), fir.fir_plain(x, spec),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_upfirdn2d_raises_outside_the_contract_on_card(cuda_device):
+    x = torch.randn((1, 2, 8, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="up=4"):
+        ufd.upfirdn2d(x, F4, up=4)
+    with pytest.raises(ValueError, match="host taps"):
+        ufd.upfirdn2d(x, F4.to(cuda_device))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ufd.upfirdn2d(x.double(), F4, taps=ufd.filter_taps(F4))

@@ -8,6 +8,10 @@
   grids that decode as PNG, and a checkpoint that loads back.
 * The CLI surface: dry run, the options this slice refuses, and no
   silent fall-back to the CPU when CUDA is missing.
+* Metrics: a CLI run with ``--metrics=fid1k --metric-snap=2`` writes
+  finite ``metric-fid1k.jsonl`` rows on every other snapshot (and the
+  last); a failing metric is logged and training goes on;
+  ``calc_metrics --device=cpu`` on the run directory writes ``kid10k``.
 """
 
 import json
@@ -20,7 +24,9 @@ import pytest
 import torch
 
 from gantrack_tpu_torch.data import pack_shards
+from gantrack_tpu_torch.metrics import registry
 from gantrack_tpu_torch.models import stylegan2 as tsg2
+from gantrack_tpu_torch.tools import calc_metrics
 from gantrack_tpu_torch.tools import train as cli
 from gantrack_tpu_torch.training import augment as taug
 from gantrack_tpu_torch.training import loss as tloss
@@ -169,8 +175,8 @@ def test_cli_dry_run_prints_config(capsys, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", ["--cfg=stylegan3-t", "--metrics=fid50k_full", "--devices=2",
-                                  "--batch-gpu=2", "--freezed=2"])
+@pytest.mark.parametrize("flag", ["--cfg=stylegan3-t", "--metrics=ppl2_wend", "--devices=2",
+                                  "--batch-gpu=2", "--freezed=2", "--metric-async"])
 def test_cli_refuses_what_the_slice_does_not_run(flag, tmp_path):
     opts = cli.build_parser().parse_args(
         [f"--outdir={tmp_path}", "--data=unused", *TINY_ARGS, flag])
@@ -178,7 +184,7 @@ def test_cli_refuses_what_the_slice_does_not_run(flag, tmp_path):
         cli.check_slice(opts)
 
 
-@pytest.mark.parametrize("flag", ["--dtype=float32", "--metrics_cache=True"])
+@pytest.mark.parametrize("flag", ["--dtype=float32", "--rng-impl=rbg"])
 def test_cli_takes_no_inert_options(flag, tmp_path, capsys):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args([f"--outdir={tmp_path}", "--data=unused", *TINY_ARGS, flag])
@@ -190,3 +196,71 @@ def test_cli_refuses_cuda_without_a_device(tiny_dataset, tmp_path, monkeypatch):
     args = [a for a in TINY_ARGS if a != "--device=cpu"]  # the default is --device=cuda
     with pytest.raises(SystemExit, match="--device=cpu"):
         cli.main([f"--outdir={tmp_path}", f"--data={tiny_dataset}", *args])
+
+
+def _train(tiny_dataset, run_dir, extra, steps):
+    argv = [f"--outdir={run_dir}", f"--data={tiny_dataset}", *TINY_ARGS, *extra]
+    opts = cli.build_parser().parse_args(argv)
+    cli.check_slice(opts)
+    c = cli.resolve_config(opts)
+    c.update(total_kimg=0.004 * steps, kimg_per_tick=0.004, snapshot_ticks=1)  # 1 step a tick
+    os.makedirs(run_dir)
+    cli.train(c, opts, run_dir)
+
+
+@pytest.fixture(scope="module")
+def metric_run(tiny_dataset, tmp_path_factory):
+    """4 steps, snapshots at ticks 1, 2 and 3, fid1k on every other one."""
+    run_dir = str(tmp_path_factory.mktemp("mruns") / "run")
+    _train(tiny_dataset, run_dir, ["--metrics=fid1k", "--metric-snap=2"], steps=4)
+    return run_dir
+
+
+def test_cli_train_evaluates_metrics_every_nth_snapshot(metric_run):
+    assert len(os.listdir(os.path.join(metric_run, "checkpoints"))) == 3
+    with open(os.path.join(metric_run, "metric-fid1k.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert len(rows) == 2  # snapshots 1 and 3 (the last); 2 is skipped
+    for row in rows:
+        assert row["metric"] == "fid1k" and row["kimg"] == 0
+        assert np.isfinite(row["results"]["fid1k"]) and row["results"]["fid1k"] >= 0
+
+
+def test_cli_train_goes_on_when_a_metric_fails(tiny_dataset, tmp_path, monkeypatch, capsys):
+    def broken(opts):
+        raise RuntimeError("detector exploded")
+
+    monkeypatch.setitem(registry._metric_dict, "fid1k", broken)
+    run_dir = str(tmp_path / "run")
+    _train(tiny_dataset, run_dir, ["--metrics=fid1k"], steps=2)
+    assert "metric evaluation failed at kimg 0" in capsys.readouterr().out
+    assert latest_checkpoint(os.path.join(run_dir, "checkpoints")).endswith("00000002.pt")
+    assert not os.path.exists(os.path.join(run_dir, "metric-fid1k.jsonl"))
+
+
+def test_calc_metrics_on_the_run_dir_writes_kid(metric_run, tiny_dataset):
+    results = calc_metrics.main([
+        f"--network={metric_run}", "--metrics=kid10k", f"--data={tiny_dataset}",
+        "--cbase=256", "--cmax=16", "--map-depth=2", "--batch=500", "--device=cpu"])
+    assert np.isfinite(results["kid10k"])
+    with open(os.path.join(metric_run, "metric-kid10k.jsonl")) as f:
+        (row,) = [json.loads(line) for line in f]
+    assert row["results"] == results
+    assert row["snapshot_path"] == latest_checkpoint(os.path.join(metric_run, "checkpoints"))
+
+
+@pytest.mark.parametrize("args,match", [
+    (["--metrics=eqr50k"], "A9"),
+    (["--network=x.pkl"], "A11"),
+    (["--cfg=stylegan3-r"], "A9"),
+])
+def test_calc_metrics_refuses_what_is_not_ported(args, match, tiny_dataset):
+    argv = ["--network=unused", f"--data={tiny_dataset}", "--device=cpu", *args]
+    with pytest.raises(SystemExit, match=match):
+        calc_metrics.main(argv)
+
+
+def test_calc_metrics_refuses_cuda_without_a_device(tiny_dataset, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device=cpu"):
+        calc_metrics.main(["--network=unused", f"--data={tiny_dataset}"])
