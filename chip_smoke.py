@@ -7,10 +7,16 @@ per source, all started together), then:
 
 0. prints the card's name and power limit and the kernel build times;
 1. holds each kernel against its plain PyTorch version at the shapes of
-   the claro StyleGAN2-ADA 256² training step, and times both:
+   the main paths, and times both, beside the kernel's bound (the larger
+   of its bytes over the card's memory rate and its operations over the
+   card's float32 rate) and, where one PyTorch call computes the same
+   function, that call (timed here, used nowhere in the port):
    the upwarp pair K1/K2 (64 planes of 406 × 403, out 524², transforms
-   drawn from ``medical_augment_config`` at p = 1) and the resample FIR
-   K5–K7 (``ops/fir.py``) at the five FIR shapes of the step, with
+   drawn from ``medical_augment_config`` at p = 1), the resample FIR
+   K5–K7 (``ops/fir.py``) at the five FIR shapes of the claro step, and
+   the affine warp pair K3/K4 (``ops/warp.py``) at the shape of the
+   unfused augment chain (64 planes of 812 × 806, out 524², bf16) and of
+   the equivariance metrics (8 planes of 256², float32), each with
    adjointness and gradients of both orders;
 2. trains 32 steps of the claro recipe (batch 32, cbase 16384, 1 kimg)
    through the port's CLI on a synthetic 256² dataset, with
@@ -20,7 +26,21 @@ per source, all started together), then:
    the default (random projection) detector, and fid1k with a
    ``tfslim`` InceptionV3 of seeded random weights at 299²; times the
    generator pass of each detector;
-4. prints the kernel report and, last, the device line.
+4. trains StyleGAN3-T at its published width and depth (cbase 32768,
+   cmax 512, 14 layers, mapping depth 2, bf16 in the 4 highest rates)
+   through the CLI on the same dataset for 1 kimg at the largest batch of
+   32, 16, 8 that fits the card, with ``--metrics=eqt1k_int,eqr1k`` at the
+   snapshot, then runs ``calc_metrics --cfg=stylegan3-t
+   --metrics=fid1k,eqr1k`` on the checkpoint; times each phase variant,
+   profiles one step, tries the metrics' generator pass at batch 128, 64
+   and 32 (the batch the CLIs pick must fit in half the card), and prints
+   the ``upfirdn2d`` calls that took the plain version because no FIR
+   kernel covers their form (only the ×4 up-filters may);
+5. runs the claro recipe with the augment pipe built ``impl="unfused"``
+   (upsample2d → affine warp → downsample2d) for one plain and one
+   +Greg+Dreg step, which launches K3 and K4, and holds the unfused
+   chain against the fused one (K1) on one batch;
+6. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
 device the script exits with code 2 and prints no result.
@@ -49,7 +69,21 @@ KERNELS = {
     "fir_same": ("fir.cu", "gantrack_tpu/ops/attic/fir.py:100"),
     "fir_down2": ("fir.cu", "gantrack_tpu/ops/attic/fir.py:117"),
     "fir_up2": ("fir.cu", "gantrack_tpu/ops/attic/fir.py:144"),
+    "warp": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:87"),
+    "splat": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:114"),
 }
+# Published peaks of one H100 SXM: device memory rate, and float32 outside
+# the tensor cores (every hand kernel here sums in float32 on CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+SG3_ARGS = [
+    "--cfg=stylegan3-t", "--gamma=0.4096", "--cbase=32768", "--cmax=512", "--glr=0.0025",
+    "--dlr=0.0025", "--aug=ada", "--target=0.6", "--mirror=1", "--kimg=1", "--tick=1",
+    "--snap=1", "--metrics=eqt1k_int,eqr1k",
+]
+# The only upfirdn2d calls of StyleGAN3-T that no FIR kernel covers (the
+# reason as ``fir.fir_spec`` words it): the x4 up-filters of its layers.
+SG3_T_PLAIN_ROUTE = ("up=4, down=1",)
 # The FIR calls of the claro step (phase 1): name, [N, C, H, W], dtype of
 # the step, then the upfirdn2d arguments.  The first of each form is the
 # one the kernel report quotes.
@@ -73,8 +107,20 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def _cli_device(cli, args):
+    """The device the training CLI picks for ``args``: the card, which
+    every check of a run's launches below relies on."""
+    import torch
+
+    device = torch.device(cli.build_parser().parse_args(
+        ["--outdir=", "--data=", "--batch=1", *args]).device)
+    if device.type != "cuda":
+        raise AssertionError(f"the CLI picked {device}, not the card")
+    return device
+
+
 def _max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def _check(name: str, err: float, limit: float) -> None:
@@ -84,10 +130,56 @@ def _check(name: str, err: float, limit: float) -> None:
         raise AssertionError(f"{name}: error {err} above limit {limit}")
 
 
+def _bound(nbytes: float, flops: float) -> dict:
+    """The least time (ms) the card could take: each input read once and
+    each output written once over the memory rate, or the operations over
+    the float32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _reset(*counters) -> None:
     for counter in counters:
         for k in counter:
             counter[k] = 0
+
+
+def _kernel_counters() -> list:
+    from gantrack_tpu_torch.ops import fir
+    from gantrack_tpu_torch.ops import upwarp as uw
+    from gantrack_tpu_torch.ops import warp as wp
+
+    return [uw.LAUNCHES, fir.LAUNCHES, wp.LAUNCHES]
+
+
+def _reset_launches() -> None:
+    """Every kernel's count, and the plain-route counts, to 0."""
+    from gantrack_tpu_torch.ops import fir
+
+    _reset(*_kernel_counters())
+    fir.PLAIN_ROUTE.clear()
+
+
+def _read_launches(must_run, plain_route=()) -> dict:
+    """The kernels' launch counts since the last reset; raises if one of
+    ``must_run`` was launched no time, or if an ``upfirdn2d`` call took
+    the plain version for another reason than those of ``plain_route``
+    (none, for a path whose FIR calls all lie inside the kernels'
+    contract)."""
+    from gantrack_tpu_torch.ops import fir
+
+    counts = {k: n for counter in _kernel_counters() for k, n in counter.items()}
+    for k in must_run:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by this run: {counts}")
+    if not set(fir.PLAIN_ROUTE) <= set(plain_route):
+        raise AssertionError(f"FIR calls left the kernels for the plain version: "
+                             f"{fir.PLAIN_ROUTE}; allowed on this path: {list(plain_route)}")
+    return counts
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -191,11 +283,21 @@ def check_kernels(card: str) -> dict:
     t_p1 = _median_ms(lambda: plain(xb))
     t_k2 = _median_ms(lambda: uw.upsplat_planes(gb, coeffs, taps, h1, w1))
     t_p2 = _median_ms(lambda: plain_adjoint(gb))
+    # Bound: planes and output moved once; per output pixel 2 x 7 folded
+    # weights (~4 flops each) and a 7 x 7 weighted sum (2 flops a tap).  K2 is
+    # the transpose: the same products.  No single PyTorch call computes
+    # either (upsample + grid_sample is two), so there is no library time.
+    flops = n * oh * ow * (2 * 49 + 2 * 7 * 4)
+    b1 = _bound(_nbytes(xb, gb, coeffs), flops)
     print(f"  times (bf16, median of 20, CUDA events) on {card}: "
-          f"K1 {t_k1:.4f} ms, plain {t_p1:.4f} ms; K2 {t_k2:.4f} ms, plain adjoint {t_p2:.4f} ms")
+          f"K1 {t_k1:.4f} ms, plain {t_p1:.4f} ms; K2 {t_k2:.4f} ms, plain adjoint {t_p2:.4f} ms; "
+          f"bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}) for each")
     return {
-        "upwarp": {"max_abs_err": err_k1, "ms": t_k1, "plain_ms": t_p1},
-        "upsplat": {"max_abs_err": err_k2, "ms": t_k2, "plain_ms": t_p2},
+        "upwarp": {"max_abs_err": err_k1, "ms": t_k1, "plain_ms": t_p1, **b1, "library_ms": None,
+                   "dtype": "bf16", "library_dtype": None, "ms_at_library_dtype": None},
+        "upsplat": {"max_abs_err": err_k2, "ms": t_k2, "plain_ms": t_p2, **b1,
+                    "library_ms": None, "dtype": "bf16", "library_dtype": None,
+                    "ms_at_library_dtype": None},
     }
 
 
@@ -264,11 +366,189 @@ def check_fir(card: str) -> dict:
         gt = g.to(xt.dtype)
         t_k = _median_ms(lambda: torch.autograd.grad(kernel(xt), xt, gt))
         t_p = _median_ms(lambda: torch.autograd.grad(plain(xt), xt, gt))
+        # Bound of forward + backward: x and the output once each way;
+        # a separable pass of ky then kx taps per output (half of them for
+        # the polyphase up2), 2 flops a tap, both ways.
+        ky, kx = len(spec.taps_y), len(spec.taps_x)
+        taps_per_out = (ky + kx) / (2 if spec.form == "up2" else 1)
+        bound = _bound(2 * _nbytes(xt, gt), 2 * gt.numel() * 2 * taps_per_out)
+        # The one PyTorch call: a depthwise conv with the 2-D filter
+        # (stride 1 or 2), or the depthwise transposed conv (stride 2).
+        t_l = None
+        pads = _parse_library_pads(kw.get("padding", 0))
+        if pads is not None:
+            lib32 = _fir_library_call(spec.form, f_host, kw.get("gain", 1), pads, c, dev,
+                                      torch.float32)
+            _check(f"{name} library call vs plain (f32, same function)",
+                   _max_err(lib32(x), ref), 1e-5 * float(ref.abs().max()))
+            lib = _fir_library_call(spec.form, f_host, kw.get("gain", 1), pads, c, dev, xt.dtype)
+            t_l = _median_ms(lambda: torch.autograd.grad(lib(xt), xt, gt))
         print(f"  {name} forward+backward ({step_dtype}, median of 20, CUDA events) on {card}: "
-              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), library call "
+              + (f"{t_l:.4f} ms" if t_l is not None else "none (negative padding)"))
         if name not in report:
-            report[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p}
+            # Kernel, plain version and library call all run at the step's dtype.
+            report[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **bound,
+                            "library_ms": t_l, "dtype": step_dtype,
+                            "library_dtype": step_dtype if t_l is not None else None,
+                            "ms_at_library_dtype": t_k if t_l is not None else None}
         del x, xb, ref, refb, got, g, ktg
+    torch.cuda.empty_cache()
+    return report
+
+
+def _parse_library_pads(padding):
+    """(pad_y, pad_x) if ``padding`` is what one conv call can take: the
+    same non-negative pad on both sides of an axis ([2, 1, 2, 1], the
+    up2 case, is what a transposed conv's padding 1 gives)."""
+    if isinstance(padding, int):
+        return (padding, padding) if padding >= 0 else None
+    return (1, 1) if list(padding) == [2, 1, 2, 1] else None
+
+
+def _fir_library_call(form: str, f_host, gain: float, pads, channels: int, dev, dtype):
+    """One ``torch.nn.functional`` call that computes the FIR form."""
+    import torch
+    import torch.nn.functional as F
+
+    f2d = f_host if f_host.ndim == 2 else torch.outer(f_host, f_host)
+    w = (f2d * gain).flip([0, 1]).to(dev, dtype)[None, None].repeat(channels, 1, 1, 1)
+    if form == "up2":
+        return lambda x: F.conv_transpose2d(x, w, stride=2, padding=pads, groups=channels)
+    stride = 2 if form == "down2" else 1
+    return lambda x: F.conv2d(x, w, stride=stride, padding=pads, groups=channels)
+
+
+def check_warp(card: str) -> dict:
+    """Phase 1 (warp): K3/K4 against ``affine_warp_plain`` at the shape of
+    the unfused augment chain (bf16 in the step) and of the equivariance
+    metrics (float32).  Returns the report of the first shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from gantrack_tpu_torch.ops import warp as wp
+    from gantrack_tpu_torch.ops.grid_sample import warp_coefficients
+    from gantrack_tpu_torch.training.augment import AugmentPipe, medical_augment_config
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pipe = AugmentPipe(medical_augment_config(), 256, 256, 1, impl="unfused")
+    theta_aug, oh_aug, ow_aug = pipe.warp_geometry(pipe.sample_geometric(64, 1.0, dev, gen))
+    mx0, mx1, my0, my1 = pipe.margin
+    angle = torch.rand(8, device=dev, generator=gen) * 6.28
+    zeros = torch.zeros_like(angle)
+    theta_eq = torch.stack([torch.stack([angle.cos(), angle.sin(), zeros], 1),
+                            torch.stack([-angle.sin(), angle.cos(), zeros], 1)], 1)
+    shapes = [
+        ("unfused augment chain", theta_aug, 2 * (256 + my0 + my1), 2 * (256 + mx0 + mx1),
+         oh_aug, ow_aug, "bf16"),
+        ("equivariance metrics (eqr)", theta_eq, 256, 256, 256, 256, "f32"),
+    ]
+    report = {}
+    for label, theta, h, w, oh, ow, step_dtype in shapes:
+        n = theta.shape[0]
+        coeffs = warp_coefficients(theta, h, w, oh, ow)
+        print(f"phase 1 warp, {label}: {n} planes {h}x{w} -> {oh}x{ow}")
+
+        def plain(x, c=coeffs):
+            return wp.affine_warp_plain(x[:, None], c, oh, ow)[:, 0]
+
+        def plain_adjoint(g, c=coeffs):
+            x = torch.zeros((g.shape[0], h, w), device=dev, dtype=g.dtype, requires_grad=True)
+            return torch.autograd.grad(plain(x, c), x, g)[0]
+
+        x = torch.randn((n, h, w), device=dev, generator=gen)
+        g = torch.randn((n, oh, ow), device=dev, generator=gen)
+        ref = plain(x)
+        k3 = wp.warp_planes(x, coeffs, oh, ow)
+        err_k3 = _max_err(k3, ref)
+        _check("K3 f32 vs plain", err_k3, 1e-5 * float(ref.abs().max()))
+        ref4 = plain_adjoint(g)
+        k4 = wp.splat_planes(g, coeffs, h, w)
+        err_k4 = _max_err(k4, ref4)
+        _check("K4 f32 vs plain adjoint", err_k4, 1e-5 * float(ref4.abs().max()))
+        xb, gb = x.bfloat16(), g.bfloat16()
+        refb = plain(xb.float())
+        _check("K3 bf16 vs plain", _max_err(wp.warp_planes(xb, coeffs, oh, ow), refb),
+               1e-2 * float(refb.abs().max()))
+        refb4 = plain_adjoint(gb.float())
+        _check("K4 bf16 vs plain adjoint", _max_err(wp.splat_planes(gb, coeffs, h, w), refb4),
+               1e-2 * float(refb4.abs().max()))
+        lhs = float((k3.double() * g.double()).sum())
+        rhs = float((x.double() * k4.double()).sum())
+        _check("adjointness <K3 x,g> vs <x,K4 g> (relative)", abs(lhs - rhs) / abs(lhs), 1e-5)
+        same = torch.equal(k4, wp.splat_planes(g, coeffs, h, w))
+        print(f"  K4 bitwise deterministic over two calls: {same}")
+        if not same:
+            raise AssertionError("K4 is not bitwise deterministic")
+
+        c4 = coeffs[:4].contiguous()
+        wgt = torch.randn((4, oh, ow), device=dev, generator=gen)
+
+        def r1_like(warp):
+            x4 = x[:4].clone().requires_grad_(True)
+            (gx,) = torch.autograd.grad((F.softplus(warp(x4)) * wgt).sum(), x4, create_graph=True)
+            (ggx,) = torch.autograd.grad(gx.square().sum(), x4)
+            return gx.detach(), ggx
+
+        gk, ggk = r1_like(lambda t: wp.Warp.apply(t, c4, oh, ow))
+        gp, ggp = r1_like(lambda t: plain(t, c4))
+        _check("grad through Warp vs plain", _max_err(gk, gp), 1e-5 * float(gp.abs().max()))
+        _check("grad-of-grad through Warp vs plain", _max_err(ggk, ggp),
+               1e-5 * float(ggp.abs().max()))
+
+        # The one PyTorch call that computes K3, and its backward for K4.
+        # It runs on float32 planes also where the step's are bf16: it takes
+        # grid and image in one type, and a bf16 grid rounds the positions to
+        # 8 bits, which is another function.
+        xs, gs = (xb, gb) if step_dtype == "bf16" else (x, g)
+
+        def library(t):
+            grid = F.affine_grid(theta.float(), (n, 1, oh, ow), align_corners=False)
+            return F.grid_sample(t[:, None], grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)[:, 0]
+
+        # Same function; its positions come from another order of operations.
+        _check("F.grid_sample(F.affine_grid) vs plain (f32)", _max_err(library(x), ref),
+               1e-3 * float(ref.abs().max()))
+        xl = x.clone().requires_grad_(True)
+        out_l = library(xl)
+        t_k3 = _median_ms(lambda: wp.warp_planes(xs, coeffs, oh, ow))
+        t_p3 = _median_ms(lambda: plain(xs))
+        t_l3 = _median_ms(lambda: library(x))
+        t_k4 = _median_ms(lambda: wp.splat_planes(gs, coeffs, h, w))
+        t_p4 = _median_ms(lambda: plain_adjoint(gs))
+        t_l4 = _median_ms(lambda: torch.autograd.grad(out_l, xl, g, retain_graph=True))
+        # Like against like: the kernels on the library call's float32 planes,
+        # and the library's sampler alone, its grid built outside the timing.
+        t_k3_f32 = _median_ms(lambda: wp.warp_planes(x, coeffs, oh, ow))
+        t_k4_f32 = _median_ms(lambda: wp.splat_planes(g, coeffs, h, w))
+        grid = F.affine_grid(theta.float(), (n, 1, oh, ow), align_corners=False)
+        t_l3_sampler = _median_ms(lambda: F.grid_sample(
+            x[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+        del grid
+        # Bound: image, output and coefficients once; per output pixel two
+        # positions (4 flops each), four weights (6) and four taps (8).  K4
+        # is the transpose: the same products.
+        bound = _bound(_nbytes(xs, gs, coeffs), n * oh * ow * 22)
+        print(f"  times ({step_dtype}, median of 20, CUDA events) on {card}: K3 {t_k3:.4f} ms, "
+              f"plain {t_p3:.4f} ms, F.grid_sample(F.affine_grid) on f32 {t_l3:.4f} ms; K4 "
+              f"{t_k4:.4f} ms, plain adjoint {t_p4:.4f} ms, its backward on f32 {t_l4:.4f} ms; bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) for each")
+        print(f"  on the same f32 planes: K3 {t_k3_f32:.4f} ms against the library call "
+              f"{t_l3:.4f} ms (F.grid_sample alone, grid given: {t_l3_sampler:.4f} ms); K4 "
+              f"{t_k4_f32:.4f} ms against its backward {t_l4:.4f} ms")
+        if not report:
+            report = {
+                "warp": {"max_abs_err": err_k3, "ms": t_k3, "plain_ms": t_p3, **bound,
+                         "library_ms": t_l3, "dtype": step_dtype, "library_dtype": "f32",
+                         "ms_at_library_dtype": t_k3_f32},
+                "splat": {"max_abs_err": err_k4, "ms": t_k4, "plain_ms": t_p4, **bound,
+                          "library_ms": t_l4, "dtype": step_dtype, "library_dtype": "f32",
+                          "ms_at_library_dtype": t_k4_f32},
+            }
+        del x, g, xb, gb, ref, ref4, refb, refb4, k3, k4, xl, out_l
     torch.cuda.empty_cache()
     return report
 
@@ -293,24 +573,18 @@ def _synthetic_dataset(root: str, res: int = 256, count: int = 256) -> str:
 
 def train_claro(card: str, tmp: str, data: str, args=CLARO_ARGS, res: int = 256,
                 batch: int = 32):
-    """Phase 2: the claro recipe with fid1k through the CLI, on the device
-    the CLI picks from ``args`` (CUDA unless ``--device=cpu``).  Returns
-    the run dir and the launch counts of the run."""
+    """Phase 2: the claro recipe with fid1k through the CLI, which runs on
+    the card by default.  Returns the run dir and the launch counts of
+    the run."""
     import numpy as np
     import torch
 
     from gantrack_tpu_torch.ops import fir
-    from gantrack_tpu_torch.ops import upwarp as uw
     from gantrack_tpu_torch.tools import train as cli
     from gantrack_tpu_torch.training.loop import to_device_batch
     from gantrack_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 
-    device = torch.device(cli.build_parser().parse_args(["--outdir=", "--data=", *args]).device)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
+    device = _cli_device(cli, args)
     argv = [f"--outdir={os.path.join(tmp, 'runs')}", f"--data={data}", *args]
     print(f"phase 2: python -m gantrack_tpu_torch.tools.train {' '.join(argv)}")
 
@@ -325,20 +599,17 @@ def train_claro(card: str, tmp: str, data: str, args=CLARO_ARGS, res: int = 256,
         return launch_fir(x, spec)
 
     fir.fir_planes = logged
-    _reset(uw.LAUNCHES, fir.LAUNCHES)
+    _reset_launches()
     t0 = time.perf_counter()
     try:
         run_dir = cli.main(argv)
-        sync()
+        torch.cuda.synchronize()
     finally:
         fir.fir_planes = launch_fir
     seconds = time.perf_counter() - t0
-    launches = {**uw.LAUNCHES, **fir.LAUNCHES}
+    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2"))
     print(f"  CLI run: {seconds:.1f} s wall (incl. setup, image grids and fid1k) on {card}; "
-          f"kernel launches {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the training run")
+          f"kernel launches {launches}; no FIR call took the plain version")
     print(f"  FIR calls of the run ({len(fir_calls)} distinct; form, planes x H x W, dtype, "
           f"taps, pads (py0, py1, px0, px1): calls):")
     for key, n in sorted(fir_calls.items(), key=lambda kv: -kv[0][1][1] * kv[0][1][2]):
@@ -394,19 +665,9 @@ def train_claro(card: str, tmp: str, data: str, args=CLARO_ARGS, res: int = 256,
 
     # Median step time of each phase variant (host clock around a
     # synchronised step), on the checkpointed state.
-    for label, flags in (("plain", (False, False)), ("+Greg", (True, False)),
-                         ("+Greg+Dreg", (True, True))):
-        times = []
-        for i in range(4):
-            sync()
-            t = time.perf_counter()
-            stepper.run(state, real_img, real_c, *flags)
-            sync()
-            if i > 0:
-                times.append((time.perf_counter() - t) * 1e3)
-        times.sort()
-        print(f"  step {label}: median {times[len(times) // 2]:.1f} ms of {len(times)} "
-              f"(batch {batch}, {res}^2) on {card}")
+    variants = (("plain", (False, False)), ("+Greg", (True, False)), ("+Greg+Dreg", (True, True)))
+    for label, ms in _step_times(stepper, state, real_img, real_c, variants).items():
+        print(f"  step {label}: median {ms:.1f} ms of 3 (batch {batch}, {res}^2) on {card}")
     del state, stepper, real_img
     torch.cuda.empty_cache()
     return run_dir, launches
@@ -433,8 +694,6 @@ def run_calc_metrics(card: str, tmp: str, data: str, run_dir: str) -> None:
 
     from gantrack_tpu_torch.metrics import metric_utils
     from gantrack_tpu_torch.models import inception
-    from gantrack_tpu_torch.ops import fir
-    from gantrack_tpu_torch.ops import upwarp as uw
     from gantrack_tpu_torch.tools import calc_metrics
 
     # Seeded random weights, He-scaled so that the features do not collapse
@@ -451,17 +710,15 @@ def run_calc_metrics(card: str, tmp: str, data: str, run_dir: str) -> None:
     for metrics, extra in (("fid10k,kid10k", []), ("fid1k", [f"--detector-weights={weights}"])):
         argv = [*base, f"--metrics={metrics}", *extra]
         print(f"phase 3: python -m gantrack_tpu_torch.tools.calc_metrics {' '.join(argv)}")
-        _reset(uw.LAUNCHES, fir.LAUNCHES)
+        _reset_launches()
         t0 = time.perf_counter()
         results = calc_metrics.main(argv)
         torch.cuda.synchronize()
-        launches = {k: n for k, n in fir.LAUNCHES.items() if n}
-        print(f"  {results} in {time.perf_counter() - t0:.1f} s on {card}; FIR launches {launches}")
+        launches = _read_launches(("fir_same", "fir_up2"))  # G_ema's synthesis
+        print(f"  {results} in {time.perf_counter() - t0:.1f} s on {card}; kernel launches "
+              f"{ {k: n for k, n in launches.items() if n} }; no FIR call took the plain version")
         for metric in metrics.split(","):
             _metric_rows(run_dir, metric)
-        for k in ("fir_same", "fir_up2"):  # G_ema's synthesis
-            if fir.LAUNCHES[k] <= 0:
-                raise AssertionError(f"kernel {k} was not launched by calc_metrics")
 
     # Generator-pass rate per detector: 2048 images after one warm-up batch.
     from gantrack_tpu_torch.models.stylegan2 import Generator
@@ -491,6 +748,329 @@ def run_calc_metrics(card: str, tmp: str, data: str, run_dir: str) -> None:
               f"(2048 images, batch 256, G_ema 256^2 + detector) on {card}")
 
 
+def _step_times(stepper, state, real_img, real_c, variants, plain_route=(),
+                reps: int = 4) -> dict:
+    """Median step time (ms, host clock around a synchronised step) of
+    each phase variant, the first step of each left out; before it, the
+    kernel launches of one step of the variant (counted from 0, after
+    the main path's count was read)."""
+    import torch
+
+    from gantrack_tpu_torch.ops import fir
+
+    out = {}
+    for label, flags in variants:
+        _reset_launches()
+        stepper.run(state, real_img, real_c, *flags)
+        print(f"  kernel launches of one {label} step: "
+              f"{ {k: n for k, n in _read_launches((), plain_route).items() if n} }"
+              f"; plain-route FIR calls {dict(fir.PLAIN_ROUTE)}")
+        times = []
+        for i in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stepper.run(state, real_img, real_c, *flags)
+            torch.cuda.synchronize()
+            if i > 0:
+                times.append((time.perf_counter() - t) * 1e3)
+        times.sort()
+        out[label] = times[len(times) // 2]
+    return out
+
+
+def _pick_batch(cli, tmp: str, data: str, args, device, sizes=(32, 16, 8)) -> int:
+    """The largest batch of ``sizes`` at which one +Dreg step fits the
+    card with room to spare: its peak must stay under 80 % of the card's
+    memory, because the CLI run also renders image grids and evaluates
+    metrics between steps, and the caching allocator fragments (at batch
+    32 the step alone peaked at 94 % of an 80 GB card and the run then ran
+    out in G-main).  Running out of device memory here is the question
+    asked, so it is caught; nothing else is."""
+    import torch
+
+    from gantrack_tpu_torch.training.loop import to_device_batch
+
+    for batch in sizes:
+        argv = [f"--outdir={tmp}", f"--data={data}", f"--batch={batch}", *args]
+        opts = cli.build_parser().parse_args(argv)
+        _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
+        try:
+            real_img, real_c = to_device_batch(*next(loader), device)
+        finally:
+            loader.close()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            stepper.run(state, real_img, real_c, False, True)
+            torch.cuda.synchronize()
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total = torch.cuda.get_device_properties(device).total_memory / 2**30
+        roomy = fits and peak <= 0.8 * total
+        print(f"  batch {batch}: one +Dreg step "
+              + (f"peaks at {peak:.2f} GiB of {total:.2f} GiB" if fits
+                 else f"runs out of memory (at {peak:.2f} GiB of {total:.2f} GiB)")
+              + ("" if roomy else ": not taken"))
+        del state, stepper, real_img, real_c
+        torch.cuda.empty_cache()
+        if roomy:
+            return batch
+    raise AssertionError(f"no batch of {sizes} fits the card")
+
+
+def _probe_metric_batch(cli, g_ema, card: str, res: int, sizes=(128, 64, 32)) -> None:
+    """Which generator-pass batch of the metrics a StyleGAN3 generator at
+    full width can take beside a resident training state: one batch of
+    each of ``sizes`` through G_ema and the default detector, with its
+    peak memory, for the trained StyleGAN3-T and for a StyleGAN3-R of
+    random weights.  The batch the CLIs pick (``metric_batch``) must be
+    one that ran and peaked under half the card's memory, which leaves the
+    training step's cached blocks their room.  Running out of device
+    memory is the question asked, so it is caught; nothing else is."""
+    import torch
+
+    from gantrack_tpu_torch.metrics import metric_utils
+
+    dev = torch.device("cuda")
+    total = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    g_r = cli.make_generator("stylegan3-r", resolution=res, channels=1, c_dim=0, cbase=32768,
+                             cmax=512, map_depth=2).to(dev).eval().requires_grad_(False)
+    detector = metric_utils.make_inception_detector(device=dev)
+    for cfg, g in (("stylegan3-t", g_ema), ("stylegan3-r", g_r)):
+        picked = cli.metric_batch(cfg, res)
+        peaks = {}
+        for batch in sizes:
+            opts = metric_utils.MetricOptions(
+                generator=lambda z, c, g=g: g(z, c, noise_mode="const"), detector=detector,
+                batch_size=batch, device=dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                metric_utils.compute_feature_stats_for_generator(opts, max_items=batch)
+                torch.cuda.synchronize()
+                peaks[batch] = torch.cuda.max_memory_allocated() / 2**30
+            except torch.cuda.OutOfMemoryError:
+                peaks[batch] = None
+        print(f"  metric batch, {cfg} at full width, {res}^2, beside the training state: peak GiB "
+              f"of {total:.2f} by batch {peaks} on {card}; the CLIs take {picked}")
+        if peaks.get(picked) is None or peaks[picked] > 0.5 * total:
+            raise AssertionError(f"{cfg}: the metric batch {picked} does not fit in half the card")
+    del g_r
+    torch.cuda.empty_cache()
+
+
+def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str) -> None:
+    """One profiled step: device time by kernel name, and the share of
+    the depthwise-convolution kernels, which only the plain FIR route
+    runs (its zero-stuffing and padding copies are elementwise kernels
+    and not counted, so the share is a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stepper.run(state, real_img, real_c, *flags)
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows[ev.name] = rows.get(ev.name, 0.0) + ev.device_time / 1e3
+    total = sum(rows.values())
+    if total <= 0:
+        print(f"  profile of one {label} step: the profiler saw no device time")
+        return
+    hand = sum(t for k, t in rows.items() if "gantrack" in k or "fir_kernel" in k
+               or "warp_kernel" in k or "splat" in k)
+    depthwise = sum(t for k, t in rows.items() if "depthwise" in k.lower())
+    print(f"  profile of one {label} step on {card}: {total:.1f} ms of device time in "
+          f"{len(rows)} kernels; depthwise-conv kernels (the plain FIR route) {depthwise:.1f} ms "
+          f"({100 * depthwise / total:.1f} %); hand-written kernels {hand:.1f} ms "
+          f"({100 * hand / total:.1f} %)")
+    for name, t in sorted(rows.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {t:8.2f} ms {100 * t / total:5.1f} %  {name[:90]}")
+
+
+def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 256):
+    """Phase 4: StyleGAN3-T at full width through the CLI with the
+    equivariance metrics at the snapshot, then ``calc_metrics`` on its
+    checkpoint.  Returns the launch counts of both runs, summed."""
+    import numpy as np
+    import torch
+
+    from gantrack_tpu_torch.ops import fir
+    from gantrack_tpu_torch.tools import calc_metrics
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.training.loop import to_device_batch
+    from gantrack_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
+
+    device = _cli_device(cli, args)
+    print("phase 4: StyleGAN3-T at full width; the largest batch of 32, 16, 8 that fits")
+    batch = _pick_batch(cli, tmp, data, args, device)
+    argv = [f"--outdir={os.path.join(tmp, 'runs3')}", f"--data={data}", f"--batch={batch}", *args]
+    print(f"phase 4: python -m gantrack_tpu_torch.tools.train {' '.join(argv)}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    run_dir = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2", "warp"),
+                              SG3_T_PLAIN_ROUTE)
+    print(f"  CLI run: {seconds:.1f} s wall (incl. setup, image grids and the eq metrics) on "
+          f"{card}; kernel launches {launches}")
+    print(f"  upfirdn2d calls outside the FIR kernels' contract (plain route) in the run: "
+          f"{sum(fir.PLAIN_ROUTE.values())}, by reason {dict(fir.PLAIN_ROUTE)}")
+    if not fir.PLAIN_ROUTE:
+        raise AssertionError("StyleGAN3's factor-4 filters did not take the plain route")
+
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    keys = set().union(*records)
+    for rec in records:
+        for k, v in rec.items():
+            if k.startswith("Loss/") and not np.isfinite(v):
+                raise AssertionError(f"non-finite {k} in stats.jsonl: {v}")
+    for k in ("Loss/r1_penalty", "Loss/G/loss", "Loss/D/loss", "Progress/augment"):
+        if k not in keys:
+            raise AssertionError(f"{k} missing from stats.jsonl")
+    if "Loss/pl_penalty" in keys:
+        raise AssertionError("StyleGAN3 ran a path-length phase")
+    last = records[-1]
+    print(f"  stats: kimg {last['Progress/kimg']}, ada_p {last['Progress/augment']:.6f}, "
+          f"G_loss {last['Loss/G/loss']:.4f}, D_loss {last['Loss/D/loss']:.4f}, "
+          f"r1_penalty {last['Loss/r1_penalty']:.4f}, "
+          f"peak GPU mem {last.get('Resources/peak_gpu_mem_gb', float('nan')):.2f} GB")
+    for metric in ("eqt1k_int", "eqr1k"):
+        row = _metric_rows(run_dir, metric)[-1]
+        print(f"  {metric} at the snapshot: {row['results'][metric]:.4f} dB, metric tick "
+              f"{row['total_time']:.2f} s on {card}")
+
+    # The initial state of the same run, then the checkpoint on top.
+    opts = cli.build_parser().parse_args(argv)
+    _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
+    try:
+        real_img, real_c = to_device_batch(*next(loader), device)
+    finally:
+        loader.close()
+    names = state.G.synthesis.layer_names
+    print(f"  G: {len(names)} layers {names[0]} .. {names[-1]}, mapping depth "
+          f"{state.G.mapping.num_layers}, "
+          f"{sum(p.numel() for p in state.G.parameters()) / 1e6:.2f} M parameters; bf16 layers "
+          f"{sum(getattr(state.G.synthesis, n).spec.use_bf16 for n in names)}")
+    if len(names) != 15 or state.G.mapping.num_layers != 2:
+        raise AssertionError("not the published StyleGAN3-T depth (14 layers + toRGB, mapping 2)")
+    init = {name: [p.detach().clone() for p in getattr(state, name).parameters()]
+            for name in ("G", "D", "G_ema")}
+    ckpt = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+    load_checkpoint(ckpt, state, stepper.generator)
+    steps = -(-1000 // batch)
+    if state.step != steps or state.cur_nimg != steps * batch:
+        raise AssertionError(f"checkpoint at step {state.step}, nimg {state.cur_nimg}")
+    for name, before in init.items():
+        after = list(getattr(state, name).parameters())
+        if not any(not torch.equal(a, b) for a, b in zip(before, after)):
+            raise AssertionError(f"{name} parameters did not change")
+        if not all(torch.isfinite(p).all() for p in after):
+            raise AssertionError(f"{name} has non-finite parameters")
+    emas = [float(getattr(state.G.synthesis, n).magnitude_ema) for n in names]
+    emas_ema = [float(getattr(state.G_ema.synthesis, n).magnitude_ema) for n in names]
+    if any(e == 1.0 or not np.isfinite(e) for e in emas) or emas != emas_ema:
+        raise AssertionError(f"magnitude_ema buffers not updated or not copied to G_ema: {emas}")
+    with torch.no_grad():
+        z = torch.randn((4, 512), device=device, generator=torch.Generator(device).manual_seed(1))
+        fakes = state.G_ema(z, None, noise_mode="const")
+    if tuple(fakes.shape) != (4, 1, res, res) or not torch.isfinite(fakes).all():
+        raise AssertionError(f"G_ema output {tuple(fakes.shape)} not finite/of shape")
+    print(f"  checkpoint {os.path.basename(ckpt)} loads back: step {state.step}, "
+          f"ada_p {float(state.ada_p):.6f}; G, D, G_ema changed; magnitude_ema "
+          f"{min(emas):.4f} .. {max(emas):.4f}; G_ema output finite")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = _step_times(stepper, state, real_img, real_c,
+                        (("plain", (False, False)), ("+Dreg", (False, True))), SG3_T_PLAIN_ROUTE)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for label, ms in times.items():
+        print(f"  step {label}: median {ms:.1f} ms of 3 (batch {batch}, {res}^2) on {card}")
+    print(f"  peak device memory over those steps: {peak:.2f} GiB (batch {batch}) on {card}")
+    _profile_step(stepper, state, real_img, real_c, (False, False), card, "plain StyleGAN3-T")
+    _probe_metric_batch(cli, state.G_ema, card, res)
+    del state, stepper, real_img, fakes
+    torch.cuda.empty_cache()
+
+    argv = [f"--network={run_dir}", f"--data={data}", "--metrics=fid1k,eqr1k",
+            *(a for a in args if a.startswith(("--cfg=", "--cbase=", "--cmax=")))]
+    print(f"phase 4: python -m gantrack_tpu_torch.tools.calc_metrics {' '.join(argv)}")
+    trained = dict(launches)
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = calc_metrics.main(argv)
+    torch.cuda.synchronize()
+    launches = _read_launches(("fir_down2", "fir_up2", "warp"), SG3_T_PLAIN_ROUTE)
+    print(f"  {results} in {time.perf_counter() - t0:.1f} s on {card}; kernel launches "
+          f"{ {k: n for k, n in launches.items() if n} }; plain-route FIR calls "
+          f"{dict(fir.PLAIN_ROUTE)}")
+    for metric in ("fid1k", "eqr1k"):
+        _metric_rows(run_dir, metric)
+    return {k: trained[k] + launches[k] for k in trained}
+
+
+def run_unfused_augment(card: str, tmp: str, data: str, args=CLARO_ARGS):
+    """Phase 5: the claro recipe with the augment pipe built
+    ``impl="unfused"``: one plain and one +Greg+Dreg step on one batch
+    (K3 forward; K4 in the backward; K3 again where R1 differentiates the
+    backward), and the unfused chain against the fused one on one batch.
+    Returns the launch counts of the two steps."""
+    import torch
+
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.training.augment import AugmentPipe
+    from gantrack_tpu_torch.training.loop import to_device_batch
+
+    argv = [f"--outdir={tmp}", f"--data={data}", *args]
+    opts = cli.build_parser().parse_args(argv)
+    device = _cli_device(cli, args)
+    print("phase 5: the claro step with AugmentPipe(impl='unfused') "
+          "(upsample2d -> affine warp -> downsample2d)")
+    _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device,
+                                                   augment_impl="unfused")
+    try:
+        real_img, real_c = to_device_batch(*next(loader), device)
+    finally:
+        loader.close()
+    state.ada_p = torch.tensor(0.5, device=device)  # the gates open for half the draws
+    _reset_launches()
+    both = ("warp", "splat", "fir_same", "fir_down2", "fir_up2")
+    m = stepper.run(state, real_img, real_c, False, False)
+    plain = _read_launches(both)
+    m2 = stepper.run(state, real_img, real_c, True, True)
+    launches = _read_launches(both)
+    for name, moments in (("plain", m), ("+Greg+Dreg", m2)):
+        for k, v in moments.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"unfused {name} step: non-finite {k}")
+    in_reg = {k: launches[k] - plain[k] for k in ("warp", "splat")}
+    print(f"  plain step: warp {plain['warp']}, splat {plain['splat']} launches; +Greg+Dreg step: "
+          f"warp {in_reg['warp']}, splat {in_reg['splat']}; upwarp/upsplat "
+          f"{launches['upwarp']}/{launches['upsplat']}; losses finite; "
+          f"r1_penalty {float(m2['Loss/r1_penalty'][1] / m2['Loss/r1_penalty'][0]):.6f}")
+    if in_reg["warp"] <= plain["warp"] or launches["upwarp"] or launches["upsplat"]:
+        raise AssertionError("R1's second differentiation did not go back through K3, or the "
+                             "fused pair ran")
+
+    # Unfused against fused on one batch with the same transforms, in the
+    # step's bf16: the fused kernel rounds once, the unfused chain after
+    # each of its three stages, so 2e-2 of the largest value.
+    fused = AugmentPipe(stepper.loss.augment_fn.cfg, *real_img.shape[2:], real_img.shape[1])
+    unfused = stepper.loss.augment_fn
+    gen = torch.Generator(device=device).manual_seed(3)
+    g_inv = unfused.sample_geometric(real_img.shape[0], 1.0, device, gen)
+    a, b = unfused.apply_geometric(real_img, g_inv), fused.apply_geometric(real_img, g_inv)
+    _check("unfused chain (K7, K3, K6) vs fused (K1, K6), bf16", _max_err(a, b),
+           2e-2 * float(b.abs().max()))
+    del state, stepper
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -498,7 +1078,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    os.environ["GANTRACK_JAX_CACHE"] = "off"
     from gantrack_tpu_torch.ops import _nvcc
 
     card = card_line()
@@ -512,16 +1091,28 @@ def main() -> int:
 
     kernels = check_kernels(card)
     kernels.update(check_fir(card))
+    kernels.update(check_warp(card))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data = _synthetic_dataset(tmp)
-        run_dir, launches = train_claro(card, tmp, data)
+        run_dir, claro = train_claro(card, tmp, data)
         run_calc_metrics(card, tmp, data, run_dir)
+        sg3 = train_stylegan3(card, tmp, data)
+        unfused = run_unfused_augment(card, tmp, data)
+    # Launches on the main paths: the claro run, the StyleGAN3 run with its
+    # metrics, and the unfused augment steps, each counted from 0.
+    launches = {k: claro[k] + sg3[k] + unfused[k] for k in KERNELS}
+    print(f"kernel launches by main path: claro {claro}; stylegan3-t {sg3}; unfused augment "
+          f"{unfused}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was launched on no main path")
     report = [{"name": name, "route": "cuda", "source": f"gantrack_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": launches[name], **kernels[name]}
               for name, (source, replaces) in KERNELS.items()]
-    jax_modules = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax")]
+    jax_modules = [m for m in sys.modules
+                   if m.split(".")[0] in ("gantrack_tpu", "jax", "flax", "optax", "orbax")]
     if jax_modules:
-        raise AssertionError(f"the port imported JAX: {sorted(jax_modules)[:5]}")
+        raise AssertionError(f"the port imported JAX or the JAX package: {sorted(jax_modules)[:5]}")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

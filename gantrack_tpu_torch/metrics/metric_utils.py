@@ -41,6 +41,9 @@ class MetricOptions:
 
     generator: Optional[Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]] = None
     #   generator(z, c) -> images [N, C, H, W] in [-1, 1] on ``device``
+    generator_with_transform: Optional[Callable] = None
+    #   generator_with_transform(z, c, transform_3x3) -> images: synthesis with the user
+    #   transform of StyleGAN3's input set (the equivariance metrics)
     z_dim: int = 512
     c_dim: int = 0
     dataset: Any = None

@@ -3,8 +3,9 @@
 Port of ``gantrack_tpu/metrics/registry.py``: ``@register_metric``
 functions, ``calc_metric`` (runs and times one metric) and
 ``report_metric`` (appends ``metric-<mode>-<metric>.jsonl`` rows, stamped
-with ``kimg``).  The metrics that need a network the port does not have
-yet are known by name and refused with their ROADMAP item.
+with ``kimg``), and the JAX registry's configurations, the StyleGAN3
+equivariance metrics included.  The metric that needs a network the port
+does not have yet is known by name and refused with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ _metric_dict: Dict[str, Callable] = {}
 # Registered in the JAX package, not ported yet.
 UNPORTED_METRICS = {
     "ppl2_wend": "ROADMAP A8 (needs the VGG16/LPIPS network)",
-    **{name: "ROADMAP A9 (StyleGAN3 equivariance)"
-       for name in ("eqt50k_int", "eqt50k_frac", "eqr50k", "eqt1k_int", "eqr1k")},
 }
 
 
@@ -133,3 +132,43 @@ def is50k(opts: MetricOptions) -> dict:
 
     mean, std = compute_is(opts, num_gen=50000, num_splits=10)
     return {"is50k_mean": mean, "is50k_std": std}
+
+
+# StyleGAN3-only equivariance metrics; they need a transform-capable
+# generator on opts (``opts.generator_with_transform``, which
+# ``tools.calc_metrics.evaluate_metrics`` sets for a StyleGAN3 G_ema).
+
+def _equivariance(opts: MetricOptions, name: str, key: str, num_samples: int) -> dict:
+    from .equivariance import compute_equivariance_metrics
+
+    r = compute_equivariance_metrics(
+        opts, num_samples=num_samples, compute_eqt_int=(key == "eqt_int"),
+        compute_eqt_frac=(key == "eqt_frac"), compute_eqr=(key == "eqr"))
+    return {name: r[key]}
+
+
+@register_metric
+def eqt50k_int(opts: MetricOptions) -> dict:
+    return _equivariance(opts, "eqt50k_int", "eqt_int", 50000)
+
+
+@register_metric
+def eqt50k_frac(opts: MetricOptions) -> dict:
+    return _equivariance(opts, "eqt50k_frac", "eqt_frac", 50000)
+
+
+@register_metric
+def eqr50k(opts: MetricOptions) -> dict:
+    return _equivariance(opts, "eqr50k", "eqr", 50000)
+
+
+@register_metric
+def eqt1k_int(opts: MetricOptions) -> dict:
+    """Fast tier of eqt50k_int (validation runs; same estimator)."""
+    return _equivariance(opts, "eqt1k_int", "eqt_int", 1000)
+
+
+@register_metric
+def eqr1k(opts: MetricOptions) -> dict:
+    """Fast tier of eqr50k (validation runs; same estimator)."""
+    return _equivariance(opts, "eqr1k", "eqr", 1000)

@@ -5,6 +5,9 @@
   ``gantrack_tpu/models/torch_compat.py``: HWIO → OIHW conv weights,
   ``[in, out]`` → ``[out, in]`` dense weights, HWC → CHW const inputs,
   and the discriminator epilogue's NHWC flatten order back to NCHW.
+* StyleGAN3: the inverse of ``sg3_generator_params_from_torch``:
+  ``params`` as above, the Fourier buffers and the user transform from
+  ``consts``, ``magnitude_ema`` and ``w_avg`` from ``emas``.
 * InceptionV3 (``gantrack_tpu/models/inception.py``): HWIO → OIHW convs,
   the folded ``bn_scale`` / ``bn_offset``, the ``output`` dense layer;
   from the nested flax variables or from the flat ``a/b/c`` keys of a
@@ -74,6 +77,29 @@ def generator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, tor
                 _layer(sd, f"{base}.{name}", lp)
         for name, nc in consts.get(block, {}).items():
             sd[f"{base}.{name}.noise_const"] = _t(nc["noise_const"])
+    return sd
+
+
+def sg3_generator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params", "consts", "emas"}`` of the JAX StyleGAN3 ``Generator``
+    → the port's StyleGAN3 ``Generator`` state dict."""
+    params = variables["params"]
+    emas = variables.get("emas", {})
+    sd: Dict[str, torch.Tensor] = {}
+    _mapping(sd, "mapping", params["mapping"])
+    w_avg = emas.get("mapping", {}).get("w_avg")
+    if w_avg is not None:
+        sd["mapping.w_avg"] = _t(w_avg)
+    for name, value in variables["consts"]["synthesis"]["input"].items():
+        sd[f"synthesis.input.{name}"] = _t(value)  # freqs, phases, transform
+    for name, lp in params["synthesis"].items():
+        base = f"synthesis.{name}"
+        if name == "input":  # the [out, in] channel mix is stored as it is
+            sd[f"{base}.weight"] = _t(lp["weight"])
+            _fc(sd, f"{base}.affine", lp["affine"])
+            continue
+        _layer(sd, base, lp)
+        sd[f"{base}.magnitude_ema"] = _t(emas["synthesis"][name]["magnitude_ema"])
     return sd
 
 

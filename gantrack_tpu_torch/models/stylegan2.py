@@ -42,17 +42,18 @@ def _filter_buffer(module: nn.Module, taps: Sequence[int]) -> None:
 class FullyConnected(nn.Module):
     """Equalized-LR dense layer: weight ``[out, in]`` stored as
     ``randn / lr_multiplier``, scaled at run time by
-    ``lr_multiplier / sqrt(in)``."""
+    ``lr_multiplier / sqrt(in)``.  ``bias_init`` is one value or one per
+    output feature."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  activation: str = "linear", lr_multiplier: float = 1.0,
-                 bias_init: float = 0.0, weight_init: float = 1.0):
+                 bias_init=0.0, weight_init: float = 1.0):
         super().__init__()
         self.activation = activation
         self.weight = nn.Parameter(torch.randn([out_features, in_features])
                                    * (weight_init / lr_multiplier))
-        self.bias = (nn.Parameter(torch.full([out_features], float(bias_init) / lr_multiplier))
-                     if bias else None)
+        bias_init = np.broadcast_to(np.asarray(bias_init, dtype=np.float32), [out_features])
+        self.bias = nn.Parameter(torch.from_numpy(bias_init / lr_multiplier)) if bias else None
         self.weight_gain = lr_multiplier / np.sqrt(in_features)
         self.bias_gain = lr_multiplier
 
@@ -300,7 +301,9 @@ class SynthesisNetwork(nn.Module):
                 self.num_ws += block.num_torgb
             setattr(self, f"b{res}", block)
 
-    def forward(self, ws, **block_kwargs):
+    def forward(self, ws, update_emas: bool = False, **block_kwargs):
+        # ``update_emas`` is StyleGAN3's (its layers keep a magnitude EMA);
+        # nothing here reads it.
         assert ws.shape[1] == self.num_ws and ws.shape[2] == self.w_dim
         ws = ws.float()
         x = img = None

@@ -102,6 +102,16 @@ def check_planes(t: torch.Tensor, name: str) -> None:
                          f"shape {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
+def check_coeffs(coeffs: torch.Tensor, planes: torch.Tensor) -> None:
+    """Raise unless ``coeffs`` is the ``[P, 6]`` float32 coefficient table
+    of ``planes``' warp, on the same device."""
+    if (coeffs.device != planes.device or coeffs.dtype != torch.float32
+            or tuple(coeffs.shape) != (planes.shape[0], 6) or not coeffs.is_contiguous()):
+        raise ValueError(f"coeffs must be a contiguous float32 [P, 6] tensor on "
+                         f"{planes.device}, got {tuple(coeffs.shape)} {coeffs.dtype} "
+                         f"on {coeffs.device}")
+
+
 def check_rc(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")

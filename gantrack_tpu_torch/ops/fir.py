@@ -17,7 +17,9 @@ the taps, keep every ``down``-th sample.
   every order of gradient, as R1 and path length take, stays on the
   kernels.
 * ``LAUNCHES`` counts kernel launches per form; it is bumped only where a
-  kernel is launched.
+  kernel is launched.  ``PLAIN_ROUTE`` counts no kernel: it holds, by
+  reason, the ``upfirdn2d`` calls whose static spec lies outside the
+  kernels' contract and which therefore took the plain version.
 """
 
 from __future__ import annotations
@@ -25,19 +27,23 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ._nvcc import check_planes, check_rc, load_library
-from .upfirdn2d import Taps, _parse_padding, _parse_scaling, filter_taps, upfirdn2d_plain
+from .upfirdn2d import (NOT_SEPARABLE, Taps, _parse_padding, _parse_scaling, filter_taps,
+                        upfirdn2d_plain)
 
-__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "LAUNCHES"]
+__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "LAUNCHES", "PLAIN_ROUTE"]
 
 FORMS = ("same", "down2", "up2")
 MAX_TAPS = 32  # kMaxTaps of csrc/fir.cu
 # Kernel launches per form; bumped only where a kernel is launched.
 LAUNCHES = {"fir_same": 0, "fir_down2": 0, "fir_up2": 0}
+# ``upfirdn2d`` calls outside the kernels' contract, which took the plain
+# version: {why the call was outside: calls}.
+PLAIN_ROUTE: Dict[str, int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +89,8 @@ class FirSpec:
 def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
              flip_filter: bool, gain: float) -> Tuple[Optional[FirSpec], str]:
     """The :class:`FirSpec` of an ``upfirdn2d`` call, or ``(None, why)``
-    when the call is outside the kernels' contract."""
+    when the call is outside the kernels' contract.  A filter on the
+    device with no host taps beside it is the caller's fault and raises."""
     upx, upy = _parse_scaling(up)
     downx, downy = _parse_scaling(down)
     if upx != upy or downx != downy:
@@ -96,12 +103,13 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
         if f is None:
             taps = ((1.0,), (1.0,))
         elif f.device.type != "cpu":
-            return None, ("the filter lies on the device and no host taps were given "
-                          "(pass taps=filter_taps(f), computed when the filter is set up)")
+            raise ValueError("upfirdn2d: the filter lies on the device and no host taps were "
+                             "given (pass taps=filter_taps(f), computed when the filter is "
+                             "set up, or NOT_SEPARABLE)")
         else:
-            taps = filter_taps(f)
-            if taps is None:
-                return None, "the 2-D filter is not separable"
+            taps = filter_taps(f) or NOT_SEPARABLE
+    if taps == NOT_SEPARABLE:
+        return None, "2-D filter, not separable"
     ty, tx = taps
     if not (1 <= len(ty) <= MAX_TAPS and 1 <= len(tx) <= MAX_TAPS):
         return None, f"{len(ty)} x {len(tx)} taps (at most {MAX_TAPS} per axis)"

@@ -7,13 +7,19 @@ the installed PyTorch.  Coordinate math runs in float32.
 
 Layout: input NCHW; grid ``[N, H_out, W_out, 2]`` with ``grid[..., 0]``
 the normalised x and ``grid[..., 1]`` the normalised y coordinate.
+
+:func:`warp_coefficients` and :func:`sample_positions` are the affine
+case in pixel space: six coefficients a sample instead of a grid, the
+form the warp kernels (:mod:`.warp`, :mod:`.upwarp`) take, rounded as
+they round it.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["grid_sample", "affine_grid", "bilinear_gather"]
+__all__ = ["grid_sample", "affine_grid", "bilinear_gather", "warp_coefficients",
+           "sample_positions"]
 
 
 def bilinear_gather(x: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
@@ -66,3 +72,31 @@ def affine_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     coords = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # [H, W, 3]
     return torch.einsum("nij,hwj->nhwi", theta.float(), coords)
+
+
+def warp_coefficients(theta: torch.Tensor, h2: int, w2: int, out_h: int, out_w: int) -> torch.Tensor:
+    """``[N, 6]`` float32 pixel-space coefficients ``(ax, bx, cx, ay, by, cy)``
+    of the normalised inverse transform ``theta [N, 2, 3]`` for an
+    ``h2 × w2`` input and an ``out_h × out_w`` output (align_corners=False)."""
+    t = theta.float()
+    ax = t[:, 0, 0] * (w2 / out_w)
+    bx = t[:, 0, 1] * (w2 / out_h)
+    cx = (w2 / 2) * (t[:, 0, 0] * (1 / out_w - 1) + t[:, 0, 1] * (1 / out_h - 1)
+                     + t[:, 0, 2] + 1) - 0.5
+    ay = t[:, 1, 0] * (h2 / out_w)
+    by = t[:, 1, 1] * (h2 / out_h)
+    cy = (h2 / 2) * (t[:, 1, 0] * (1 / out_w - 1) + t[:, 1, 1] * (1 / out_h - 1)
+                     + t[:, 1, 2] + 1) - 0.5
+    return torch.stack([ax, bx, cx, ay, by, cy], dim=1).contiguous()
+
+
+def sample_positions(coeffs: torch.Tensor, out_h: int, out_w: int):
+    """Source positions ``fx, fy [N, out_h, out_w]``, rounded as the kernel
+    rounds them: ``(a*ox + b*oy) + c``."""
+    dev = coeffs.device
+    ox = torch.arange(out_w, dtype=torch.float32, device=dev)[None, None, :]
+    oy = torch.arange(out_h, dtype=torch.float32, device=dev)[None, :, None]
+    c = coeffs[:, :, None, None]
+    fx = (c[:, 0] * ox + c[:, 1] * oy) + c[:, 2]
+    fy = (c[:, 3] * ox + c[:, 4] * oy) + c[:, 5]
+    return fx, fy

@@ -8,8 +8,13 @@ tensors.
   (a separable filter; ``up`` or ``down`` in {1, 2} on both axes, not
   both 2; any padding) through :class:`.fir.Fir`: on a CUDA tensor that
   launches the hand-written kernels K5–K7 of ``csrc/fir.cu``, on a CPU
-  tensor it computes the plain form.  Outside the contract a CPU tensor
-  takes :func:`upfirdn2d_plain` and a CUDA tensor raises.
+  tensor it computes the plain form.  A call outside the contract
+  (StyleGAN3's factor-4 filters, its radial 2-D filters, more than 32
+  taps an axis: forms the JAX package's FIR kernels never covered either)
+  takes :func:`upfirdn2d_plain` on any device.  That is decided from the
+  call's static spec before anything is launched, and counted by its
+  reason in ``fir.PLAIN_ROUTE``; a kernel that fails to build or launch
+  still raises.
 * :func:`upfirdn2d_plain` is the plain PyTorch version: a depthwise
   convolution (separable filters as a vertical then a horizontal pass)
   over a zero-inserted, padded copy.  The conv is
@@ -19,7 +24,8 @@ tensors.
 The kernels take the filter's taps from the host: :func:`filter_taps`
 computes them once, when a filter is set up, and callers pass them as
 ``taps=`` beside the filter tensor, so no call reads a device filter
-back (which would synchronise the stream).  The JAX module's
+back (which would synchronise the stream); a 2-D filter that has no
+separable factors passes ``taps=NOT_SEPARABLE``.  The JAX module's
 banded-matrix lowerings are a TPU layout device and are not carried.
 
 Numerics contract (as the JAX module): 1. zero-insert upsample by
@@ -40,6 +46,8 @@ from .conv2d_gradfix import conv2d
 
 IntOrPair = Union[int, Sequence[int]]
 Taps = Tuple[Tuple[float, ...], Tuple[float, ...]]
+# ``taps=`` of a 2-D filter that :func:`filter_taps` could not factor.
+NOT_SEPARABLE: Taps = ((), ())
 
 
 def _parse_scaling(scaling: IntOrPair) -> Tuple[int, int]:
@@ -150,19 +158,17 @@ def upfirdn2d(
 
     Returns ``[N, C, out_h, out_w]`` with
     ``out_h = (H*upy + pady0 + pady1 - fh) // downy + 1`` (same for w).
-    ``taps`` is ``filter_taps(f)``, computed when ``f`` was set up; a CUDA
-    tensor needs it unless ``f`` is None or on the host.
+    ``taps`` is ``filter_taps(f)`` (or ``NOT_SEPARABLE``), computed when
+    ``f`` was set up; a filter on the device needs it.
     """
-    from .fir import Fir, fir_spec  # here: fir.py imports this module
+    from . import fir  # here: fir.py imports this module
 
-    spec, why = fir_spec(f, taps, up, down, padding, flip_filter, gain)
-    if spec is None:
-        if x.device.type == "cpu":
-            return upfirdn2d_plain(x, f, up, down, padding, flip_filter, gain)
-        raise ValueError(f"upfirdn2d on {x.device}: {why}; the FIR kernels take a separable "
-                         "filter with up or down in {1, 2} on both axes, not both 2")
+    spec, why = fir.fir_spec(f, taps, up, down, padding, flip_filter, gain)
+    if spec is None:  # outside the kernels' contract: the plain version, counted
+        fir.PLAIN_ROUTE[why] = fir.PLAIN_ROUTE.get(why, 0) + 1
+        return upfirdn2d_plain(x, f, up, down, padding, flip_filter, gain)
     n, c, h, w = x.shape
-    out = Fir.apply(x.reshape(n * c, h, w).contiguous(), spec)
+    out = fir.Fir.apply(x.reshape(n * c, h, w).contiguous(), spec)
     return out.reshape(n, c, *out.shape[1:])
 
 

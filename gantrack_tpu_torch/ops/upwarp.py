@@ -26,10 +26,11 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ._nvcc import check_coeffs as _check_coeffs
 from ._nvcc import check_planes as _check_planes
 from ._nvcc import check_rc as _check_rc
 from ._nvcc import load_library
-from .grid_sample import bilinear_gather
+from .grid_sample import bilinear_gather, sample_positions, warp_coefficients
 from .upfirdn2d import upfirdn2d_plain, upsample2d_args
 
 __all__ = ["up_affine_warp", "up_affine_warp_plain", "warp_coefficients",
@@ -56,14 +57,6 @@ def _fir_array(taps: Tuple[float, ...]):
     if len(taps) != NUM_TAPS:
         raise ValueError(f"the upwarp kernels take a {NUM_TAPS}-tap FIR, got {len(taps)}")
     return (ctypes.c_float * NUM_TAPS)(*taps)
-
-
-def _check_coeffs(coeffs: torch.Tensor, planes: torch.Tensor) -> None:
-    if (coeffs.device != planes.device or coeffs.dtype != torch.float32
-            or tuple(coeffs.shape) != (planes.shape[0], 6) or not coeffs.is_contiguous()):
-        raise ValueError(f"coeffs must be a contiguous float32 [P, 6] tensor on "
-                         f"{planes.device}, got {tuple(coeffs.shape)} {coeffs.dtype} "
-                         f"on {coeffs.device}")
 
 
 def upwarp_planes(planes: torch.Tensor, coeffs: torch.Tensor, taps: Tuple[float, ...],
@@ -135,34 +128,6 @@ class UpSplat(torch.autograd.Function):
         (coeffs,) = ctx.saved_tensors
         out_h, out_w = ctx.out_hw
         return UpWarp.apply(gg.contiguous(), coeffs, ctx.taps, out_h, out_w), None, None, None, None
-
-
-def warp_coefficients(theta: torch.Tensor, h2: int, w2: int, out_h: int, out_w: int) -> torch.Tensor:
-    """``[N, 6]`` float32 pixel-space coefficients ``(ax, bx, cx, ay, by, cy)``
-    of the normalised inverse transform ``theta [N, 2, 3]`` for an
-    ``h2 × w2`` input and an ``out_h × out_w`` output (align_corners=False)."""
-    t = theta.float()
-    ax = t[:, 0, 0] * (w2 / out_w)
-    bx = t[:, 0, 1] * (w2 / out_h)
-    cx = (w2 / 2) * (t[:, 0, 0] * (1 / out_w - 1) + t[:, 0, 1] * (1 / out_h - 1)
-                     + t[:, 0, 2] + 1) - 0.5
-    ay = t[:, 1, 0] * (h2 / out_w)
-    by = t[:, 1, 1] * (h2 / out_h)
-    cy = (h2 / 2) * (t[:, 1, 0] * (1 / out_w - 1) + t[:, 1, 1] * (1 / out_h - 1)
-                     + t[:, 1, 2] + 1) - 0.5
-    return torch.stack([ax, bx, cx, ay, by, cy], dim=1).contiguous()
-
-
-def sample_positions(coeffs: torch.Tensor, out_h: int, out_w: int):
-    """Source positions ``fx, fy [N, out_h, out_w]``, rounded as the kernel
-    rounds them: ``(a*ox + b*oy) + c``."""
-    dev = coeffs.device
-    ox = torch.arange(out_w, dtype=torch.float32, device=dev)[None, None, :]
-    oy = torch.arange(out_h, dtype=torch.float32, device=dev)[None, :, None]
-    c = coeffs[:, :, None, None]
-    fx = (c[:, 0] * ox + c[:, 1] * oy) + c[:, 2]
-    fy = (c[:, 3] * ox + c[:, 4] * oy) + c[:, 5]
-    return fx, fy
 
 
 def up_affine_warp_plain(img: torch.Tensor, coeffs: torch.Tensor, fir: torch.Tensor,

@@ -5,8 +5,9 @@
 
 Same flag names as ``gantrack_tpu/tools/calc_metrics.py`` (``argparse``
 here), without its ``--resolution`` and ``--channels``, which nothing
-reads: the dataset gives both.  Loads G_ema from a checkpoint of the
-port (a ``state-*.pt`` file, or the latest one of a run directory),
+reads: the dataset gives both.  Loads G_ema (the generator of ``--cfg``:
+stylegan2, stylegan3-t or stylegan3-r) from a checkpoint of the port (a
+``state-*.pt`` file, or the latest one of a run directory),
 evaluates every metric for every modality of 2-channel data, and appends
 ``metric-<mode>-<metric>.jsonl`` rows to the run directory.  Runs on the CUDA device; ``--device=cpu``
 runs on the CPU instead.  Without ``--detector-weights`` (a converted
@@ -21,11 +22,10 @@ import os
 import sys
 from typing import List, Optional, Sequence
 
-import gantrack_tpu_torch  # noqa: F401  (sets the JAX-free import mode first)
-
+import numpy as np
 import torch
 
-from .train import _bool
+from .train import _bool, make_generator, metric_batch
 
 
 def evaluate_metrics(G_ema, metrics: Sequence[str], dataset, detector, device: torch.device,
@@ -40,11 +40,27 @@ def evaluate_metrics(G_ema, metrics: Sequence[str], dataset, detector, device: t
     def generator(z, c):
         return G_ema(z, c, noise_mode="const")
 
+    # The equivariance metrics synthesise with a user transform set on
+    # StyleGAN3's input, and put the trained one back afterwards.
+    generator_with_transform = None
+    sg3_input = getattr(G_ema.synthesis, "input", None)
+    if sg3_input is not None:
+        def generator_with_transform(z, c, transform_3x3):
+            saved = sg3_input.transform.clone()
+            sg3_input.transform.copy_(torch.from_numpy(
+                np.linalg.inv(transform_3x3).astype(np.float32)))
+            try:
+                return G_ema(z, c)
+            finally:
+                sg3_input.transform.copy_(saved)
+
     modes = ([(None, None)] if dataset.num_channels != 2
              else list((m, i) for i, m in enumerate(modalities or ["mode0", "mode1"])))
     results = {}
     for mode_name, mode_idx in modes:
-        opts = MetricOptions(generator=generator, z_dim=G_ema.z_dim, c_dim=G_ema.c_dim,
+        opts = MetricOptions(generator=generator,
+                             generator_with_transform=generator_with_transform,
+                             z_dim=G_ema.z_dim, c_dim=G_ema.c_dim,
                              dataset=dataset, detector=detector, mode_idx=mode_idx,
                              batch_size=batch_size, cache_dir=cache_dir, device=device)
         for m in metrics:
@@ -73,7 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cmax", type=int, default=512)
     p.add_argument("--map-depth", dest="map_depth", type=int, default=None)
     p.add_argument("--batch", type=int, default=None,
-                   help="Extraction batch (default: resolution-scaled, 256 at <=256^2)")
+                   help="Extraction batch (default: resolution-scaled, 256 at <=256^2; "
+                        "32 for StyleGAN3)")
     p.add_argument("--cond", type=_bool, default=False,
                    help="Conditional checkpoint: rebuild G with the dataset's label_dim")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -85,8 +102,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Parse ``argv`` and evaluate; returns ``{name: value}``."""
     from ..data import open_dataset
     from ..metrics import check_metric, make_inception_detector
-    from ..metrics.metric_utils import auto_metric_batch
-    from ..models.stylegan2 import Generator
     from ..utils.checkpoint import resolve_checkpoint_path
 
     opts = build_parser().parse_args(argv)
@@ -96,8 +111,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             check_metric(m)
         except ValueError as e:
             raise SystemExit(f"--metrics: {e}") from None
-    if opts.cfg != "stylegan2":
-        raise SystemExit(f"--cfg={opts.cfg}: StyleGAN3 is not ported yet (ROADMAP A9)")
+        if m.startswith("eq") and opts.cfg == "stylegan2":
+            raise SystemExit(f"--metrics: {m} needs a StyleGAN3 generator (--cfg=stylegan3-t|-r)")
     if opts.checkpoint.endswith((".pkl", ".pickle")):
         raise SystemExit("--network: NVIDIA pickles are not read yet (ROADMAP A11)")
     device = torch.device(opts.device)
@@ -123,10 +138,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if path is None:
         raise SystemExit(f"--network: no checkpoint found under {opts.checkpoint}")
     print(f"Loading {path}")
-    G_ema = Generator(z_dim=512, c_dim=c_dim, w_dim=512, img_resolution=dataset.resolution,
-                      img_channels=dataset.num_channels,
-                      mapping_kwargs=dict(num_layers=opts.map_depth or 8),
-                      synthesis_kwargs=dict(channel_base=opts.cbase, channel_max=opts.cmax))
+    G_ema = make_generator(
+        opts.cfg, resolution=dataset.resolution, channels=dataset.num_channels, c_dim=c_dim,
+        cbase=opts.cbase, cmax=opts.cmax,
+        map_depth=opts.map_depth or (8 if opts.cfg == "stylegan2" else 2))
     payload = torch.load(path, map_location="cpu", weights_only=True)
     G_ema.load_state_dict(payload["G_ema"])
     G_ema = G_ema.to(device).eval().requires_grad_(False)
@@ -136,7 +151,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     detector = make_inception_detector(opts.detector_weights, device=device)
     return evaluate_metrics(
         G_ema, metric_list, dataset, detector, device,
-        batch_size=opts.batch or auto_metric_batch(dataset.resolution), modalities=modalities,
+        batch_size=opts.batch or metric_batch(opts.cfg, dataset.resolution),
+        modalities=modalities,
         cache_dir=opts.cache_dir, run_dir=run_dir, snapshot_path=path)
 
 

@@ -6,12 +6,16 @@
         --mirror=1 --metrics=fid50k_full
 
 Same flag names as ``gantrack_tpu/tools/train.py`` (``argparse`` here).
-This slice trains StyleGAN2-ADA on one CUDA device (``--device=cpu``
-trains on the CPU instead, for rehearsals at a tiny size) and evaluates
-``--metrics`` of G_ema at every ``--metric-snap``-th snapshot, with the
-InceptionV3 of ``--detector-weights`` or, without weights, the random
-projection detector.  ``--cfg=stylegan2`` only, no ``--batch-gpu``
-accumulation, no freeze-D and no ``--metric-async``; those raise.  The
+Trains StyleGAN2-ADA (``--cfg=stylegan2``) or StyleGAN3
+(``--cfg=stylegan3-t`` / ``stylegan3-r``: no path length, no style
+mixing, mapping depth 2; ``-r`` doubles the channels, takes 1×1 convs and
+radial filters, and fades a discriminator blur) on one CUDA device
+(``--device=cpu`` trains on the CPU instead, for rehearsals at a tiny
+size) and evaluates ``--metrics`` of G_ema (the ``eq*`` equivariance
+metrics for StyleGAN3 only) at every ``--metric-snap``-th snapshot, with
+the InceptionV3 of ``--detector-weights`` or, without weights, the random
+projection detector.  No ``--batch-gpu`` accumulation, no freeze-D and no
+``--metric-async``; those raise.  The
 JAX CLI's ``--dtype`` (read by nothing) and ``--rng-impl`` (a TPU
 generator) are not taken.
 """
@@ -23,8 +27,6 @@ import json
 import os
 import sys
 from typing import List, Optional
-
-import gantrack_tpu_torch  # noqa: F401  (sets the JAX-free import mode first)
 
 import numpy as np
 import torch
@@ -45,7 +47,7 @@ def _list(value: str) -> List[str]:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m gantrack_tpu_torch.tools.train",
-                                description="Train StyleGAN2-ADA with the PyTorch port.")
+                                description="Train StyleGAN2-ADA or StyleGAN3 with the PyTorch port.")
     p.add_argument("--outdir", required=True, help="Where to save the results")
     p.add_argument("--cfg", required=True, choices=["stylegan3-t", "stylegan3-r", "stylegan2"])
     p.add_argument("--data", required=True, help="Training data")
@@ -101,8 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_slice(opts) -> None:
     """Reject what this slice does not run, naming where it is queued."""
-    if opts.cfg != "stylegan2":
-        raise SystemExit(f"--cfg={opts.cfg}: StyleGAN3 is not ported yet (ROADMAP A9)")
     from ..metrics import check_metric
 
     for m in opts.metrics:
@@ -110,6 +110,8 @@ def check_slice(opts) -> None:
             check_metric(m)
         except ValueError as e:
             raise SystemExit(f"--metrics: {e}") from None
+        if m.startswith("eq") and opts.cfg == "stylegan2":
+            raise SystemExit(f"--metrics: {m} needs a StyleGAN3 generator (--cfg=stylegan3-t|-r)")
     if opts.metric_snap < 1:
         raise SystemExit("--metric-snap: must be at least 1")
     if opts.metric_async:
@@ -130,10 +132,11 @@ def resolve_config(opts) -> dict:
         snapshot_ticks=opts.snap, random_seed=opts.seed, metrics=opts.metrics,
         dataset=opts.data, device=opts.device,
         G=dict(z_dim=512, w_dim=512, channel_base=opts.cbase, channel_max=opts.cmax,
-               num_fp16_res=num_fp16_res, map_depth=opts.map_depth or 8),
+               num_fp16_res=num_fp16_res,
+               map_depth=opts.map_depth or (8 if opts.cfg == "stylegan2" else 2)),
         D=dict(channel_base=opts.cbase, channel_max=opts.cmax, num_fp16_res=num_fp16_res,
                mbstd_group=opts.mbstd_group),
-        glr=opts.glr if opts.glr is not None else 0.002,
+        glr=opts.glr if opts.glr is not None else (0.002 if opts.cfg == "stylegan2" else 0.0025),
         dlr=opts.dlr, gamma=opts.gamma, ema_kimg=opts.batch * 10 / 32,
         aug=opts.aug, target=opts.target,
     )
@@ -161,10 +164,52 @@ def main(argv: Optional[List[str]] = None) -> Optional[str]:
     return run_dir
 
 
-def build_training(c: dict, opts, device: torch.device):
-    """Dataset, loader, networks, state, loss and stepper of a run."""
+def make_generator(cfg: str, *, resolution: int, channels: int, c_dim: int, cbase: int,
+                   cmax: int, map_depth: int, num_fp16_res: int = 4, z_dim: int = 512,
+                   w_dim: int = 512):
+    """The generator of ``--cfg``: stylegan2, stylegan3-t or stylegan3-r
+    (channels ×2, 1×1 convs, radial filters)."""
+    if cfg == "stylegan2":
+        from ..models.stylegan2 import Generator
+
+        return Generator(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=resolution,
+                         img_channels=channels, mapping_kwargs=dict(num_layers=map_depth),
+                         synthesis_kwargs=dict(channel_base=cbase, channel_max=cmax,
+                                               num_fp16_res=num_fp16_res))
+    from ..models.stylegan3 import Generator as SG3Generator
+
+    mult = 2 if cfg == "stylegan3-r" else 1
+    return SG3Generator(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=resolution,
+                        img_channels=channels, channel_base=cbase * mult,
+                        channel_max=cmax * mult, conv_kernel=1 if cfg == "stylegan3-r" else 3,
+                        use_radial_filters=(cfg == "stylegan3-r"), num_fp16_res=num_fp16_res,
+                        mapping_kwargs=dict(num_layers=map_depth))
+
+
+# By how much the metrics' generator-pass batch of each ``--cfg`` is cut
+# below the resolution rule.  A StyleGAN3 layer holds its activations at 2x
+# or 4x its rate between its two filters, so its generator takes a smaller
+# batch than StyleGAN2's.  At full width and 256^2 on an H100 80GB the pass
+# peaks at 0.53 GiB an image for -t and 1.05 GiB for -r (twice the
+# channels); the divisors keep it under half the card, beside a training
+# state (``chip_smoke.py`` tries 128, 64 and 32 and checks the choice).
+METRIC_BATCH_DIVISOR = {"stylegan2": 1, "stylegan3-t": 4, "stylegan3-r": 8}
+
+
+def metric_batch(cfg: str, resolution: int) -> int:
+    """The metrics' batch for ``--cfg`` at a resolution: the JAX rule
+    (``auto_metric_batch``) over the family's divisor."""
+    from ..metrics.metric_utils import auto_metric_batch
+
+    return max(auto_metric_batch(resolution) // METRIC_BATCH_DIVISOR[cfg], 1)
+
+
+def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fused"):
+    """Dataset, loader, networks, state, loss and stepper of a run.
+    ``augment_impl`` is the ``impl`` of the augment pipe (no CLI flag, as
+    in the JAX CLI)."""
     from ..data import InfiniteLoader, open_dataset
-    from ..models.stylegan2 import Discriminator, Generator
+    from ..models.stylegan2 import Discriminator
     from ..training.augment import AugmentConfig, AugmentPipe
     from ..training.loss import StyleGAN2Loss, StyleGAN2LossConfig
     from ..training.step import TrainStepConfig, TrainStepper
@@ -183,17 +228,18 @@ def build_training(c: dict, opts, device: torch.device):
           f"labels={c_dim}  device={device}")
 
     torch.manual_seed(opts.seed)
-    G = Generator(z_dim=c["G"]["z_dim"], c_dim=c_dim, w_dim=c["G"]["w_dim"],
-                  img_resolution=res, img_channels=channels,
-                  mapping_kwargs=dict(num_layers=c["G"]["map_depth"]),
-                  synthesis_kwargs=dict(channel_base=c["G"]["channel_base"],
-                                        channel_max=c["G"]["channel_max"],
-                                        num_fp16_res=c["G"]["num_fp16_res"])).to(device)
+    sg2 = c["cfg"] == "stylegan2"
+    G = make_generator(c["cfg"], resolution=res, channels=channels, c_dim=c_dim,
+                       cbase=c["G"]["channel_base"], cmax=c["G"]["channel_max"],
+                       map_depth=c["G"]["map_depth"], num_fp16_res=c["G"]["num_fp16_res"],
+                       z_dim=c["G"]["z_dim"], w_dim=c["G"]["w_dim"]).to(device)
     D = Discriminator(c_dim=c_dim, img_resolution=res, img_channels=channels,
                       channel_base=c["D"]["channel_base"], channel_max=c["D"]["channel_max"],
                       num_fp16_res=c["D"]["num_fp16_res"],
                       epilogue_kwargs=dict(mbstd_group_size=c["D"]["mbstd_group"])).to(device)
-    state = create_train_state(G, D, c["glr"], c["dlr"], g_reg_interval=4, d_reg_interval=16)
+    g_reg_interval = 4 if sg2 else None  # StyleGAN3 has no path-length phase
+    state = create_train_state(G, D, c["glr"], c["dlr"], g_reg_interval=g_reg_interval,
+                               d_reg_interval=16)
     generator = torch.Generator(device=device).manual_seed(opts.seed)
     if opts.resume:
         from ..utils.checkpoint import load_checkpoint, resolve_checkpoint_path
@@ -213,21 +259,25 @@ def build_training(c: dict, opts, device: torch.device):
             "xfrac_std": opts.xfrac_std, "scale_std": opts.scale_std,
             "aniso_std": opts.aniso_std,
         })
-        augment_fn = AugmentPipe(aug_cfg, res, res, channels)
+        augment_fn = AugmentPipe(aug_cfg, res, res, channels, impl=augment_impl)
         if opts.aug == "ada":
             ada_target = opts.target
         elif not opts.resume:
             state.ada_p = torch.tensor(opts.aug_p, device=device)
 
-    loss = StyleGAN2Loss(G, D, StyleGAN2LossConfig(r1_gamma=c["gamma"], style_mixing_prob=0.9,
-                                                   pl_weight=2.0), augment_fn=augment_fn)
+    sg3r = c["cfg"] == "stylegan3-r"
+    loss = StyleGAN2Loss(G, D, StyleGAN2LossConfig(
+        r1_gamma=c["gamma"], style_mixing_prob=0.9 if sg2 else 0.0,
+        pl_weight=2.0 if sg2 else 0.0, blur_init_sigma=10.0 if sg3r else 0.0,
+        blur_fade_kimg=opts.batch * 200 / 32 if sg3r else 0.0), augment_fn=augment_fn)
     label_bank = None
     if c_dim > 0:
         label_bank = torch.from_numpy(np.stack(
             [dataset.get_label(i) for i in range(len(dataset))]).astype(np.float32)).to(device)
     step_cfg = TrainStepConfig(
         batch_size=opts.batch, z_dim=c["G"]["z_dim"], c_dim=c_dim, ema_kimg=c["ema_kimg"],
-        ema_rampup=None if opts.resume else 0.05, g_reg_interval=4, d_reg_interval=16,
+        ema_rampup=None if opts.resume else 0.05, g_reg_interval=g_reg_interval,
+        d_reg_interval=16,
         ada_target=ada_target, ada_kimg=100 if opts.resume else opts.ada_kimg)
     stepper = TrainStepper(loss, step_cfg, generator, label_bank=label_bank)
     loader = InfiniteLoader(dataset, batch_size=opts.batch, seed=opts.seed,
@@ -251,7 +301,6 @@ def train(c: dict, opts, run_dir: str):
     metric_fn = None
     if c["metrics"]:
         from ..metrics import make_inception_detector
-        from ..metrics.metric_utils import auto_metric_batch
         from .calc_metrics import evaluate_metrics
 
         detector = make_inception_detector(opts.detector_weights, seed=0, device=device)
@@ -260,7 +309,7 @@ def train(c: dict, opts, run_dir: str):
         def metric_fn(state, kimg=None):
             return evaluate_metrics(
                 state.G_ema, c["metrics"], dataset, detector, device,
-                batch_size=auto_metric_batch(dataset.resolution),
+                batch_size=metric_batch(c["cfg"], dataset.resolution),
                 modalities=opts.modalities.split(","), cache_dir=cache_dir, run_dir=run_dir,
                 kimg=kimg)
 

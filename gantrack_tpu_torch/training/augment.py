@@ -3,8 +3,13 @@
 Port of ``AugmentPipe`` in ``gantrack_tpu/training/augment.py`` on NCHW
 tensors, with the same static reflect-pad margin, transform composition,
 probability gating and ``debug_percentile`` path.  The geometric warp
-(upsample ×2 → affine grid-sample) is :func:`ops.upwarp.up_affine_warp`,
-which launches the CUDA kernel pair on the card.
+(upsample ×2 → affine grid-sample) has the two forms of the JAX pipe's
+``impl``: ``"fused"`` (the default; the JAX ``"pallas"``) is
+:func:`ops.upwarp.up_affine_warp`, which never builds the 2x canvas and
+launches the kernel pair K1/K2 on the card; ``"unfused"`` (the JAX
+``"gather"``) is ``upsample2d`` → :func:`ops.warp.affine_warp` →
+``downsample2d``, which launches the FIR kernels and the warp pair K3/K4.
+Both sample at the same positions.
 
 The colour, image-space filtering, noise and cutout sections are not in
 the medical (claro) recipe and are not ported yet (ROADMAP, queue A3):
@@ -21,8 +26,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.upfirdn2d import downsample2d, setup_filter
+from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..ops.upwarp import up_affine_warp
+from ..ops.warp import affine_warp
 
 WAVELETS = {
     "sym6": [
@@ -250,11 +256,15 @@ class AugmentPipe:
 
     ``compute_dtype`` is the image-path dtype (bf16 by default, as in the
     JAX pipe); transforms and sampling coordinates stay float32.
+    ``impl`` is ``"fused"`` or ``"unfused"`` (see the module docstring).
     """
 
     def __init__(self, cfg: AugmentConfig, height: int, width: int, num_channels: int,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 impl: str = "fused", compute_dtype: torch.dtype = torch.bfloat16):
         assert num_channels in (1, 2, 3)
+        if impl not in ("fused", "unfused"):
+            raise ValueError(f"impl must be 'fused' or 'unfused', got {impl!r}")
+        self.impl = impl
         if cfg.unported_sections:
             raise NotImplementedError(
                 f"augment sections {cfg.unported_sections} are not ported yet "
@@ -373,15 +383,20 @@ class AugmentPipe:
         return g_inv[:, :2, :], out_h, out_w
 
     def apply_geometric(self, images: torch.Tensor, g_inv: torch.Tensor) -> torch.Tensor:
-        """Reflect-pad, warp at 2x (fused upsample + affine bilinear), and
-        FIR-downsample back to the input size."""
+        """Reflect-pad, warp at 2x (upsample + affine bilinear, fused or
+        not), and FIR-downsample back to the input size."""
         in_dtype = images.dtype
         x = images.to(self.compute_dtype)
         mx0, mx1, my0, my1 = self.margin
         hz_pad = len(self.hz_geom_taps) // 4
         x = _reflect_pad(x, my0, my1, mx0, mx1)
         theta, out_h, out_w = self.warp_geometry(g_inv)
-        x = up_affine_warp(x, theta, self.hz_geom_taps, out_h, out_w)
+        taps = (self.hz_geom_taps, self.hz_geom_taps)
+        if self.impl == "fused":
+            x = up_affine_warp(x, theta, self.hz_geom_taps, out_h, out_w)
+        else:
+            x = upsample2d(x, self._filter(x.device), up=2, taps=taps)
+            x = affine_warp(x, theta, out_h, out_w)
         x = downsample2d(x, self._filter(x.device), down=2, padding=-hz_pad * 2,
-                         flip_filter=True, taps=(self.hz_geom_taps, self.hz_geom_taps))
+                         flip_filter=True, taps=taps)
         return x.to(in_dtype)

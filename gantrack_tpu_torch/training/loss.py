@@ -1,4 +1,4 @@
-"""StyleGAN2-ADA loss phases.
+"""StyleGAN2-ADA and StyleGAN3 loss phases.
 
 Port of ``gantrack_tpu/training/loss.py`` with the JAX package's
 semantics (which differ from NVIDIA's in two places):
@@ -7,6 +7,14 @@ semantics (which differ from NVIDIA's in two places):
   is differentiated through, not detached;
 * D-main augments the fake ‖ real batch in one pass, then splits it
   before D, so minibatch-std groups stay fake-only or real-only.
+
+StyleGAN3 runs the same phases with style mixing and the path-length
+weight at 0; ``stylegan3-r`` adds the discriminator blur ramp
+(``blur_init_sigma`` fading to 0 over ``blur_fade_kimg``), one blur over
+fake ‖ real in D-main.  The JAX loss convolves with a shape-static 61-tap
+Gaussian whose taps beyond ``3σ`` are masked to zero; here the host
+computes the ``2·⌊3σ⌋ + 1`` live taps from ``cur_nimg`` (a host integer,
+so nothing is read back from the device), which is the same filter.
 
 Each phase returns its loss and a moments dict (``stats.report``); the
 stepper takes the gradients.  Random draws come from the explicit
@@ -70,10 +78,12 @@ class StyleGAN2Loss:
 
     def run_G(self, z, c, gen, update_emas: bool = False):
         """mapping → style mixing → synthesis.  ``update_emas`` (the D-main
-        fake pass) updates ``w_avg`` in place."""
+        fake pass) updates ``w_avg`` and StyleGAN3's per-layer
+        ``magnitude_ema`` in place."""
         ws = self.G.mapping(z, c, update_emas=update_emas)
         ws = self._mix(ws, z, c, gen)
-        img = self.G.synthesis(ws, noise_mode=self.cfg.noise_mode, generator=gen)
+        img = self.G.synthesis(ws, noise_mode=self.cfg.noise_mode, generator=gen,
+                               update_emas=update_emas)
         return img, ws
 
     def _blur(self, img, blur_sigma: float):
@@ -141,7 +151,7 @@ class StyleGAN2Loss:
         return loss.mean(), new_pl_mean.detach(), m
 
     def dmain(self, z, c, real_img, real_c, gen, ada_p, cur_nimg: float):
-        """Discriminator main loss; the fake pass updates ``w_avg``."""
+        """Discriminator main loss; the fake pass updates G's EMA buffers."""
         with torch.no_grad():
             gen_img, _ = self.run_G(z, c, gen, update_emas=True)
         both = torch.cat([gen_img, real_img.to(gen_img.dtype)], dim=0)

@@ -58,7 +58,9 @@ def _apply(opt: torch.optim.Optimizer, params, loss: torch.Tensor) -> None:
 def update_ema(G_ema, G, batch_size: int, cur_nimg: int, ema_kimg: float,
                ema_rampup: Optional[float]) -> None:
     """``G_ema ← G + (G_ema − G)·β`` with ``β = 0.5^(batch / ema_nimg)``;
-    buffers (``w_avg``, noise constants) are copied from G."""
+    buffers (``w_avg``, noise constants; StyleGAN3's ``magnitude_ema`` and
+    Fourier constants) are copied from G, as the JAX state shares
+    ``emas_g`` and ``consts_g`` between G and G_ema."""
     ema_nimg = ema_kimg * 1000.0
     if ema_rampup is not None:
         ema_nimg = min(ema_nimg, cur_nimg * ema_rampup)
@@ -146,7 +148,7 @@ class TrainStepper:
             state.pl_mean = new_pl_mean
             moments = stats.merge(moments, m)
 
-        # D-main (updates w_avg from the fake pass).
+        # D-main (updates w_avg and StyleGAN3's magnitude_ema from the fake pass).
         z, c = zc("dmain")
         loss_d, m = loss.dmain(z, c, real_img, real_c, gen, state.ada_p, cur_nimg)
         _apply(state.opt_d, d_params, loss_d)

@@ -2,7 +2,10 @@
 
 Port of ``gantrack_tpu/training/train_state.py``.  The networks and
 optimizers are updated in place; the step counters are host integers
-(the phase schedule needs no device sync), the scalars that the step
+(the phase schedule needs no device sync), G's running statistics
+(``w_avg``; StyleGAN3's ``magnitude_ema``, the JAX state's ``emas_g``) are
+buffers of G that the D-main fake pass updates and G_ema copies, so the
+checkpoint's state dicts hold them, and the scalars that the step
 computes (``pl_mean``, ADA ``p`` and its sign accumulator) are device
 tensors.
 """

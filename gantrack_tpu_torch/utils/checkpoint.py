@@ -126,9 +126,8 @@ def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1),
 def allocate_run_dir(outdir: str, desc: str) -> str:
     """Create the next ``NNNNN-<desc>`` run dir under ``outdir``.
 
-    The same as ``gantrack_tpu.utils.config.allocate_run_dir``, which the
-    port cannot import: ``gantrack_tpu/utils/__init__.py`` imports the JAX
-    checkpoint module, so any import from ``gantrack_tpu.utils`` loads jax.
+    The port's own copy of ``allocate_run_dir`` in
+    ``gantrack_tpu/utils/config.py``.
     """
     os.makedirs(outdir, exist_ok=True)
     ids = [int(m.group(1)) for name in os.listdir(outdir) if (m := re.match(r"^(\d+)-", name))]

@@ -88,3 +88,38 @@ def test_p_zero_is_identity_up_to_the_resampling():
 def test_unported_sections_raise():
     with pytest.raises(NotImplementedError, match="brightness"):
         taug.AugmentPipe(taug.medical_augment_config(brightness=1.0), RES, RES, 1)
+
+
+@pytest.mark.parametrize("name,channels", [("medical", 1), ("bgc_geometry", 1), ("medical", 3)])
+@pytest.mark.parametrize("percentile", [0.15, 0.8])
+def test_unfused_chain_matches_fused_and_jax_gather(name, channels, percentile):
+    """``impl="unfused"`` (upsample2d → affine warp → downsample2d) gives
+    what ``impl="fused"`` gives, value and gradient, and what the JAX
+    ``impl="gather"`` chain gives; float32 on both sides."""
+    kw = CONFIGS[name]
+    cfg = taug.AugmentConfig(**kw)
+    fused = taug.AugmentPipe(cfg, RES, RES, channels, compute_dtype=torch.float32)
+    unfused = taug.AugmentPipe(cfg, RES, RES, channels, impl="unfused",
+                               compute_dtype=torch.float32)
+    jp = jaug.AugmentPipe(jaug.AugmentConfig(**kw), RES, RES, channels, impl="gather",
+                          compute_dtype=jnp.float32)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, RES, RES, channels)).astype(np.float32)
+    ct = torch.from_numpy(rng.standard_normal((2, channels, RES, RES)).astype(np.float32))
+    want = np.asarray(jp(jnp.asarray(x), jnp.float32(0.7), jax.random.PRNGKey(0),
+                         debug_percentile=percentile))
+    outs, grads = [], []
+    for pipe in (fused, unfused):
+        xt = torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2))))
+        xt.requires_grad_(True)
+        out = pipe(xt, 0.7, torch.Generator().manual_seed(0), debug_percentile=percentile)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, xt, ct)[0])
+    torch.testing.assert_close(outs[1], outs[0], **TOL)
+    torch.testing.assert_close(grads[1], grads[0], **TOL)
+    np.testing.assert_allclose(np.transpose(outs[1].numpy(), (0, 2, 3, 1)), want, **TOL)
+
+
+def test_impl_is_checked():
+    with pytest.raises(ValueError, match="impl"):
+        taug.AugmentPipe(taug.medical_augment_config(), RES, RES, 1, impl="gather")

@@ -70,7 +70,7 @@ def test_fir_kernel_matches_plain_on_card(cuda_device, case):
     f, up, down, padding, flip, gain, shape = CASES[case]
     rng = np.random.default_rng(case)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
-    before = dict(fir.LAUNCHES)
+    before, routed = dict(fir.LAUNCHES), fir.PLAIN_ROUTE.get("up=4, down=1", 0)
     got = _run(x, f, up, down, padding, flip, gain, kernel=True)
     ref = _run(x, f, up, down, padding, flip, gain, kernel=False)
     torch.cuda.synchronize()
@@ -119,10 +119,16 @@ def test_fir_kernel_walks_more_planes_than_one_grid(cuda_device):
 
 
 @pytest.mark.cuda
-def test_upfirdn2d_raises_outside_the_contract_on_card(cuda_device):
+def test_upfirdn2d_outside_the_contract_takes_the_counted_plain_route_on_card(cuda_device):
+    # A factor of 4 is outside the contract by the call's static spec: the
+    # plain version runs, counted; no kernel is launched for it.
     x = torch.randn((1, 2, 8, 8), device=cuda_device)
-    with pytest.raises(ValueError, match="up=4"):
-        ufd.upfirdn2d(x, F4, up=4)
+    before, routed = dict(fir.LAUNCHES), fir.PLAIN_ROUTE.get("up=4, down=1", 0)
+    got = ufd.upfirdn2d(x, F4.to(cuda_device), up=4, taps=ufd.filter_taps(F4))
+    torch.testing.assert_close(got, ufd.upfirdn2d_plain(x, F4.to(cuda_device), up=4),
+                               rtol=0, atol=0)
+    assert fir.LAUNCHES == before
+    assert fir.PLAIN_ROUTE["up=4, down=1"] == routed + 1
     with pytest.raises(ValueError, match="host taps"):
         ufd.upfirdn2d(x, F4.to(cuda_device))
     with pytest.raises(TypeError, match="float32 or bfloat16"):

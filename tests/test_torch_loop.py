@@ -12,8 +12,13 @@
   finite ``metric-fid1k.jsonl`` rows on every other snapshot (and the
   last); a failing metric is logged and training goes on;
   ``calc_metrics --device=cpu`` on the run directory writes ``kid10k``.
+* StyleGAN3: exact resume of a state that holds ``magnitude_ema``; the
+  CLI with ``--cfg=stylegan3-t`` and ``-r`` for two ticks, a checkpoint,
+  ``--resume``, and the equivariance metrics of the run's G_ema at 8
+  samples (the 1000-sample tiers are too slow for the CPU).
 """
 
+import functools
 import json
 import os
 import struct
@@ -25,10 +30,13 @@ import torch
 
 from gantrack_tpu_torch.data import pack_shards
 from gantrack_tpu_torch.metrics import registry
+from gantrack_tpu_torch.metrics.equivariance import compute_equivariance_metrics
 from gantrack_tpu_torch.models import stylegan2 as tsg2
+from gantrack_tpu_torch.models import stylegan3 as tsg3
 from gantrack_tpu_torch.tools import calc_metrics
 from gantrack_tpu_torch.tools import train as cli
 from gantrack_tpu_torch.training import augment as taug
+from gantrack_tpu_torch.training import loop
 from gantrack_tpu_torch.training import loss as tloss
 from gantrack_tpu_torch.training import step as tstep
 from gantrack_tpu_torch.training.train_state import create_train_state
@@ -47,18 +55,28 @@ TINY_ARGS = ["--cfg=stylegan2", "--batch=4", "--gamma=0.4096", "--cbase=256", "-
              "--mirror=1", "--metrics=none", "--mbstd-group=2", "--device=cpu"]
 
 
-def _stepper(seed=0):
+def _stepper(seed=0, sg3=False):
     torch.manual_seed(seed)
-    g = tsg2.Generator(z_dim=ZDIM, c_dim=0, w_dim=ZDIM, img_resolution=RES, img_channels=1,
-                       mapping_kwargs=dict(num_layers=2),
-                       synthesis_kwargs=dict(channel_base=128, channel_max=32, num_fp16_res=0))
+    if sg3:
+        g = tsg3.Generator(z_dim=ZDIM, c_dim=0, w_dim=ZDIM, img_resolution=RES, img_channels=1,
+                           channel_base=256, channel_max=16, num_fp16_res=0,
+                           synthesis_kwargs=dict(num_layers=6))
+    else:
+        g = tsg2.Generator(z_dim=ZDIM, c_dim=0, w_dim=ZDIM, img_resolution=RES, img_channels=1,
+                           mapping_kwargs=dict(num_layers=2),
+                           synthesis_kwargs=dict(channel_base=128, channel_max=32,
+                                                 num_fp16_res=0))
     d = tsg2.Discriminator(c_dim=0, img_resolution=RES, img_channels=1, channel_base=128,
                            channel_max=32, num_fp16_res=0,
                            epilogue_kwargs=dict(mbstd_group_size=2))
     state = create_train_state(g, d, 0.002, 0.002, g_reg_interval=2, d_reg_interval=3)
     state.ada_p = torch.tensor(0.5)
     pipe = taug.AugmentPipe(taug.medical_augment_config(), RES, RES, 1)
-    loss = tloss.StyleGAN2Loss(g, d, tloss.StyleGAN2LossConfig(r1_gamma=1.0), augment_fn=pipe)
+    loss_cfg = tloss.StyleGAN2LossConfig(r1_gamma=1.0)
+    if sg3:  # no path length, no mixing; the blur fades inside the 6 steps
+        loss_cfg = tloss.StyleGAN2LossConfig(r1_gamma=1.0, style_mixing_prob=0.0, pl_weight=0.0,
+                                             blur_init_sigma=1.0, blur_fade_kimg=0.02)
+    loss = tloss.StyleGAN2Loss(g, d, loss_cfg, augment_fn=pipe)
     cfg = tstep.TrainStepConfig(batch_size=BATCH, z_dim=ZDIM, ada_target=0.6, ada_interval=2,
                                 g_reg_interval=2, d_reg_interval=3)  # all phases in 6 steps
     return state, tstep.TrainStepper(loss, cfg, torch.Generator().manual_seed(seed))
@@ -72,21 +90,27 @@ def _leaves(state):
     return out + [state.pl_mean, state.ada_p, state.ada_signs]
 
 
-def test_resume_matches_uninterrupted(tmp_path):
+@pytest.mark.parametrize("sg3", [False, True], ids=["stylegan2", "stylegan3"])
+def test_resume_matches_uninterrupted(tmp_path, sg3):
     rng = np.random.default_rng(7)
     imgs = [torch.from_numpy(rng.standard_normal((BATCH, 1, RES, RES)).astype(np.float32))
             for _ in range(6)]
 
-    state_a, stepper_a = _stepper()
+    state_a, stepper_a = _stepper(sg3=sg3)
     for b in imgs:
         stepper_a(state_a, b)
+    if sg3:  # the state a StyleGAN3 step mutates beyond StyleGAN2's
+        emas = [v for k, v in state_a.G.state_dict().items() if k.endswith("magnitude_ema")]
+        assert len(emas) == 7 and all(float(v) != 1 for v in emas)
+        assert all(torch.equal(a, b) for a, b in zip(state_a.G.buffers(),
+                                                     state_a.G_ema.buffers()))
 
-    state_b, stepper_b = _stepper()
+    state_b, stepper_b = _stepper(sg3=sg3)
     for b in imgs[:3]:
         stepper_b(state_b, b)
     path = save_checkpoint(str(tmp_path / "ckpt"), state_b, stepper_b.generator)
 
-    state_c, stepper_c = _stepper(seed=1)  # other weights and draws until restored
+    state_c, stepper_c = _stepper(seed=1, sg3=sg3)  # other weights and draws until restored
     load_checkpoint(path, state_c, stepper_c.generator)
     assert state_c.step == 3
     for b in imgs[3:]:
@@ -175,12 +199,12 @@ def test_cli_dry_run_prints_config(capsys, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", ["--cfg=stylegan3-t", "--metrics=ppl2_wend", "--devices=2",
+@pytest.mark.parametrize("flag", ["--metrics=eqr1k", "--metrics=ppl2_wend", "--devices=2",
                                   "--batch-gpu=2", "--freezed=2", "--metric-async"])
 def test_cli_refuses_what_the_slice_does_not_run(flag, tmp_path):
     opts = cli.build_parser().parse_args(
         [f"--outdir={tmp_path}", "--data=unused", *TINY_ARGS, flag])
-    with pytest.raises(SystemExit, match="ROADMAP|not ported"):
+    with pytest.raises(SystemExit, match="ROADMAP|not ported|needs a StyleGAN3"):
         cli.check_slice(opts)
 
 
@@ -250,9 +274,9 @@ def test_calc_metrics_on_the_run_dir_writes_kid(metric_run, tiny_dataset):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--metrics=eqr50k"], "A9"),
+    (["--metrics=eqr50k"], "needs a StyleGAN3"),
     (["--network=x.pkl"], "A11"),
-    (["--cfg=stylegan3-r"], "A9"),
+    (["--metrics=ppl2_wend", "--cfg=stylegan3-r"], "A8"),
 ])
 def test_calc_metrics_refuses_what_is_not_ported(args, match, tiny_dataset):
     argv = ["--network=unused", f"--data={tiny_dataset}", "--device=cpu", *args]
@@ -264,3 +288,88 @@ def test_calc_metrics_refuses_cuda_without_a_device(tiny_dataset, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device=cpu"):
         calc_metrics.main(["--network=unused", f"--data={tiny_dataset}"])
+
+
+@pytest.mark.parametrize("cfg", ["stylegan3-t", "stylegan3-r"])
+def test_cli_trains_stylegan3_and_resumes(cfg, tiny_dataset, tmp_path, monkeypatch):
+    """Two ticks of ``--cfg=stylegan3-*`` through the CLI, a checkpoint
+    that ``--resume`` continues from, and finite equivariance metrics of
+    the run's G_ema.  The image grids are cut to 4 × 4 (1024 images
+    through 15 layers take minutes on one CPU thread)."""
+    monkeypatch.setattr(loop, "setup_snapshot_image_grid",
+                        functools.partial(loop.setup_snapshot_image_grid, gw=4, gh=4))
+    args = [a for a in TINY_ARGS if not a.startswith("--cfg")] + [f"--cfg={cfg}"]
+    argv = [f"--outdir={tmp_path / 'runs'}", f"--data={tiny_dataset}", *args]
+    opts = cli.build_parser().parse_args(argv)
+    cli.check_slice(opts)
+    c = cli.resolve_config(opts)
+    assert c["G"]["map_depth"] == 2 and c["glr"] == 0.0025
+    c.update(total_kimg=0.008, kimg_per_tick=0.004, snapshot_ticks=1)  # 2 steps, 1 per tick
+    run_dir = str(tmp_path / "run")
+    os.makedirs(run_dir)
+    registry.check_metric("eqr1k")
+    state = cli.train(c, opts, run_dir)
+
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["Progress/tick"] for r in records] == [0, 1]
+    for rec in records:
+        assert all(np.isfinite(v) for k, v in rec.items() if k.startswith("Loss/"))
+    assert "Loss/r1_penalty" in records[0] and "Loss/pl_penalty" not in records[0]
+    G = state.G
+    assert type(G).__module__.endswith("stylegan3")
+    first = getattr(G.synthesis, G.synthesis.layer_names[0])
+    assert first.conv_kernel == (1 if cfg == "stylegan3-r" else 3)
+    assert first.weight.shape[0] == (32 if cfg == "stylegan3-r" else 16)  # -r doubles cmax
+    assert float(first.magnitude_ema) != 1
+    _, loader, fresh, stepper = cli.build_training(c, opts, torch.device("cpu"))
+    loader.close()
+    loss_cfg = stepper.loss.cfg
+    assert (loss_cfg.blur_init_sigma, loss_cfg.blur_fade_kimg) == (
+        (10.0, 25.0) if cfg == "stylegan3-r" else (0.0, 0.0))
+    assert loss_cfg.pl_weight == 0 and loss_cfg.style_mixing_prob == 0
+    assert stepper.cfg.g_reg_interval is None
+
+    ckpt = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+    load_checkpoint(ckpt, fresh, stepper.generator)
+    assert fresh.step == 2
+    for a, b in zip(fresh.G_ema.state_dict().values(), state.G_ema.state_dict().values()):
+        assert torch.equal(a, b)
+
+    # calc_metrics rebuilds the StyleGAN3 G_ema of --cfg from the checkpoint.
+    if cfg == "stylegan3-t":
+        results = calc_metrics.main([f"--network={run_dir}", f"--data={tiny_dataset}",
+                                     f"--cfg={cfg}", "--metrics=fid1k", "--cbase=256",
+                                     "--cmax=16", "--device=cpu"])
+        assert np.isfinite(results["fid1k"])
+        with pytest.raises(SystemExit, match="needs a StyleGAN3"):
+            calc_metrics.main([f"--network={run_dir}", f"--data={tiny_dataset}",
+                               "--metrics=eqr1k", "--device=cpu"])
+
+    # --resume picks the run's latest checkpoint up and trains on.
+    opts2 = cli.build_parser().parse_args([*argv, f"--resume={run_dir}"])
+    c2 = dict(c, total_kimg=0.012)
+    run2 = str(tmp_path / "run2")
+    os.makedirs(run2)
+    state2 = cli.train(c2, opts2, run2)
+    assert state2.step == 3 and state2.cur_nimg == 12
+
+    # The eq metrics at 8 samples, through evaluate_metrics' transform hook.
+    import gantrack_tpu_torch.metrics as tmetrics
+    saved = tmetrics.calc_metric
+
+    def fake_calc(metric, mopts, mode_name=None):
+        return dict(results=compute_equivariance_metrics(mopts, num_samples=8), metric=metric,
+                    mode=mode_name)
+
+    tmetrics.calc_metric = fake_calc
+    try:
+        class OneChannel:
+            num_channels = 1
+
+        results = calc_metrics.evaluate_metrics(state2.G_ema, ["eq"], OneChannel(), None,
+                                                torch.device("cpu"), batch_size=4)
+    finally:
+        tmetrics.calc_metric = saved
+    assert set(results) == {"eqt_int", "eqt_frac", "eqr"}
+    assert all(np.isfinite(v) for v in results.values())

@@ -211,8 +211,120 @@ def test_report_metric_writes_the_jsonl_row(tmp_path, capsys):
     assert '"fid1k": 12.5' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name,item", [("ppl2_wend", "A8"), ("eqt50k_int", "A9"),
-                                       ("eqr1k", "A9"), ("fid2k", "unknown")])
+@pytest.mark.parametrize("name,item", [("ppl2_wend", "A8"), ("eqt2k_int", "unknown"),
+                                       ("eqr", "unknown"), ("fid2k", "unknown")])
 def test_unported_and_unknown_metrics_are_refused(name, item):
     with pytest.raises(ValueError, match=item):
         registry.check_metric(name)
+
+
+# ---------------------------------------------------------------- equivariance
+# The image-space transforms and the whole metric against the JAX package,
+# with one narrow StyleGAN3-T carried over by ``bridge``.
+
+from gantrack_tpu.metrics import equivariance as jeq  # noqa: E402
+from gantrack_tpu.models import stylegan3 as jsg3  # noqa: E402
+from gantrack_tpu_torch.metrics import equivariance as teq  # noqa: E402
+from gantrack_tpu_torch.models import stylegan3 as tsg3  # noqa: E402
+from gantrack_tpu_torch.tools import calc_metrics as tcalc  # noqa: E402
+
+SG3_KW = dict(z_dim=ZDIM, c_dim=0, w_dim=ZDIM, img_resolution=32, img_channels=1,
+              mapping_kwargs=dict(num_layers=2), channel_base=512, channel_max=32,
+              num_fp16_res=0)
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(x), (0, 3, 1, 2))))
+
+
+@pytest.mark.parametrize("which,args", [
+    ("apply_integer_translation", (0.11, -0.07)), ("apply_integer_translation", (-0.2, 0.0)),
+    ("apply_fractional_translation", (0.043, -0.091)), ("apply_rotation", (0.7,)),
+    ("apply_rotation", (-2.9,)),
+])
+def test_equivariance_transforms_and_masks_match_jax(which, args):
+    """Transformed image to 1e-5 (the warp's positions round in another
+    order), mask exactly, and the masked PSNR to 1e-4 dB."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 24, 20, 3)).astype(np.float32)
+    other = rng.standard_normal(x.shape).astype(np.float32)
+    want, want_mask = getattr(jeq, which)(jnp.asarray(x), *args)
+    got, got_mask = getattr(teq, which)(_nchw(x), *args)
+    np.testing.assert_array_equal(got_mask.numpy().transpose(0, 2, 3, 1), np.asarray(want_mask))
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert 0 < float(got_mask.sum()) < got_mask.numel()
+    psnr = float(teq._psnr(got, _nchw(other), got_mask))
+    assert psnr == pytest.approx(float(jeq._psnr(want, jnp.asarray(other), want_mask)), abs=1e-4)
+    assert float(teq._psnr(got, _nchw(other))) == pytest.approx(
+        float(jeq._psnr(want, jnp.asarray(other))), abs=1e-4)
+
+
+def test_equivariance_metrics_match_jax():
+    """``compute_equivariance_metrics`` at 8 samples: the same numpy draws
+    on both sides, so the three PSNRs agree within 1e-3 dB; the run goes
+    through ``evaluate_metrics``'s transform hook, which puts the trained
+    transform back."""
+    jg = jsg3.Generator(**SG3_KW)
+    variables = dict(jax.device_get(jax.jit(jg.init)(
+        {"params": jax.random.PRNGKey(2)}, jnp.zeros((1, ZDIM)), None)))
+    rng = np.random.default_rng(2)
+    variables["params"] = jax.tree.map(
+        lambda a: np.asarray(a) + 0.2 * rng.standard_normal(np.shape(a)).astype(np.float32),
+        variables["params"])
+    g = tsg3.Generator(**SG3_KW)
+    g.load_state_dict(bridge.sg3_generator_state_dict_from_jax(variables))
+    g.eval().requires_grad_(False)
+
+    @jax.jit
+    def j_apply(v, z, transform):
+        v = {**v, "consts": {"synthesis": {"input": {
+            **v["consts"]["synthesis"]["input"], "transform": transform}}}}
+        return jg.apply(v, z, None)
+
+    jopts = jmu.MetricOptions(z_dim=ZDIM, batch_size=8)
+    jopts.generator_with_transform = lambda z, c, m: j_apply(
+        variables, z, jnp.asarray(np.linalg.inv(m), jnp.float32))
+    want = jeq.compute_equivariance_metrics(jopts, num_samples=8)
+
+    seen = {}
+
+    def fake_calc(metric, opts, mode_name=None):
+        seen["opts"] = opts
+        return dict(results=teq.compute_equivariance_metrics(opts, num_samples=8), metric=metric,
+                    mode=mode_name)
+
+    class OneChannel:
+        num_channels = 1
+
+    import gantrack_tpu_torch.metrics as tmetrics
+    orig = tmetrics.calc_metric
+    tmetrics.calc_metric = fake_calc
+    try:
+        got = tcalc.evaluate_metrics(g, ["eq"], OneChannel(), None, torch.device("cpu"),
+                                     batch_size=8)
+    finally:
+        tmetrics.calc_metric = orig
+    assert set(got) == set(want) == {"eqt_int", "eqt_frac", "eqr"}
+    for k in want:
+        assert np.isfinite(want[k]) and got[k] == pytest.approx(want[k], abs=1e-3), k
+    assert seen["opts"].generator_with_transform is not None
+    assert torch.equal(g.synthesis.input.transform, torch.eye(3))
+
+
+def test_equivariance_metrics_are_registered_and_need_stylegan3():
+    for name in ("eqt50k_int", "eqt50k_frac", "eqr50k", "eqt1k_int", "eqr1k"):
+        registry.check_metric(name)
+    with pytest.raises(ValueError, match="transform-capable"):
+        teq.compute_equivariance_metrics(tmu.MetricOptions(), num_samples=8)
+
+
+def test_metric_batch_follows_jax_and_is_cut_for_stylegan3():
+    from gantrack_tpu_torch.tools.train import METRIC_BATCH_DIVISOR, metric_batch
+
+    for res in (64, 256, 512, 1024):
+        assert tmu.auto_metric_batch(res) == jmu.auto_metric_batch(res)
+        assert metric_batch("stylegan2", res) == jmu.auto_metric_batch(res)
+        for cfg in ("stylegan3-t", "stylegan3-r"):
+            assert metric_batch(cfg, res) == jmu.auto_metric_batch(res) // METRIC_BATCH_DIVISOR[cfg]
+    assert metric_batch("stylegan3-r", 256) < metric_batch("stylegan2", 256)

@@ -14,6 +14,11 @@ on losses and gradients (two nested differentiations through G or D and
 the augment chain); 1e-5 on parameters after an Adam step, whose
 updates are ±lr-sized.
 
+The same whole step for StyleGAN3 (-t, and -r with its blur inside the
+fade): G and G_ema state dicts (``magnitude_ema`` included) and D after
+G-main, D-main and R1, to 1e-5 but for the rare sign flip of a noise-level
+gradient in G's first Adam step (stated at the check).
+
 Then four steps of the full port stepper (random noise, style mixing,
 random augment draws) on the CPU must stay finite.
 """
@@ -217,6 +222,117 @@ def test_full_step_matches_jax():
     assert float(state.ada_p) != 0.2  # the controller moved p
     np.testing.assert_allclose(state.ada_signs.numpy(), np.asarray(new_j.ada_signs), **TOL)
     assert "Loss/pl_penalty" in moments and "Loss/r1_penalty" in moments
+
+
+# ------------------------------------------------------------------ StyleGAN3
+# One whole step of each StyleGAN3 config (G-main, D-main with the
+# magnitude-EMA update, R1; no path length) against the JAX stepper.
+
+SG3_RES = 32
+SG3_D_KW = dict(D_KW, img_resolution=SG3_RES)
+
+
+def _sg3_g_kw(cfg):
+    mult = 2 if cfg == "stylegan3-r" else 1
+    return dict(z_dim=ZDIM, c_dim=0, w_dim=ZDIM, img_resolution=SG3_RES, img_channels=1,
+                channel_base=256 * mult, channel_max=16 * mult, num_fp16_res=0,
+                conv_kernel=1 if mult == 2 else 3, use_radial_filters=(mult == 2),
+                synthesis_kwargs=dict(num_layers=6, num_critical=2))
+
+
+def _sg3_loss_kw(cfg):
+    # -r: sigma = (1 - 1000 / 2000) * 1 = 0.5 at cur_nimg 1000, inside the fade:
+    # 3 live taps of JAX's 7-tap worst-case filter.  (A wider blur of the
+    # white-noise reals leaves D gradients at the level of rounding noise.)
+    blur = dict(blur_init_sigma=1.0, blur_fade_kimg=2.0) if cfg == "stylegan3-r" else {}
+    return dict(r1_gamma=1.0, style_mixing_prob=0.0, pl_weight=0.0, noise_mode="const", **blur)
+
+
+@pytest.mark.parametrize("cfg", ["stylegan3-t", "stylegan3-r"])
+def test_full_step_matches_jax_stylegan3(cfg):
+    from gantrack_tpu.models import stylegan3 as jsg3
+    from gantrack_tpu_torch.models import stylegan3 as tsg3
+
+    g, d = jsg3.Generator(**_sg3_g_kw(cfg)), jsg2.Discriminator(**SG3_D_KW)
+    jpipe = jaug.AugmentPipe(jaug.medical_augment_config(), SG3_RES, SG3_RES, 1, impl="gather",
+                             compute_dtype=jnp.float32)
+    jl = jloss.StyleGAN2Loss(g, d, jloss.StyleGAN2LossConfig(**_sg3_loss_kw(cfg)),
+                             augment_fn=functools.partial(jpipe, debug_percentile=PCT))
+    opt_g, opt_d = j_adam(GLR), j_adam(DLR, reg_interval=16)
+    jstate = jax.jit(lambda key: j_create_state(
+        g, d, key, opt_g, opt_d, z_dim=ZDIM, c_dim=0, img_resolution=SG3_RES,
+        img_channels=1))(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    params_g = _perturb(jax.device_get(jstate.params_g), rng)
+    jstate = jstate.replace(
+        params_g=params_g, params_g_ema=_perturb(params_g, rng, 0.01),
+        params_d=_perturb(jax.device_get(jstate.params_d), rng),
+        emas_g=_perturb(jax.device_get(jstate.emas_g), rng),  # magnitude_ema stays > 0
+        step=jnp.asarray(3, jnp.int32), cur_nimg=jnp.asarray(1000, jnp.int32),
+        ada_p=jnp.asarray(0.2, jnp.float32), opt_g=opt_g.init(params_g))
+    step_kw = dict(STEP_KW, g_reg_interval=None)
+    jstepper = jstep.TrainStepper(jl, opt_g, opt_d, jstep.TrainStepConfig(**step_kw),
+                                  create_mesh(1))
+
+    def port_g(params):
+        m = tsg3.Generator(**_sg3_g_kw(cfg))
+        m.load_state_dict(bridge.sg3_generator_state_dict_from_jax(
+            {"params": jax.device_get(params), "emas": jax.device_get(jstate.emas_g),
+             **jax.device_get(jstate.consts_g)}))
+        return m
+
+    state = create_train_state(port_g(jstate.params_g), tsg2.Discriminator(**SG3_D_KW), GLR, DLR,
+                               g_reg_interval=None)
+    state.D.load_state_dict(bridge.discriminator_state_dict_from_jax(
+        {"params": jax.device_get(jstate.params_d)}))
+    state.G_ema.load_state_dict(port_g(jstate.params_g_ema).state_dict())
+    state.step, state.cur_nimg, state.ada_p = 3, 1000, torch.tensor(0.2)
+    tpipe = taug.AugmentPipe(taug.medical_augment_config(), SG3_RES, SG3_RES, 1,
+                             compute_dtype=torch.float32)
+    tl = tloss.StyleGAN2Loss(state.G, state.D, tloss.StyleGAN2LossConfig(**_sg3_loss_kw(cfg)),
+                             augment_fn=functools.partial(tpipe, debug_percentile=PCT))
+    assert (tl.blur_sigma(1000.0) == 0.5) == (cfg == "stylegan3-r")
+
+    rng_dev = jax.random.fold_in(jax.random.fold_in(jstate.rng, jstate.step), 0)
+    k = jax.random.split(rng_dev, 8)
+    draws = {f"z_{name}": torch.from_numpy(np.array(
+        jax.random.normal(k[i], (BATCH, ZDIM), jnp.float32))) for name, i in
+        (("gmain", 0), ("dmain", 4))}
+    reals = np.random.default_rng(5).standard_normal((BATCH, SG3_RES, SG3_RES, 1)).astype(
+        np.float32)
+    new_j, _ = jax.jit(functools.partial(jstepper._device_step, False, True))(
+        jstate, jnp.asarray(reals), jnp.zeros((BATCH, 0), jnp.float32))
+    stepper = tstep.TrainStepper(tl, tstep.TrainStepConfig(**step_kw), torch.Generator())
+    assert stepper.phase_flags(0) == (False, True)  # no path-length phase at all
+    emas_before = {n: float(getattr(state.G.synthesis, n).magnitude_ema)
+                   for n in state.G.synthesis.layer_names}
+    moments = stepper.run(state, _nchw(reals), None, False, True, draws=draws)
+
+    new_j = jax.device_get(new_j)
+    for module, params in ((state.G, new_j.params_g), (state.G_ema, new_j.params_g_ema)):
+        want = bridge.sg3_generator_state_dict_from_jax(
+            {"params": params, "emas": new_j.emas_g, **new_j.consts_g})
+        sd = module.state_dict()
+        assert set(sd) == set(want)
+        for name, value in sd.items():
+            got, ref = value.numpy(), want[name].numpy()
+            # G takes one Adam step from a fresh optimizer: ±lr·g / (|g| + 1e-8),
+            # in effect lr·sign(g).  Where a gradient is at the level of the
+            # rounding noise between the two frameworks its sign is arbitrary,
+            # so one element of a tensor, or up to 0.5 % of its elements, may
+            # be off by one such flip (2·lr); every other element holds to 1e-5.
+            off = ~np.isclose(got, ref, rtol=1e-5, atol=1e-5)
+            assert off.sum() <= max(1, 0.005 * off.size), (name, int(off.sum()), off.size)
+            assert np.abs(got - ref)[off].max(initial=0) <= 2.02 * GLR, name
+    for name, old in emas_before.items():  # the D-main fake pass moved every layer's EMA
+        assert float(getattr(state.G.synthesis, name).magnitude_ema) != old, name
+    d_tol = 1e-5
+    want_d = bridge.discriminator_state_dict_from_jax({"params": new_j.params_d})
+    for name, value in state.D.state_dict().items():
+        np.testing.assert_allclose(value.numpy(), want_d[name].numpy(), rtol=d_tol, atol=d_tol,
+                                   err_msg=name)
+    np.testing.assert_allclose(float(state.ada_p), float(new_j.ada_p), **TOL)
+    assert "Loss/r1_penalty" in moments and "Loss/pl_penalty" not in moments
 
 
 def test_four_port_steps_stay_finite():
