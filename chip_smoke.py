@@ -17,7 +17,14 @@ per source, all started together), then:
    the affine warp pair K3/K4 (``ops/warp.py``) at the shape of the
    unfused augment chain (64 planes of 812 × 806, out 524², bf16) and of
    the equivariance metrics (8 planes of 256², float32), each with
-   adjointness and gradients of both orders;
+   adjointness and gradients of both orders; the probes P1–P6
+   (``ops/probes.py``), exact on ones and on small integers; and the 3×3
+   implicit-GEMM conv pair K8/K9 (``ops/conv3x3.py``) at the six shapes
+   of the claro step in the step's dtypes and at a small float32 shape,
+   with gradient and gradient of gradient, K9 bitwise equal over two
+   calls, and kernel, plain and library times forward and
+   forward + backward (their bound reckons bf16 matrix operations at the
+   tensor cores' rate);
 2. trains 32 steps of the claro recipe (batch 32, cbase 16384, 1 kimg)
    through the port's CLI on a synthetic 256² dataset, with
    ``--metrics=fid1k`` at the snapshot; checks the outcome and that every
@@ -40,7 +47,12 @@ per source, all started together), then:
    (upsample2d → affine warp → downsample2d) for one plain and one
    +Greg+Dreg step, which launches K3 and K4, and holds the unfused
    chain against the fused one (K1) on one batch;
-6. prints the kernel report and, last, the device line.
+6. runs the probes through their entry point (``probes.run_probes``), and
+   the claro step with ``conv_impl="kernel"`` (every dense 3×3 stride-1
+   conv of G and D through K8/K9) in its four variants beside the library
+   route from the same state and seed, profiles one step of it, and takes
+   one plain step with every augment section on;
+7. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
 device the script exits with code 2 and prints no result.
@@ -71,11 +83,44 @@ KERNELS = {
     "fir_up2": ("fir.cu", "gantrack_tpu/ops/attic/fir.py:144"),
     "warp": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:87"),
     "splat": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:114"),
+    "conv3x3": ("conv3x3.cu", "gantrack_tpu/ops/attic/conv3x3.py:145"),
+    "wgrad3x3": ("conv3x3.cu", "gantrack_tpu/ops/attic/conv3x3.py:188"),
+    "probe_matmul": ("probe.cu", "scripts/probe_matmul.py:25"),
+    "probe_halo_tile": ("probe.cu", "scripts/probe_mosaic.py:33"),
+    "probe_padded_tile": ("probe.cu", "scripts/probe_mosaic.py:62"),
+    "probe_ring": ("probe.cu", "scripts/probe_mosaic.py:91"),
+    "probe_concat": ("probe.cu", "scripts/probe_mosaic.py:113"),
+    "probe_row_slice": ("probe.cu", "scripts/probe_mosaic.py:130"),
 }
-# Published peaks of one H100 SXM: device memory rate, and float32 outside
-# the tensor cores (every hand kernel here sums in float32 on CUDA cores).
+# Published peaks of one H100 SXM: device memory rate, float32 outside the
+# tensor cores (the elementwise and FIR kernels sum in float32 on CUDA
+# cores), and dense bf16 on the tensor cores (the matrix kernels).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+# The dense 3x3 stride-1 convs of the claro step at batch 32: (Ci, Co, H),
+# the step's dtype there and the batch sizes the step gives the layer.  D
+# b256..b8 conv0 and G b8..b256 conv1 share the first six; then G b4 conv1
+# and D's epilogue conv (512 channels and the minibatch-stddev map) at 4x4,
+# an image smaller than the kernels' tile.  G's layers see the batch and,
+# in the path-length pass, half of it; D's see the batch (G's loss, R1) and
+# twice it (D's loss on the generated and the real images together).
+# Everything is checked and timed at the first batch size of a shape; at
+# the others K8, K9 and K9's determinism are checked.
+_G_AND_D, _G, _D = (32, 16, 64), (32, 16), (64, 32)
+CONV_SHAPES = [
+    (64, 64, 256, "bf16", _G_AND_D), (128, 128, 128, "bf16", _G_AND_D),
+    (256, 256, 64, "bf16", _G_AND_D), (512, 512, 32, "bf16", _G_AND_D),
+    (512, 512, 16, "f32", _G_AND_D), (512, 512, 8, "f32", _G_AND_D),
+    (512, 512, 4, "f32", _G), (513, 512, 4, "f32", _D),
+]
+# The 3x3 layers of the claro networks that are no stride-1 conv (G conv0
+# up 2, D conv1 down 2) and stay on the library under conv_impl="kernel",
+# as ``conv3x3.library_reason`` words them.  The 1x1 layers (to/from RGB,
+# skips) take no conv_impl at all.
+CLARO_LIBRARY_ROUTE = ("up=2, down=1", "up=1, down=2")
+EVERY_AUG_OPT = ("xflip,rotate90,xint,scale,rotate,aniso,xfrac,brightness,contrast,lumaflip,hue,"
+                 "saturation,imgfilter,noise,cutout")
 SG3_ARGS = [
     "--cfg=stylegan3-t", "--gamma=0.4096", "--cbase=32768", "--cmax=512", "--glr=0.0025",
     "--dlr=0.0025", "--aug=ada", "--target=0.6", "--mirror=1", "--kimg=1", "--tick=1",
@@ -130,11 +175,12 @@ def _check(name: str, err: float, limit: float) -> None:
         raise AssertionError(f"{name}: error {err} above limit {limit}")
 
 
-def _bound(nbytes: float, flops: float) -> dict:
+def _bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> dict:
     """The least time (ms) the card could take: each input read once and
     each output written once over the memory rate, or the operations over
-    the float32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    ``flop_rate`` (float32 on the CUDA cores; ``BF16_TC_FLOP_PER_S`` for a
+    bf16 matrix kernel), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -149,27 +195,33 @@ def _reset(*counters) -> None:
 
 
 def _kernel_counters() -> list:
-    from gantrack_tpu_torch.ops import fir
+    from gantrack_tpu_torch.ops import conv3x3 as c3
+    from gantrack_tpu_torch.ops import fir, probes
     from gantrack_tpu_torch.ops import upwarp as uw
     from gantrack_tpu_torch.ops import warp as wp
 
-    return [uw.LAUNCHES, fir.LAUNCHES, wp.LAUNCHES]
+    return [uw.LAUNCHES, fir.LAUNCHES, wp.LAUNCHES, c3.LAUNCHES, probes.LAUNCHES]
 
 
 def _reset_launches() -> None:
-    """Every kernel's count, and the plain-route counts, to 0."""
+    """Every kernel's count, and the plain- and library-route counts, to 0."""
+    from gantrack_tpu_torch.ops import conv3x3 as c3
     from gantrack_tpu_torch.ops import fir
 
     _reset(*_kernel_counters())
     fir.PLAIN_ROUTE.clear()
+    c3.LIBRARY_ROUTE.clear()
 
 
-def _read_launches(must_run, plain_route=()) -> dict:
+def _read_launches(must_run, plain_route=(), library_route=None) -> dict:
     """The kernels' launch counts since the last reset; raises if one of
     ``must_run`` was launched no time, or if an ``upfirdn2d`` call took
     the plain version for another reason than those of ``plain_route``
     (none, for a path whose FIR calls all lie inside the kernels'
-    contract)."""
+    contract).  ``library_route`` is None for a path on the default
+    ``conv_impl="library"``, which must launch no conv3x3 kernel; on the
+    kernel route it names the only reasons a conv may stay on the library."""
+    from gantrack_tpu_torch.ops import conv3x3 as c3
     from gantrack_tpu_torch.ops import fir
 
     counts = {k: n for counter in _kernel_counters() for k, n in counter.items()}
@@ -179,6 +231,11 @@ def _read_launches(must_run, plain_route=()) -> dict:
     if not set(fir.PLAIN_ROUTE) <= set(plain_route):
         raise AssertionError(f"FIR calls left the kernels for the plain version: "
                              f"{fir.PLAIN_ROUTE}; allowed on this path: {list(plain_route)}")
+    if library_route is None and (counts["conv3x3"] or counts["wgrad3x3"] or c3.LIBRARY_ROUTE):
+        raise AssertionError(f"the default conv route launched conv3x3 kernels: {counts}")
+    if not set(c3.LIBRARY_ROUTE) <= set(library_route or ()):
+        raise AssertionError(f"convs left the kernel route for the library: {c3.LIBRARY_ROUTE}; "
+                             f"allowed on this path: {list(library_route)}")
     return counts
 
 
@@ -553,6 +610,233 @@ def check_warp(card: str) -> dict:
     return report
 
 
+def check_probes(card: str) -> dict:
+    """Phase 1 (probes): P1-P6 against their plain versions, exact on the
+    JAX scripts' inputs (ones) and on small integers (every product and
+    sum is representable); P1 also on normal draws, where a float32 result
+    holds to 1e-5 of the largest value (float32 sums in another order; a
+    float32 operand is not rounded to tf32) and a bfloat16 result to 1e-2
+    (its one rounding).  Returns the report of each probe kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from gantrack_tpu_torch.ops import probes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    th, w, c = probes.TH, probes.W, probes.C
+
+    def ints(shape, dtype, lo=-4, hi=5):
+        return torch.randint(lo, hi, shape, device=dev, generator=gen).to(dtype)
+
+    def exact(label, got, ref):
+        same = got.dtype == ref.dtype and torch.equal(got, ref)
+        print(f"  {label}: {'exact' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"{label}: kernel and plain version differ")
+
+    def entry(kernel, plain, library, nbytes, flops, rate=BF16_TC_FLOP_PER_S):
+        """Times of the kernel, its plain version and the one PyTorch call
+        that computes the same (all bf16 in, the probe's result out), and
+        the kernel's largest difference from the plain version."""
+        return {"max_abs_err": _max_err(kernel(), plain()), "ms": _median_ms(kernel),
+                "plain_ms": _median_ms(plain), **_bound(nbytes, flops, rate),
+                "library_ms": _median_ms(library), "dtype": "bf16", "library_dtype": "bf16",
+                "ms_at_library_dtype": _median_ms(kernel)}
+
+    def show(name, e):
+        print(f"  {name} (median of 20, CUDA events) on {card}: kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library "
+              f"{e['library_ms']:.4f} ms; max |kernel - plain| {e['max_abs_err']:.3e}")
+
+    report = {}
+    print("phase 1 probes: P1 one tile product per operand / result type pair")
+    for i, (label, m, k, n, adt, bdt, odt, b_t) in enumerate(probes.matmul_cases()):
+        for what, make in (("ones", lambda shape, dt: torch.ones(shape, dtype=dt, device=dev)),
+                           ("integers", ints)):
+            a, b = make((m, k), adt), make((n, k) if b_t else (k, n), bdt)
+            exact(f"P1 {label}, {what}", probes.probe_matmul(a, b, odt, b_t),
+                  probes.probe_matmul_plain(a, b, odt, b_t))
+        an = torch.randn((m, k), device=dev, generator=gen).to(adt)
+        bn = torch.randn((n, k) if b_t else (k, n), device=dev, generator=gen).to(bdt)
+        ref = probes.probe_matmul_plain(an, bn, odt, b_t)
+        _check(f"P1 {label}, normal draws", _max_err(probes.probe_matmul(an, bn, odt, b_t), ref),
+               (1e-5 if odt == torch.float32 else 1e-2) * float(ref.abs().max()))
+        if i == 0:
+            # torch.matmul gives the same product rounded to bf16.
+            report["probe_matmul"] = entry(
+                lambda: probes.probe_matmul(a, b, odt, b_t),
+                lambda: probes.probe_matmul_plain(a, b, odt, b_t), lambda: torch.matmul(a, b),
+                _nbytes(a, b) + m * n * 4, 2 * m * k * n)
+            show("P1 bf16xbf16->f32 48x128x128 (library: torch.matmul, bf16 result)",
+                 report["probe_matmul"])
+
+    wk = torch.ones((9 * c, c), dtype=bf, device=dev)
+    w01 = ints((9 * c, c), bf, 0, 2)
+    flops = 2 * 4 * th * w * c * 9 * c
+    for name, fn, rows, cols in (("probe_halo_tile", probes.probe_halo_tile, th + 2, w + 2),
+                                 ("probe_padded_tile", probes.probe_padded_tile, th + 8, w + 8)):
+        print(f"phase 1 probes: {name}, 4 windows [{rows}, {cols}, {c}] -> [4, {th}, {w}, {c}]")
+        ones = torch.ones((4, rows, cols, c), dtype=bf, device=dev)
+        got = fn(ones, wk)
+        exact(f"{name} on ones", got, probes.probe_tile_plain(ones, wk))
+        if not bool((got == 576).all()):
+            raise AssertionError(f"{name}: not 576 everywhere on ones")
+        print("  576 everywhere on ones")
+        x = ints((4, rows, cols, c), bf)
+        exact(f"{name} on integers", fn(x, w01), probes.probe_tile_plain(x, w01))
+        # The one PyTorch call: the conv of the window (channels last) with
+        # the weights as OIHW, prepared outside the timing.
+        win = x[:, :th + 2, :w + 2].permute(0, 3, 1, 2)
+        w4 = w01.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
+        ref = probes.probe_tile_plain(x, w01)
+        _check(f"{name}: F.conv2d computes the same tile (bf16 output)",
+               _max_err(F.conv2d(win, w4).permute(0, 2, 3, 1), ref), 1e-2 * float(ref.abs().max()))
+        report[name] = entry(lambda: fn(x, w01), lambda: probes.probe_tile_plain(x, w01),
+                             lambda: F.conv2d(win, w4),
+                             (4 * (th + 2) * (w + 2) * c + 9 * c * c + 4 * th * w * c) * 2, flops)
+        show(name, report[name])
+
+    wide = ints((4, th + 8, w + 8, c), bf, -8, 9)
+    pieces = ints((9, 256, c), bf, -8, 9)
+    rows = ints((40, 128), bf, -8, 9)
+    # Copies: no operations.  The one PyTorch call that computes each is
+    # written out here, apart from the module's plain version.
+    for name, fn, plain, library, arg, moved in (
+            ("probe_ring", probes.probe_ring, probes.probe_ring_plain,
+             lambda: wide[:, :th, :w].contiguous(), wide, 2 * 4 * th * w * c),
+            ("probe_concat", probes.probe_concat, probes.probe_concat_plain,
+             lambda: torch.cat(list(pieces), dim=-1), pieces, 2 * pieces.numel()),
+            ("probe_row_slice", probes.probe_row_slice, probes.probe_row_slice_plain,
+             lambda: rows[1:33].contiguous(), rows, 2 * 32 * 128)):
+        print(f"phase 1 probes: {name}, {list(arg.shape)}")
+        exact(f"{name} on ones", fn(torch.ones_like(arg)), plain(torch.ones_like(arg)))
+        exact(f"{name} on integers", fn(arg), plain(arg))
+        exact(f"{name}: the library call computes the same", library(), plain(arg))
+        report[name] = entry(lambda: fn(arg), lambda: plain(arg), library, moved * 2, 0)
+        show(name, report[name])
+    return report
+
+
+def _conv_r1(conv, x, w):
+    """The R1 form: the input gradient of ``sum(tanh(conv(x, w)))`` and the
+    gradients of its squared norm for ``w`` and ``x``."""
+    import torch
+
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(torch.tanh(conv(xs, ws).float()).sum(), xs, create_graph=True)
+    gw, ggx = torch.autograd.grad(gx.float().square().sum(), (ws, xs))
+    return gx.detach(), gw, ggx
+
+
+def check_conv3x3(card: str) -> dict:
+    """Phase 1 (conv3x3): K8/K9 against their plain versions at every dense
+    3x3 shape the claro step gives them (``CONV_SHAPES``, at each of its
+    batch sizes), in the step's dtype there, and at a small ragged
+    float32 shape.  Returns the report of the first shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from gantrack_tpu_torch.ops import conv2d_gradfix
+    from gantrack_tpu_torch.ops import conv3x3 as c3
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    report = {}
+
+    def library_wgrad(x, g, w):
+        return torch.ops.aten.convolution_backward(
+            g, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])[1]
+
+    shapes = [(n, ci, co, h, h, dt, i == 0) for ci, co, h, dt, batches in CONV_SHAPES
+              for i, n in enumerate(batches)]
+    shapes.append((3, 40, 72, 19, 37, "f32", True))
+    for n, ci, co, h, wd, step_dtype, whole in shapes:
+        dtype = torch.bfloat16 if step_dtype == "bf16" else torch.float32
+        # f32: full-f32 FMA, the sums in another order.  bf16: f32 sums of
+        # the same bf16-rounded inputs; the output's one rounding dominates.
+        rel = 1e-2 if step_dtype == "bf16" else 1e-5
+        x = torch.randn((n, ci, h, wd), device=dev, generator=gen).to(dtype)
+        w = (torch.randn((co, ci, 3, 3), device=dev, generator=gen) / (9 * ci) ** 0.5).to(dtype)
+        g = torch.randn((n, co, h, wd), device=dev, generator=gen).to(dtype)
+        flops = 2 * n * h * wd * 9 * ci * co
+        print(f"phase 1 conv3x3: x [{n}, {ci}, {h}, {wd}] {step_dtype}, w [{co}, {ci}, 3, 3]; "
+              f"{flops / 1e9:.1f} GFLOP a call")
+        ref = c3.conv3x3_plain(x.float(), w.float())
+        err8 = _max_err(c3.conv3x3(x, w), ref)
+        _check(f"K8 {step_dtype} vs plain", err8, rel * float(ref.abs().max()))
+        ref9 = c3.wgrad3x3_plain(x.float(), g.float())
+        k9 = c3.wgrad3x3(x, g)
+        err9 = _max_err(k9, ref9)
+        _check(f"K9 {step_dtype} vs plain", err9, rel * float(ref9.abs().max()))
+        same = torch.equal(k9, c3.wgrad3x3(x, g))
+        print(f"  K9 bitwise deterministic over two calls: {same}")
+        if not same:
+            raise AssertionError("K9 is not bitwise deterministic")
+        del ref, ref9, k9
+        if not whole:
+            del x, w, g
+            torch.cuda.empty_cache()
+            continue
+
+        # Gradient and gradient of gradient on two images, against autograd
+        # of the plain version: in f32 (1e-4: three chained convs), and for
+        # the bf16 shapes in bf16, where the plain version rounds at the same
+        # places but sums in another order, so single roundings flip (3e-2).
+        orders = [(torch.float32, 1e-4)] + ([(dtype, 3e-2)] if step_dtype == "bf16" else [])
+        for dt, lim in orders:
+            x2, w2 = x[:2].to(dt), w.to(dt)
+            names = ("grad", "grad-of-grad (weights)", "grad-of-grad (input)")
+            for name, a, b in zip(names, _conv_r1(c3.conv3x3, x2, w2),
+                                  _conv_r1(c3.conv3x3_plain, x2, w2)):
+                _check(f"{name} through conv3x3 vs plain, {str(dt).replace('torch.', '')}",
+                       _max_err(a, b), lim * float(b.float().abs().max()))
+
+        # Times: forward; K9; forward + backward (both gradients).
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        t = {
+            "K8": _median_ms(lambda: c3.conv3x3(x, w)),
+            "K8 plain": _median_ms(lambda: c3.conv3x3_plain(x, w)),
+            "K8 library": _median_ms(lambda: F.conv2d(x, w, padding=1)),
+            "K9": _median_ms(lambda: c3.wgrad3x3(x, g)),
+            "K9 plain": _median_ms(lambda: c3.wgrad3x3_plain(x, g)),
+            "K9 library": _median_ms(lambda: library_wgrad(x, g, w)),
+            "fwd+bwd": _median_ms(lambda: torch.autograd.grad(c3.conv3x3(xr, wr), (xr, wr), g)),
+            "fwd+bwd library": _median_ms(lambda: torch.autograd.grad(
+                conv2d_gradfix.conv2d(xr, wr, padding=1), (xr, wr), g)),
+        }
+        _check("library F.conv2d vs plain (same function)",
+               _max_err(F.conv2d(x, w, padding=1), c3.conv3x3_plain(x.float(), w.float())),
+               rel * float(c3.conv3x3_plain(x.float(), w.float()).abs().max()))
+        rate = BF16_TC_FLOP_PER_S if step_dtype == "bf16" else F32_FLOP_PER_S
+        b8 = _bound(_nbytes(x, w, g), flops, rate)   # x, w in; out (g's size) out
+        b9 = _bound(_nbytes(x, g, w), flops, rate)
+        tf = lambda ms, k=1: k * flops / ms / 1e9
+        print(f"  times ({step_dtype}, median of 20, CUDA events) on {card}: K8 {t['K8']:.4f} ms "
+              f"({tf(t['K8']):.1f} TFLOP/s), plain {t['K8 plain']:.4f} ms, F.conv2d "
+              f"{t['K8 library']:.4f} ms ({tf(t['K8 library']):.1f} TFLOP/s), bound "
+              f"{b8['bound_ms']:.4f} ms ({b8['bound_by']}); K9 {t['K9']:.4f} ms "
+              f"({tf(t['K9']):.1f} TFLOP/s), plain {t['K9 plain']:.4f} ms, "
+              f"aten.convolution_backward (weight) {t['K9 library']:.4f} ms "
+              f"({tf(t['K9 library']):.1f} TFLOP/s), bound {b9['bound_ms']:.4f} ms "
+              f"({b9['bound_by']}); forward+backward kernels {t['fwd+bwd']:.4f} ms "
+              f"({tf(t['fwd+bwd'], 3):.1f} TFLOP/s), library {t['fwd+bwd library']:.4f} ms "
+              f"({tf(t['fwd+bwd library'], 3):.1f} TFLOP/s)")
+        if not report:
+            report = {
+                "conv3x3": {"max_abs_err": err8, "ms": t["K8"], "plain_ms": t["K8 plain"], **b8,
+                            "library_ms": t["K8 library"], "dtype": step_dtype,
+                            "library_dtype": step_dtype, "ms_at_library_dtype": t["K8"]},
+                "wgrad3x3": {"max_abs_err": err9, "ms": t["K9"], "plain_ms": t["K9 plain"], **b9,
+                             "library_ms": t["K9 library"], "dtype": step_dtype,
+                             "library_dtype": step_dtype, "ms_at_library_dtype": t["K9"]},
+            }
+        del x, w, g, xr, wr
+        torch.cuda.empty_cache()
+    return report
+
+
 def _synthetic_dataset(root: str, res: int = 256, count: int = 256) -> str:
     import numpy as np
 
@@ -749,7 +1033,7 @@ def run_calc_metrics(card: str, tmp: str, data: str, run_dir: str) -> None:
 
 
 def _step_times(stepper, state, real_img, real_c, variants, plain_route=(),
-                reps: int = 4) -> dict:
+                reps: int = 4, library_route=None) -> dict:
     """Median step time (ms, host clock around a synchronised step) of
     each phase variant, the first step of each left out; before it, the
     kernel launches of one step of the variant (counted from 0, after
@@ -763,7 +1047,7 @@ def _step_times(stepper, state, real_img, real_c, variants, plain_route=(),
         _reset_launches()
         stepper.run(state, real_img, real_c, *flags)
         print(f"  kernel launches of one {label} step: "
-              f"{ {k: n for k, n in _read_launches((), plain_route).items() if n} }"
+              f"{ {k: n for k, n in _read_launches((), plain_route, library_route).items() if n} }"
               f"; plain-route FIR calls {dict(fir.PLAIN_ROUTE)}")
         times = []
         for i in range(reps):
@@ -864,7 +1148,8 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
     """One profiled step: device time by kernel name, and the share of
     the depthwise-convolution kernels, which only the plain FIR route
     runs (its zero-stuffing and padding copies are elementwise kernels
-    and not counted, so the share is a lower bound)."""
+    and not counted, so the share is a lower bound), of all hand-written
+    kernels, and of the conv3x3 pair K8/K9 among them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -879,13 +1164,16 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
     if total <= 0:
         print(f"  profile of one {label} step: the profiler saw no device time")
         return
-    hand = sum(t for k, t in rows.items() if "gantrack" in k or "fir_kernel" in k
-               or "warp_kernel" in k or "splat" in k)
+    conv = sum(t for k, t in rows.items() if "conv3x3_" in k or "wgrad3x3_" in k
+               or "wgrad_reduce_kernel" in k)
+    hand = conv + sum(t for k, t in rows.items() if "gantrack" in k or "fir_kernel" in k
+                      or "warp_kernel" in k or "splat" in k)
     depthwise = sum(t for k, t in rows.items() if "depthwise" in k.lower())
     print(f"  profile of one {label} step on {card}: {total:.1f} ms of device time in "
           f"{len(rows)} kernels; depthwise-conv kernels (the plain FIR route) {depthwise:.1f} ms "
           f"({100 * depthwise / total:.1f} %); hand-written kernels {hand:.1f} ms "
-          f"({100 * hand / total:.1f} %)")
+          f"({100 * hand / total:.1f} %), of which conv3x3/wgrad3x3 {conv:.1f} ms "
+          f"({100 * conv / total:.1f} %)")
     for name, t in sorted(rows.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {t:8.2f} ms {100 * t / total:5.1f} %  {name[:90]}")
 
@@ -1071,6 +1359,129 @@ def run_unfused_augment(card: str, tmp: str, data: str, args=CLARO_ARGS):
     return launches
 
 
+def run_probe_path() -> dict:
+    """Phase 6 (probes): every probe through the module's entry point, as
+    ``python -m gantrack_tpu_torch.ops.probes`` runs them.  Returns the
+    launch counts of the run."""
+    from gantrack_tpu_torch.ops import probes
+
+    print("phase 6: probes.run_probes (the scripts' inputs: ones)")
+    _reset_launches()
+    sums = probes.run_probes("cuda")
+    launches = _read_launches(tuple(probes.LAUNCHES))
+    tile = 576.0 * 4 * probes.TH * probes.W * probes.C
+    want = {"A halo-window-as-it-lies": tile, "B padded-window-shifted-reads": tile,
+            "C two-slot-ring-dynslot": 4.0 * probes.TH * probes.W * probes.C,
+            "D concat-9x64": 256.0 * 9 * probes.C, "E row-offset-slice": 32.0 * 128}
+    for label, value in want.items():
+        if sums[label] != value:
+            raise AssertionError(f"probe {label}: sum {sums[label]}, expected {value}")
+    return launches
+
+
+def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
+    """Phase 6 (conv route): the claro step with ``conv_impl="kernel"``
+    beside the default ``"library"`` route, both built from the same seed,
+    on one batch: the first plain step's losses of the two routes, then
+    the launches and the step time of each phase variant on each route, a
+    profile of one kernel-route step, and one plain step with every
+    augment section on.  Returns the kernel route's launch counts, summed
+    over one step of each variant."""
+    import torch
+
+    from gantrack_tpu_torch.ops import conv3x3 as c3
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.training.loop import to_device_batch
+
+    argv = [f"--outdir={tmp}", f"--data={data}", *args]
+    opts = cli.build_parser().parse_args(argv)
+    device = _cli_device(cli, args)
+    print("phase 6: the claro step with conv_impl='kernel' (D b256..b8 conv0, G b4..b256 conv1 "
+          "and D's epilogue conv through K8/K9) beside conv_impl='library'")
+    runs = {}
+    for route in ("library", "kernel"):
+        _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device,
+                                                       conv_impl=route)
+        try:
+            real_img, real_c = to_device_batch(*next(loader), device)
+        finally:
+            loader.close()
+        state.ada_p = torch.tensor(0.5, device=device)  # the gates open for half the draws
+        runs[route] = (state, stepper, real_img, real_c)
+
+    variants = (("plain", (False, False)), ("+Greg", (True, False)), ("+Dreg", (False, True)),
+                ("+Greg+Dreg", (True, True)))
+    # The first step of both routes starts from equal weights and draws the
+    # same numbers: its losses differ only by the convs' bf16 roundings
+    # (f32 sums in another order flip single roundings of the activations),
+    # 5e-2 of the larger of 1 and the loss.
+    first = {}
+    for route, (state, stepper, real_img, real_c) in runs.items():
+        _reset_launches()
+        first[route] = stepper.run(state, real_img, real_c, False, False)
+        _read_launches(("conv3x3", "wgrad3x3") if route == "kernel" else (),
+                       library_route=CLARO_LIBRARY_ROUTE if route == "kernel" else None)
+    for key in ("Loss/G/loss", "Loss/D/loss", "Loss/scores/fake", "Loss/scores/real"):
+        a, b = (float(first[r][key][1] / first[r][key][0]) for r in ("kernel", "library"))
+        _check(f"first plain step, {key}: kernel route {a:.6f} vs library {b:.6f}", abs(a - b),
+               5e-2 * max(1.0, abs(b)))
+
+    state, stepper, real_img, real_c = runs["kernel"]
+    total = {}
+    per_variant = {}
+    for label, flags in variants:
+        _reset_launches()
+        m = stepper.run(state, real_img, real_c, *flags)
+        counts = _read_launches(("conv3x3", "wgrad3x3"), library_route=CLARO_LIBRARY_ROUTE)
+        for k, v in m.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"kernel-route {label} step: non-finite {k}")
+        per_variant[label] = counts
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        print(f"  {label} step on the kernel route: conv3x3 {counts['conv3x3']}, wgrad3x3 "
+              f"{counts['wgrad3x3']} launches; losses finite; convs left to the library "
+              f"{dict(c3.LIBRARY_ROUTE)}")
+    for label in ("+Greg", "+Dreg", "+Greg+Dreg"):
+        for k in ("conv3x3", "wgrad3x3"):
+            if per_variant[label][k] <= per_variant["plain"][k]:
+                raise AssertionError(f"the {label} step launched {k} no more often than the plain "
+                                     f"step: the second differentiation left the kernels")
+
+    times = {route: _step_times(stepper, state, real_img, real_c, variants,
+                                library_route=CLARO_LIBRARY_ROUTE if route == "kernel" else None)
+             for route, (state, stepper, real_img, real_c) in runs.items()}
+    for label, _ in variants:
+        print(f"  step {label}: kernel route {times['kernel'][label]:.1f} ms, library route "
+              f"{times['library'][label]:.1f} ms (median of 3, batch 32, 256^2) on {card}")
+    for route, (state, stepper, real_img, real_c) in runs.items():
+        _profile_step(stepper, state, real_img, real_c, (False, False), card,
+                      f"plain claro ({route} route)")
+    del runs, state, stepper
+    torch.cuda.empty_cache()
+
+    # Every augment section on, default routes: one plain step, finite.
+    argv = [f"--outdir={tmp}", f"--data={data}", *args, f"--aug_opts={EVERY_AUG_OPT}"]
+    opts = cli.build_parser().parse_args(argv)
+    _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
+    try:
+        real_img, real_c = to_device_batch(*next(loader), device)
+    finally:
+        loader.close()
+    state.ada_p = torch.tensor(0.5, device=device)
+    _reset_launches()
+    m = stepper.run(state, real_img, real_c, False, False)
+    _read_launches(("upwarp", "upsplat"))
+    for k, v in m.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"every-augment step: non-finite {k}")
+    print(f"  one plain step with --aug_opts={EVERY_AUG_OPT}: losses finite, G "
+          f"{float(m['Loss/G/loss'][1] / m['Loss/G/loss'][0]):.4f}, D "
+          f"{float(m['Loss/D/loss'][1] / m['Loss/D/loss'][0]):.4f}")
+    del state, stepper
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1092,17 +1503,25 @@ def main() -> int:
     kernels = check_kernels(card)
     kernels.update(check_fir(card))
     kernels.update(check_warp(card))
+    kernels.update(check_probes(card))
+    kernels.update(check_conv3x3(card))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data = _synthetic_dataset(tmp)
         run_dir, claro = train_claro(card, tmp, data)
         run_calc_metrics(card, tmp, data, run_dir)
         sg3 = train_stylegan3(card, tmp, data)
         unfused = run_unfused_augment(card, tmp, data)
+        probed = run_probe_path()
+        routed = run_kernel_route(card, tmp, data)
     # Launches on the main paths: the claro run, the StyleGAN3 run with its
-    # metrics, and the unfused augment steps, each counted from 0.
-    launches = {k: claro[k] + sg3[k] + unfused[k] for k in KERNELS}
-    print(f"kernel launches by main path: claro {claro}; stylegan3-t {sg3}; unfused augment "
-          f"{unfused}")
+    # metrics, the unfused augment steps, the probes' run and the
+    # kernel-route steps, each counted from 0.
+    paths = {"claro": claro, "stylegan3-t": sg3, "unfused augment": unfused, "probes": probed,
+             "kernel conv route": routed}
+    launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
+    print("kernel launches by main path: "
+          + "; ".join(f"{name} { {k: n for k, n in counts.items() if n} }"
+                      for name, counts in paths.items()))
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was launched on no main path")

@@ -70,12 +70,13 @@ class Conv2dLayer(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = True,
                  activation: str = "linear", up: int = 1, down: int = 1,
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = None):
+                 conv_clamp: Optional[float] = None, conv_impl: str = "library"):
         super().__init__()
         self.activation = activation
         self.up = up
         self.down = down
         self.conv_clamp = conv_clamp
+        self.conv_impl = conv_impl  # conv2d_resample's: "library" or "kernel"
         self.padding = kernel_size // 2
         self.weight_gain = 1 / np.sqrt(in_channels * kernel_size ** 2)
         self.act_gain = activation_funcs[activation].def_gain
@@ -87,7 +88,8 @@ class Conv2dLayer(nn.Module):
         w = (self.weight * self.weight_gain).to(x.dtype)
         f = self.resample_filter if (self.up > 1 or self.down > 1) else None
         x = conv2d_resample(x, w, f=f, up=self.up, down=self.down, padding=self.padding,
-                            flip_weight=(self.up == 1), taps=self.resample_taps)
+                            flip_weight=(self.up == 1), taps=self.resample_taps,
+                            conv_impl=self.conv_impl)
         act_gain = self.act_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
@@ -150,8 +152,9 @@ class SynthesisLayer(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int,
                  kernel_size: int = 3, up: int = 1, use_noise: bool = True,
                  activation: str = "lrelu", resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = 256.0):
+                 conv_clamp: Optional[float] = 256.0, conv_impl: str = "library"):
         super().__init__()
+        self.conv_impl = conv_impl
         self.resolution = resolution
         self.up = up
         self.use_noise = use_noise
@@ -181,7 +184,7 @@ class SynthesisLayer(nn.Module):
         x = modulated_conv2d(x, self.weight.to(x.dtype), styles, noise=noise, up=self.up,
                              padding=self.padding, resample_filter=f,
                              resample_taps=self.resample_taps, flip_weight=(self.up == 1),
-                             fused_modconv=fused_modconv)
+                             fused_modconv=fused_modconv, conv_impl=self.conv_impl)
         act_gain = self.act_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
@@ -212,7 +215,8 @@ class SynthesisBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int,
                  img_channels: int, is_last: bool, architecture: str = "skip",
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = 256.0, use_bf16: bool = False, **layer_kwargs):
+                 conv_clamp: Optional[float] = 256.0, use_bf16: bool = False,
+                 conv_impl: str = "library", **layer_kwargs):
         super().__init__()
         assert architecture in ("orig", "skip", "resnet")
         self.in_channels = in_channels
@@ -224,7 +228,7 @@ class SynthesisBlock(nn.Module):
         self.num_conv = 0
         self.num_torgb = 0
         common = dict(w_dim=w_dim, resolution=resolution, resample_filter=resample_filter,
-                      conv_clamp=conv_clamp, **layer_kwargs)
+                      conv_clamp=conv_clamp, conv_impl=conv_impl, **layer_kwargs)
         if in_channels == 0:
             self.const = nn.Parameter(torch.randn([out_channels, resolution, resolution]))
         else:
@@ -276,7 +280,8 @@ def _fp16_resolution(img_resolution: int, num_fp16_res: int) -> int:
 
 
 class SynthesisNetwork(nn.Module):
-    """Synthesis blocks 4² → img_resolution."""
+    """Synthesis blocks 4² → img_resolution.  ``block_kwargs`` go to every
+    block (``architecture``, ``conv_impl``, ...)."""
 
     def __init__(self, w_dim: int, img_resolution: int, img_channels: int,
                  channel_base: int = 32768, channel_max: int = 512, num_fp16_res: int = 4,
@@ -321,12 +326,13 @@ class Generator(nn.Module):
 
     def __init__(self, z_dim: int, c_dim: int, w_dim: int, img_resolution: int,
                  img_channels: int, mapping_kwargs: Optional[dict] = None,
-                 synthesis_kwargs: Optional[dict] = None):
+                 synthesis_kwargs: Optional[dict] = None, conv_impl: str = "library"):
         super().__init__()
         self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
         self.img_resolution, self.img_channels = img_resolution, img_channels
         self.synthesis = SynthesisNetwork(w_dim=w_dim, img_resolution=img_resolution,
-                                          img_channels=img_channels, **(synthesis_kwargs or {}))
+                                          img_channels=img_channels, conv_impl=conv_impl,
+                                          **(synthesis_kwargs or {}))
         self.num_ws = self.synthesis.num_ws
         self.mapping = MappingNetwork(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, num_ws=self.num_ws,
                                       **(mapping_kwargs or {}))
@@ -345,7 +351,8 @@ class DiscriminatorBlock(nn.Module):
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int, resolution: int,
                  img_channels: int, architecture: str = "resnet", activation: str = "lrelu",
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = 256.0, use_bf16: bool = False):
+                 conv_clamp: Optional[float] = 256.0, use_bf16: bool = False,
+                 conv_impl: str = "library"):
         super().__init__()
         assert architecture in ("orig", "skip", "resnet")
         self.in_channels = in_channels
@@ -356,10 +363,12 @@ class DiscriminatorBlock(nn.Module):
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
                                        activation=activation, conv_clamp=conv_clamp)
         self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, kernel_size=3,
-                                 activation=activation, conv_clamp=conv_clamp)
+                                 activation=activation, conv_clamp=conv_clamp,
+                                 conv_impl=conv_impl)
         self.conv1 = Conv2dLayer(tmp_channels, out_channels, kernel_size=3,
                                  activation=activation, down=2,
-                                 resample_filter=resample_filter, conv_clamp=conv_clamp)
+                                 resample_filter=resample_filter, conv_clamp=conv_clamp,
+                                 conv_impl=conv_impl)
         if architecture == "resnet":
             self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1, bias=False,
                                     down=2, resample_filter=resample_filter)
@@ -407,7 +416,7 @@ class DiscriminatorEpilogue(nn.Module):
     def __init__(self, in_channels: int, cmap_dim: int, resolution: int, img_channels: int,
                  architecture: str = "resnet", mbstd_group_size: Optional[int] = 4,
                  mbstd_num_channels: int = 1, activation: str = "lrelu",
-                 conv_clamp: Optional[float] = 256.0):
+                 conv_clamp: Optional[float] = 256.0, conv_impl: str = "library"):
         super().__init__()
         self.cmap_dim = cmap_dim
         self.architecture = architecture
@@ -417,7 +426,8 @@ class DiscriminatorEpilogue(nn.Module):
             self.fromrgb = Conv2dLayer(img_channels, in_channels, kernel_size=1,
                                        activation=activation)
         self.conv = Conv2dLayer(in_channels + mbstd_num_channels, in_channels, kernel_size=3,
-                                activation=activation, conv_clamp=conv_clamp)
+                                activation=activation, conv_clamp=conv_clamp,
+                                conv_impl=conv_impl)
         self.fc = FullyConnected(in_channels * resolution ** 2, in_channels, activation=activation)
         self.out = FullyConnected(in_channels, 1 if cmap_dim == 0 else cmap_dim)
 
@@ -443,7 +453,7 @@ class Discriminator(nn.Module):
                  channel_max: int = 512, num_fp16_res: int = 4,
                  conv_clamp: Optional[float] = 256.0, cmap_dim: Optional[int] = None,
                  block_kwargs: Optional[dict] = None, mapping_kwargs: Optional[dict] = None,
-                 epilogue_kwargs: Optional[dict] = None):
+                 epilogue_kwargs: Optional[dict] = None, conv_impl: str = "library"):
         super().__init__()
         self.c_dim = c_dim
         self.img_resolution = img_resolution
@@ -460,14 +470,15 @@ class Discriminator(nn.Module):
             setattr(self, f"b{res}", DiscriminatorBlock(
                 channels[res] if res < img_resolution else 0, channels[res], channels[res // 2],
                 resolution=res, img_channels=img_channels, architecture=architecture,
-                conv_clamp=conv_clamp, use_bf16=(res >= fp16_resolution),
+                conv_clamp=conv_clamp, use_bf16=(res >= fp16_resolution), conv_impl=conv_impl,
                 **(block_kwargs or {})))
         if c_dim > 0:
             self.mapping = MappingNetwork(z_dim=0, c_dim=c_dim, w_dim=cmap_dim, num_ws=None,
                                           w_avg_beta=None, **(mapping_kwargs or {}))
         self.b4 = DiscriminatorEpilogue(channels[4], cmap_dim=cmap_dim, resolution=4,
                                         img_channels=img_channels, architecture=architecture,
-                                        conv_clamp=conv_clamp, **(epilogue_kwargs or {}))
+                                        conv_clamp=conv_clamp, conv_impl=conv_impl,
+                                        **(epilogue_kwargs or {}))
 
     def forward(self, img, c=None, **block_kwargs):
         x = None

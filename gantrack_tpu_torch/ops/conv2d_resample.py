@@ -5,6 +5,14 @@ Port of ``gantrack_tpu/ops/conv2d_resample.py``.  Same padding rules
 same order of operations; the JAX module's ``lhs_dilation`` conv over
 the zero-inserted input is computed here as a stride-``up``
 ``conv_transpose2d`` (identical numbers, without multiplying zeros).
+
+``conv_impl`` chooses who runs the dense 3×3 stride-1 convolution of the
+plain branch: ``"library"`` (the default: cuDNN through
+``conv2d_gradfix``) or ``"kernel"`` (:func:`.conv3x3.conv3x3`, the
+hand-written implicit-GEMM kernels, differentiable to every order through
+themselves).  Every other convolution (1×1, strided, transposed, grouped,
+asymmetric padding) is another function and stays on the library, counted
+by reason in ``conv3x3.LIBRARY_ROUTE``.
 """
 
 from __future__ import annotations
@@ -14,18 +22,26 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import conv2d_gradfix
+from . import conv2d_gradfix, conv3x3
 from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
 
 __all__ = ["conv2d_resample"]
 
 
+CONV_IMPLS = ("library", "kernel")
+
+
 def _conv2d(x, w, stride: int = 1, padding=(0, 0, 0, 0), groups: int = 1,
-            flip_weight: bool = True):
+            flip_weight: bool = True, conv_impl: str = "library"):
     """Dense NCHW/OIHW conv; ``padding`` is ``[px0, px1, py0, py1]``.
     ``flip_weight=True`` = cross-correlation, ``False`` = convolution."""
     if not flip_weight and w.shape[2] * w.shape[3] > 1:
         w = w.flip([2, 3])
+    if conv_impl == "kernel":
+        why = conv3x3.library_reason(x.shape, w.shape, x.dtype, 1, stride, padding, groups)
+        if why is None:
+            return conv3x3.conv3x3(x, w)
+        conv3x3.count_library_route(why)
     px0, px1, py0, py1 = padding
     if px0 == px1 and py0 == py1:
         return conv2d_gradfix.conv2d(x, w.to(x.dtype), stride=stride, padding=(py0, px0),
@@ -62,11 +78,15 @@ def conv2d_resample(
     flip_weight: bool = True,
     flip_filter: bool = False,
     taps=None,
+    conv_impl: str = "library",
 ) -> torch.Tensor:
     """Convolve ``[N, I, H, W]`` by ``[O, I//groups, kh, kw]`` with optional
     FIR-filtered up/downsampling (see the JAX module for the contract).
-    ``taps`` are the filter's host taps (``upfirdn2d.filter_taps(f)``)."""
+    ``taps`` are the filter's host taps (``upfirdn2d.filter_taps(f)``);
+    ``conv_impl`` is ``"library"`` or ``"kernel"`` (see the module)."""
     assert x.ndim == 4 and w.ndim == 4
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
     kh, kw = int(w.shape[2]), int(w.shape[3])
     fw, fh = _get_filter_size(f)
     px0, px1, py0, py1 = _parse_padding(padding)
@@ -85,22 +105,26 @@ def conv2d_resample(
 
     if kw == 1 and kh == 1 and down > 1 and up == 1:
         x = upfirdn2d(x, f, down=down, padding=pad, flip_filter=flip_filter, taps=taps)
-        return _conv2d(x, w, groups=groups, flip_weight=flip_weight)
+        return _conv2d(x, w, groups=groups, flip_weight=flip_weight, conv_impl=conv_impl)
 
     if kw == 1 and kh == 1 and up > 1 and down == 1:
-        x = _conv2d(x, w, groups=groups, flip_weight=flip_weight)
+        x = _conv2d(x, w, groups=groups, flip_weight=flip_weight, conv_impl=conv_impl)
         return upfirdn2d(x, f, up=up, padding=pad, gain=up**2, flip_filter=flip_filter,
                          taps=taps)
 
     if down > 1 and up == 1:
         x = upfirdn2d(x, f, padding=pad, flip_filter=flip_filter, taps=taps)
-        return _conv2d(x, w, stride=down, groups=groups, flip_weight=flip_weight)
+        return _conv2d(x, w, stride=down, groups=groups, flip_weight=flip_weight,
+                       conv_impl=conv_impl)
 
     if up > 1:
+        if conv_impl == "kernel":
+            conv3x3.count_library_route(f"up={up}, down={down}")
         x = _conv2d_up(x, w, up, pad, groups, flip_weight)
         x = upfirdn2d(x, f, gain=up**2, flip_filter=flip_filter, taps=taps)
         if down > 1:
             x = upfirdn2d(x, f, down=down, flip_filter=flip_filter, taps=taps)
         return x
 
-    return _conv2d(x, w, padding=pad, groups=groups, flip_weight=flip_weight)
+    return _conv2d(x, w, padding=pad, groups=groups, flip_weight=flip_weight,
+                   conv_impl=conv_impl)

@@ -31,6 +31,7 @@ def modulated_conv2d(
     demodulate: bool = True,
     flip_weight: bool = True,
     fused_modconv: bool = False,
+    conv_impl: str = "library",        # conv2d_resample's: "library" or "kernel"
 ) -> torch.Tensor:
     batch = x.shape[0]
     out_ch, in_ch, kh, kw = weight.shape
@@ -45,7 +46,8 @@ def modulated_conv2d(
     if not fused_modconv:
         x = x * styles[:, :, None, None].to(x.dtype)
         x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up, down=down,
-                            padding=padding, flip_weight=flip_weight, taps=resample_taps)
+                            padding=padding, flip_weight=flip_weight, taps=resample_taps,
+                            conv_impl=conv_impl)
         if demodulate:
             x = x * dcoefs[:, :, None, None].to(x.dtype)
         if noise is not None:
@@ -57,7 +59,8 @@ def modulated_conv2d(
     w = w.to(x.dtype).reshape(batch * out_ch, in_ch, kh, kw)
     xg = x.reshape(1, batch * in_ch, *x.shape[2:])
     xg = conv2d_resample(xg, w, f=resample_filter, up=up, down=down, padding=padding,
-                         groups=batch, flip_weight=flip_weight, taps=resample_taps)
+                         groups=batch, flip_weight=flip_weight, taps=resample_taps,
+                         conv_impl=conv_impl)
     x = xg.reshape(batch, out_ch, *xg.shape[2:])
     if noise is not None:
         x = x + noise.to(x.dtype)

@@ -166,16 +166,20 @@ def main(argv: Optional[List[str]] = None) -> Optional[str]:
 
 def make_generator(cfg: str, *, resolution: int, channels: int, c_dim: int, cbase: int,
                    cmax: int, map_depth: int, num_fp16_res: int = 4, z_dim: int = 512,
-                   w_dim: int = 512):
+                   w_dim: int = 512, conv_impl: str = "library"):
     """The generator of ``--cfg``: stylegan2, stylegan3-t or stylegan3-r
-    (channels ×2, 1×1 convs, radial filters)."""
+    (channels ×2, 1×1 convs, radial filters).  ``conv_impl`` is the
+    StyleGAN2 layers' (StyleGAN3's keep the library convolution)."""
     if cfg == "stylegan2":
         from ..models.stylegan2 import Generator
 
         return Generator(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=resolution,
                          img_channels=channels, mapping_kwargs=dict(num_layers=map_depth),
                          synthesis_kwargs=dict(channel_base=cbase, channel_max=cmax,
-                                               num_fp16_res=num_fp16_res))
+                                               num_fp16_res=num_fp16_res),
+                         conv_impl=conv_impl)
+    if conv_impl != "library":
+        raise ValueError(f"conv_impl={conv_impl!r}: the StyleGAN3 layers have no kernel route")
     from ..models.stylegan3 import Generator as SG3Generator
 
     mult = 2 if cfg == "stylegan3-r" else 1
@@ -204,10 +208,13 @@ def metric_batch(cfg: str, resolution: int) -> int:
     return max(auto_metric_batch(resolution) // METRIC_BATCH_DIVISOR[cfg], 1)
 
 
-def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fused"):
+def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fused",
+                   conv_impl: str = "library"):
     """Dataset, loader, networks, state, loss and stepper of a run.
-    ``augment_impl`` is the ``impl`` of the augment pipe (no CLI flag, as
-    in the JAX CLI)."""
+    ``augment_impl`` is the ``impl`` of the augment pipe and ``conv_impl``
+    who runs the dense 3×3 stride-1 convolutions of G and D (``"library"``:
+    cuDNN; ``"kernel"``: ``ops.conv3x3``); neither has a CLI flag, as in
+    the JAX CLI."""
     from ..data import InfiniteLoader, open_dataset
     from ..models.stylegan2 import Discriminator
     from ..training.augment import AugmentConfig, AugmentPipe
@@ -232,11 +239,12 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
     G = make_generator(c["cfg"], resolution=res, channels=channels, c_dim=c_dim,
                        cbase=c["G"]["channel_base"], cmax=c["G"]["channel_max"],
                        map_depth=c["G"]["map_depth"], num_fp16_res=c["G"]["num_fp16_res"],
-                       z_dim=c["G"]["z_dim"], w_dim=c["G"]["w_dim"]).to(device)
+                       z_dim=c["G"]["z_dim"], w_dim=c["G"]["w_dim"], conv_impl=conv_impl).to(device)
     D = Discriminator(c_dim=c_dim, img_resolution=res, img_channels=channels,
                       channel_base=c["D"]["channel_base"], channel_max=c["D"]["channel_max"],
                       num_fp16_res=c["D"]["num_fp16_res"],
-                      epilogue_kwargs=dict(mbstd_group_size=c["D"]["mbstd_group"])).to(device)
+                      epilogue_kwargs=dict(mbstd_group_size=c["D"]["mbstd_group"]),
+                      conv_impl=conv_impl).to(device)
     g_reg_interval = 4 if sg2 else None  # StyleGAN3 has no path-length phase
     state = create_train_state(G, D, c["glr"], c["dlr"], g_reg_interval=g_reg_interval,
                                d_reg_interval=16)

@@ -11,9 +11,13 @@ launches the kernel pair K1/K2 on the card; ``"unfused"`` (the JAX
 ``downsample2d``, which launches the FIR kernels and the warp pair K3/K4.
 Both sample at the same positions.
 
-The colour, image-space filtering, noise and cutout sections are not in
-the medical (claro) recipe and are not ported yet (ROADMAP, queue A3):
-a config that enables them raises ``NotImplementedError``.
+After the geometric section come the colour section (brightness,
+contrast, luma flip, hue, saturation as one 4×4 transform a sample,
+collapsed to a scalar gain and offset for 1 and 2 channels), image-space
+filtering (per-sample gains of four sym2 wavelet bands, applied as a
+separable per-sample filter: a grouped convolution with the batch folded
+into the channels), additive noise and cutout, each gated by ``p`` and
+each with its ``debug_percentile`` branch, as in the JAX pipe.
 
 Random draws use an explicit ``torch.Generator`` on the images' device.
 """
@@ -26,11 +30,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import conv2d_gradfix
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..ops.upwarp import up_affine_warp
 from ..ops.warp import affine_warp
 
 WAVELETS = {
+    "haar": [0.7071067811865476, 0.7071067811865476],
+    "sym2": [-0.12940952255092145, 0.22414386804185735, 0.836516303737469, 0.48296291314469025],
     "sym6": [
         0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
         -0.048311742585633, 0.4910559419267466, 0.787641141030194,
@@ -83,6 +90,46 @@ def rotate2d_inv(theta):
     return rotate2d(-theta)
 
 
+# Batched 4x4 homogeneous colour transforms [N, 4, 4] in float32.
+
+def _eye4(n, device):
+    return torch.eye(4, device=device).expand(n, 4, 4).clone()
+
+
+def translate3d(tx, ty, tz):
+    m = _eye4(tx.shape[0], tx.device)
+    m[:, 0, 3] = tx
+    m[:, 1, 3] = ty
+    m[:, 2, 3] = tz
+    return m
+
+
+def scale3d(sx, sy, sz):
+    m = _eye4(sx.shape[0], sx.device)
+    m[:, 0, 0] = sx
+    m[:, 1, 1] = sy
+    m[:, 2, 2] = sz
+    return m
+
+
+def rotate3d(v, theta):
+    """Rotation about the unit axis ``v`` (3 floats) by ``theta [N]``."""
+    vx, vy, vz = float(v[0]), float(v[1]), float(v[2])
+    s, c = torch.sin(theta), torch.cos(theta)
+    cc = 1 - c
+    m = _eye4(theta.shape[0], theta.device)
+    m[:, 0, 0] = vx * vx * cc + c
+    m[:, 0, 1] = vx * vy * cc - vz * s
+    m[:, 0, 2] = vx * vz * cc + vy * s
+    m[:, 1, 0] = vy * vx * cc + vz * s
+    m[:, 1, 1] = vy * vy * cc + c
+    m[:, 1, 2] = vy * vz * cc - vx * s
+    m[:, 2, 0] = vz * vx * cc - vy * s
+    m[:, 2, 1] = vz * vy * cc + vx * s
+    m[:, 2, 2] = vz * vz * cc + c
+    return m
+
+
 def _const(n, value, device):
     return torch.full((n,), float(value), dtype=torch.float32, device=device)
 
@@ -129,10 +176,25 @@ class AugmentConfig:
                                    self.scale, self.rotate, self.aniso, self.xfrac))
 
     @property
-    def unported_sections(self) -> Tuple[str, ...]:
-        names = ("brightness", "contrast", "lumaflip", "hue", "saturation",
-                 "imgfilter", "noise", "cutout")
-        return tuple(n for n in names if getattr(self, n) > 0)
+    def has_color(self) -> bool:
+        return any(v > 0 for v in (self.brightness, self.contrast, self.lumaflip, self.hue,
+                                   self.saturation))
+
+
+def filter_bank() -> np.ndarray:
+    """The four-band sym2 filter bank ``[4, 13]`` of the image-space
+    filtering section (same construction as the JAX package's)."""
+    hz_lo = np.asarray(WAVELETS["sym2"])
+    hz_hi = hz_lo * ((-1) ** np.arange(hz_lo.size))
+    hz_lo2 = np.convolve(hz_lo, hz_lo[::-1]) / 2
+    hz_hi2 = np.convolve(hz_hi, hz_hi[::-1]) / 2
+    fbank = np.eye(4, 1)
+    for i in range(1, fbank.shape[0]):
+        fbank = np.dstack([fbank, np.zeros_like(fbank)]).reshape(fbank.shape[0], -1)[:, :-1]
+        fbank = np.stack([np.convolve(row, hz_lo2) for row in fbank])
+        lo = (fbank.shape[1] - hz_hi2.size) // 2
+        fbank[i, lo:lo + hz_hi2.size] += hz_hi2
+    return fbank.astype(np.float32)
 
 
 def medical_augment_config(**overrides) -> AugmentConfig:
@@ -265,10 +327,6 @@ class AugmentPipe:
         if impl not in ("fused", "unfused"):
             raise ValueError(f"impl must be 'fused' or 'unfused', got {impl!r}")
         self.impl = impl
-        if cfg.unported_sections:
-            raise NotImplementedError(
-                f"augment sections {cfg.unported_sections} are not ported yet "
-                "(ROADMAP queue A3: colour, image filter, noise, cutout)")
         self.cfg = cfg
         self.height = height
         self.width = width
@@ -276,42 +334,46 @@ class AugmentPipe:
         self.compute_dtype = compute_dtype
         self.hz_geom = setup_filter(WAVELETS["sym6"])  # float32, CPU
         self.hz_geom_taps = tuple(float(v) for v in self.hz_geom)
+        self.hz_fbank = torch.from_numpy(filter_bank())  # float32, CPU
         self.margin = compute_static_margin(cfg, height, width)
         self._filters = {}
 
-    def _filter(self, device) -> torch.Tensor:
-        key = str(device)
+    def _on(self, name: str, device) -> torch.Tensor:
+        """The constant ``hz_geom`` or ``hz_fbank`` on ``device``."""
+        key = (name, str(device))
         if key not in self._filters:
-            self._filters[key] = self.hz_geom.to(device)
+            self._filters[key] = getattr(self, name).to(device)
         return self._filters[key]
 
     def __call__(self, images: torch.Tensor, p, generator: Optional[torch.Generator] = None,
                  debug_percentile: Optional[float] = None) -> torch.Tensor:
         n, c, h, w = images.shape
         assert (h, w, c) == (self.height, self.width, self.num_channels)
-        if not self.cfg.has_geometric:
-            return images
-        g_inv = self.sample_geometric(n, p, images.device, generator, debug_percentile)
-        return self.apply_geometric(images, g_inv)
+        cfg = self.cfg
+        draws = _Draws(n, p, images.device, generator, debug_percentile)
+        x = images.to(self.compute_dtype)
+        if cfg.has_geometric:
+            x = self._geometric(x, self._sample_geometric(draws))
+        if cfg.has_color:
+            x = self._color(x, draws)
+        if cfg.imgfilter > 0:
+            x = self._imgfilter(x, draws)
+        if cfg.noise > 0:
+            x = self._noise(x, draws)
+        if cfg.cutout > 0:
+            x = self._cutout(x, draws)
+        return x.to(images.dtype)
 
     def sample_geometric(self, n: int, p, device, generator: Optional[torch.Generator] = None,
                          debug_percentile: Optional[float] = None) -> torch.Tensor:
         """Draw the blit + geometric transforms: ``G_inv [n, 3, 3]``."""
+        return self._sample_geometric(_Draws(n, p, device, generator, debug_percentile))
+
+    def _sample_geometric(self, draws: "_Draws") -> torch.Tensor:
         cfg = self.cfg
         width, height = self.width, self.height
-        p = torch.as_tensor(p, dtype=torch.float32, device=device)
-        dp = None if debug_percentile is None else torch.tensor(
-            float(debug_percentile), dtype=torch.float32, device=device)
-
-        def draw_u(*tail):
-            return torch.rand((n,) + tail, generator=generator, device=device)
-
-        def draw_n(*tail):
-            return torch.randn((n,) + tail, generator=generator, device=device)
-
-        def gate(mult, value, identity):
-            u = draw_u(*((1,) * (value.ndim - 1)))
-            return torch.where(u < mult * p, value, identity)
+        n, p, dp, device = draws.n, draws.p, draws.dp, draws.device
+        draw_u, draw_n, gate = draws.uniform, draws.normal, draws.gate
 
         g_inv = _eye3(n, device)
         if cfg.xflip > 0:
@@ -383,10 +445,13 @@ class AugmentPipe:
         return g_inv[:, :2, :], out_h, out_w
 
     def apply_geometric(self, images: torch.Tensor, g_inv: torch.Tensor) -> torch.Tensor:
+        """The geometric section alone, in ``compute_dtype``, returned in
+        the images' dtype."""
+        return self._geometric(images.to(self.compute_dtype), g_inv).to(images.dtype)
+
+    def _geometric(self, x: torch.Tensor, g_inv: torch.Tensor) -> torch.Tensor:
         """Reflect-pad, warp at 2x (upsample + affine bilinear, fused or
         not), and FIR-downsample back to the input size."""
-        in_dtype = images.dtype
-        x = images.to(self.compute_dtype)
         mx0, mx1, my0, my1 = self.margin
         hz_pad = len(self.hz_geom_taps) // 4
         x = _reflect_pad(x, my0, my1, mx0, mx1)
@@ -395,8 +460,139 @@ class AugmentPipe:
         if self.impl == "fused":
             x = up_affine_warp(x, theta, self.hz_geom_taps, out_h, out_w)
         else:
-            x = upsample2d(x, self._filter(x.device), up=2, taps=taps)
+            x = upsample2d(x, self._on("hz_geom", x.device), up=2, taps=taps)
             x = affine_warp(x, theta, out_h, out_w)
-        x = downsample2d(x, self._filter(x.device), down=2, padding=-hz_pad * 2,
-                         flip_filter=True, taps=taps)
-        return x.to(in_dtype)
+        return downsample2d(x, self._on("hz_geom", x.device), down=2, padding=-hz_pad * 2,
+                            flip_filter=True, taps=taps)
+
+    def _color(self, x: torch.Tensor, draws: "_Draws") -> torch.Tensor:
+        """Brightness, contrast, luma flip, hue and saturation as one 4×4
+        transform a sample; 1 and 2 channels take its collapsed scalar
+        gain and offset (hue and saturation need 3 channels)."""
+        cfg = self.cfg
+        n, dp, device = draws.n, draws.dp, draws.device
+        channels = self.num_channels
+        erfinv = torch.special.erfinv
+        eye4 = torch.eye(4, device=device)
+        C = _eye4(n, device)
+        v = np.asarray([1, 1, 1, 0]) / np.sqrt(3)
+        vv = torch.from_numpy(np.outer(v, v).astype(np.float32)).to(device)
+        if cfg.brightness > 0:
+            b = draws.gate(cfg.brightness, draws.normal() * cfg.brightness_std,
+                           torch.zeros(n, device=device))
+            if dp is not None:
+                b = (erfinv(dp * 2 - 1) * cfg.brightness_std).expand(n)
+            C = translate3d(b, b, b) @ C
+        if cfg.contrast > 0:
+            c = draws.gate(cfg.contrast, torch.exp2(draws.normal() * cfg.contrast_std),
+                           torch.ones(n, device=device))
+            if dp is not None:
+                c = torch.exp2(erfinv(dp * 2 - 1) * cfg.contrast_std).expand(n)
+            C = scale3d(c, c, c) @ C
+        if cfg.lumaflip > 0:
+            i = draws.gate(cfg.lumaflip, torch.floor(draws.uniform(1, 1) * 2),
+                           torch.zeros((n, 1, 1), device=device))
+            if dp is not None:
+                i = torch.floor(dp * 2).expand(n, 1, 1)
+            C = (eye4 - 2 * vv * i) @ C  # Householder reflection
+        if cfg.hue > 0 and channels > 1:
+            theta = draws.gate(cfg.hue, (draws.uniform() * 2 - 1) * np.pi * cfg.hue_max,
+                               torch.zeros(n, device=device))
+            if dp is not None:
+                theta = ((dp * 2 - 1) * np.pi * cfg.hue_max).expand(n)
+            C = rotate3d(v, theta) @ C
+        if cfg.saturation > 0 and channels > 1:
+            s = draws.gate(cfg.saturation,
+                           torch.exp2(draws.normal(1, 1) * cfg.saturation_std),
+                           torch.ones((n, 1, 1), device=device))
+            if dp is not None:
+                s = torch.exp2(erfinv(dp * 2 - 1) * cfg.saturation_std).expand(n, 1, 1)
+            C = (vv + (eye4 - vv) * s) @ C
+        if channels == 3:
+            return (torch.einsum("nij,njhw->nihw", C[:, :3, :3], x.float())
+                    + C[:, :3, 3, None, None])
+        # 1 channel, or 2 independent grayscale modes: the collapsed luma
+        # transform, per channel.
+        cm = C[:, :3, :].mean(dim=1)  # [N, 4]
+        return x * cm[:, :3].sum(dim=1)[:, None, None, None] + cm[:, 3, None, None, None]
+
+    def _imgfilter(self, x: torch.Tensor, draws: "_Draws") -> torch.Tensor:
+        """Per-sample gains of the four wavelet bands, applied as a
+        separable per-sample filter over the reflect-padded images."""
+        cfg = self.cfg
+        n, p, dp, device = draws.n, draws.p, draws.dp, draws.device
+        fbank = self._on("hz_fbank", device)
+        num_bands = fbank.shape[0]
+        assert len(cfg.imgfilter_bands) == num_bands
+        expected_power = torch.tensor([10 / 13, 1 / 13, 1 / 13, 1 / 13], device=device)
+        g = torch.ones((n, num_bands), device=device)
+        for i, band_strength in enumerate(cfg.imgfilter_bands):
+            t_i = torch.exp2(draws.normal() * cfg.imgfilter_std)
+            t_i = torch.where(draws.uniform() < cfg.imgfilter * p * band_strength, t_i,
+                              torch.ones_like(t_i))
+            if dp is not None:
+                t_i = (torch.exp2(torch.special.erfinv(dp * 2 - 1) * cfg.imgfilter_std).expand(n)
+                       if band_strength > 0 else torch.ones_like(t_i))
+            t = torch.ones((n, num_bands), device=device)
+            t[:, i] = t_i
+            g = g * (t / torch.sqrt((expected_power * t.square()).sum(dim=-1, keepdim=True)))
+        hz_prime = g @ fbank  # [N, taps]
+        taps = hz_prime.shape[1]
+        pad = taps // 2
+        channels, height, width = x.shape[1:]
+        # Fold the batch into the channels: one filter a sample, sample-major.
+        w_band = hz_prime.repeat_interleave(channels, dim=0).to(x.dtype)  # [N*C, taps]
+        y = torch.nn.functional.pad(x.reshape(1, n * channels, height, width),
+                                    [pad, pad, pad, pad], mode="reflect")
+        y = conv2d_gradfix.conv2d(y, w_band[:, None, :, None], groups=n * channels)
+        y = conv2d_gradfix.conv2d(y, w_band[:, None, None, :], groups=n * channels)
+        return y.reshape(n, channels, height, width)
+
+    def _noise(self, x: torch.Tensor, draws: "_Draws") -> torch.Tensor:
+        cfg = self.cfg
+        n, dp, device = draws.n, draws.dp, draws.device
+        sigma = draws.gate(cfg.noise, draws.normal(1, 1, 1).abs() * cfg.noise_std,
+                           torch.zeros((n, 1, 1, 1), device=device))
+        if dp is not None:
+            sigma = (torch.special.erfinv(dp) * cfg.noise_std).expand(n, 1, 1, 1)
+        return x + draws.normal(*x.shape[1:]) * sigma
+
+    def _cutout(self, x: torch.Tensor, draws: "_Draws") -> torch.Tensor:
+        cfg = self.cfg
+        n, p, dp, device = draws.n, draws.p, draws.dp, draws.device
+        height, width = x.shape[2:]
+        size = torch.full((n, 2, 1, 1), cfg.cutout_size, device=device)
+        size = torch.where(draws.uniform(1, 1, 1) < cfg.cutout * p, size, torch.zeros_like(size))
+        center = draws.uniform(2, 1, 1)
+        if dp is not None:
+            size = torch.full_like(size, cfg.cutout_size)
+            center = dp.expand(n, 2, 1, 1)
+        coord_x = torch.arange(width, device=device).reshape(1, 1, -1)
+        coord_y = torch.arange(height, device=device).reshape(1, -1, 1)
+        mask_x = ((coord_x + 0.5) / width - center[:, 0]).abs() >= size[:, 0] / 2
+        mask_y = ((coord_y + 0.5) / height - center[:, 1]).abs() >= size[:, 1] / 2
+        return x * (mask_x | mask_y).to(x.dtype)[:, None]
+
+
+class _Draws:
+    """The random draws of one call: per-sample uniform and normal numbers
+    from the caller's generator, and the gate ``value where u < mult * p
+    else identity``.  ``dp`` is the ``debug_percentile`` as a tensor, or
+    None."""
+
+    def __init__(self, n: int, p, device, generator: Optional[torch.Generator],
+                 debug_percentile: Optional[float]):
+        self.n, self.device, self.generator = n, device, generator
+        self.p = torch.as_tensor(p, dtype=torch.float32, device=device)
+        self.dp = None if debug_percentile is None else torch.tensor(
+            float(debug_percentile), dtype=torch.float32, device=device)
+
+    def uniform(self, *tail) -> torch.Tensor:
+        return torch.rand((self.n,) + tail, generator=self.generator, device=self.device)
+
+    def normal(self, *tail) -> torch.Tensor:
+        return torch.randn((self.n,) + tail, generator=self.generator, device=self.device)
+
+    def gate(self, mult, value, identity):
+        u = self.uniform(*((1,) * (value.ndim - 1)))
+        return torch.where(u < mult * self.p, value, identity)

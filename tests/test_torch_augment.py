@@ -1,10 +1,12 @@
-"""The port's ADA pipe (blit + geometric) against the JAX ``AugmentPipe``.
+"""The port's ADA pipe (every section) against the JAX ``AugmentPipe``.
 
 Both pipes draw different random numbers, so they are held together
 through ``debug_percentile``, which fixes every transform.  The JAX side
 runs ``impl="gather"`` (no Pallas window, so no tail clipping) in
 float32 (``compute_dtype``), as is the port here.  Tolerance 2e-4, as
-for the upwarp op the chain contains.
+for the upwarp op the chain contains.  The noise section still draws its
+noise image under ``debug_percentile``; there both sides are handed the
+same numpy noise in place of their own normal draw of that shape.
 """
 
 import dataclasses
@@ -85,9 +87,130 @@ def test_p_zero_is_identity_up_to_the_resampling():
     np.testing.assert_allclose(np.transpose(got.numpy(), (0, 2, 3, 1)), np.asarray(want), **TOL)
 
 
-def test_unported_sections_raise():
-    with pytest.raises(NotImplementedError, match="brightness"):
-        taug.AugmentPipe(taug.medical_augment_config(brightness=1.0), RES, RES, 1)
+SECTIONS = {
+    "brightness": dict(brightness=1.0),
+    "contrast": dict(contrast=1.0),
+    "lumaflip": dict(lumaflip=1.0),
+    "hue": dict(hue=1.0),
+    "saturation": dict(saturation=1.0),
+    "color": dict(brightness=1.0, contrast=1.0, lumaflip=1.0, hue=1.0, saturation=1.0),
+    "imgfilter": dict(imgfilter=1.0),
+    "imgfilter_bands": dict(imgfilter=1.0, imgfilter_bands=(1.0, 0.0, 1.0, 0.5)),
+    "noise": dict(noise=1.0),
+    "cutout": dict(cutout=1.0),
+    # Every other section with four of the geometric ones: the JAX pipe
+    # splits its key 32 ways, and all 18 augmentations would draw 37.
+    "all": dict(xflip=1.0, xint=1.0, xint_max=0.05, scale=1.0, scale_std=0.05, xfrac=1.0,
+                xfrac_std=0.05, brightness=1.0, contrast=1.0, lumaflip=1.0, hue=1.0,
+                saturation=1.0, imgfilter=1.0, noise=1.0, cutout=1.0),
+}
+GEOMETRIC = ("xflip", "xint", "xint_max", "scale", "scale_std", "xfrac", "xfrac_std")
+BATCH = 2
+
+
+@pytest.fixture
+def same_noise(monkeypatch):
+    """Hand both pipes the same noise image: their normal draws of the
+    images' shape return one numpy table (NHWC for JAX, NCHW here)."""
+
+    def install(channels):
+        table = np.random.default_rng(7).standard_normal(
+            (BATCH, RES, RES, channels)).astype(np.float32)
+        jax_normal, torch_randn = jax.random.normal, torch.randn
+
+        def normal(key, shape=(), *args, **kwargs):
+            if tuple(shape) == table.shape:
+                return jnp.asarray(table)
+            return jax_normal(key, shape, *args, **kwargs)
+
+        def randn(size, *args, **kwargs):
+            if tuple(size) == (BATCH, channels, RES, RES):
+                return torch.from_numpy(np.ascontiguousarray(table.transpose(0, 3, 1, 2)))
+            return torch_randn(size, *args, **kwargs)
+
+        monkeypatch.setattr(jax.random, "normal", normal)
+        monkeypatch.setattr(torch, "randn", randn)
+
+    return install
+
+
+def _both(kw, channels, x, p, percentile, ct=None):
+    """Output (NHWC numpy) of the JAX pipe and of the port on ``x`` (NHWC
+    numpy), and the gradients for the cotangent ``ct`` if given."""
+    jp = jaug.AugmentPipe(jaug.AugmentConfig(**kw), RES, RES, channels, impl="gather",
+                          compute_dtype=jnp.float32)
+    tp = taug.AugmentPipe(taug.AugmentConfig(**kw), RES, RES, channels,
+                          compute_dtype=torch.float32)
+
+    def f_j(im):
+        return jp(im, jnp.float32(p), jax.random.PRNGKey(0), debug_percentile=percentile)
+
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))).requires_grad_(True)
+    got = tp(xt, p, torch.Generator().manual_seed(0), debug_percentile=percentile)
+    if ct is None:
+        want = np.asarray(f_j(jnp.asarray(x)))
+        return want, got.detach().numpy().transpose(0, 2, 3, 1), None, None
+    want, vjp = jax.vjp(f_j, jnp.asarray(x))
+    (g_want,) = vjp(jnp.asarray(ct))
+    (g_got,) = torch.autograd.grad(got, xt, torch.from_numpy(
+        np.ascontiguousarray(ct.transpose(0, 3, 1, 2))))
+    return (np.asarray(want), got.detach().numpy().transpose(0, 2, 3, 1), np.asarray(g_want),
+            g_got.numpy().transpose(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("section", [s for s in SECTIONS if s != "all"])
+def test_section_matches_jax(section, channels, same_noise):
+    same_noise(channels)
+    x = np.random.default_rng(3).standard_normal((BATCH, RES, RES, channels)).astype(np.float32)
+    want, got, _, _ = _both(SECTIONS[section], channels, x, 0.7, 0.8)
+    np.testing.assert_allclose(got, want, **TOL)
+    if section not in ("hue", "saturation") or channels == 3:
+        assert np.abs(got - x).max() > 1e-3, "the section did nothing"
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("percentile", [0.2, 0.8])
+def test_all_sections_match_jax(channels, percentile, same_noise):
+    """Every section on (see ``SECTIONS``), value and gradient."""
+    same_noise(channels)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((BATCH, RES, RES, channels)).astype(np.float32)
+    ct = rng.standard_normal(x.shape).astype(np.float32)
+    want, got, g_want, g_got = _both(SECTIONS["all"], channels, x, 0.7, percentile, ct)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(g_got, g_want, **TOL)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_closed_gates_leave_the_image(channels):
+    """At p = 0 the colour, filter, noise and cutout gates are all closed:
+    the image passes (the band gains are 1 and the bank reconstructs), as
+    in the JAX pipe; at p = 1 the output is finite and has changed."""
+    kw = {k: v for k, v in SECTIONS["all"].items() if k not in GEOMETRIC}
+    x = np.random.default_rng(5).standard_normal((BATCH, RES, RES, channels)).astype(np.float32)
+    want, got, _, _ = _both(kw, channels, x, 0.0, None)
+    np.testing.assert_allclose(got, x, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(want, x, rtol=1e-5, atol=1e-5)
+    _, got, _, _ = _both(kw, channels, x, 1.0, None)
+    assert np.isfinite(got).all() and np.abs(got - x).max() > 1e-2
+
+
+def test_filter_bank_and_wavelets_match_jax():
+    np.testing.assert_array_equal(taug.filter_bank(), jaug._filter_bank())
+    assert taug.WAVELETS == jaug.WAVELETS
+
+
+def test_noise_has_the_configured_scale():
+    """The port's own draw: at percentile 0.75 the noise added has standard
+    deviation erfinv(0.75) * noise_std."""
+    tp = taug.AugmentPipe(taug.AugmentConfig(noise=1.0, noise_std=0.3), RES, RES, 1,
+                          compute_dtype=torch.float32)
+    x = torch.zeros((8, 1, RES, RES))
+    out = tp(x, 1.0, torch.Generator().manual_seed(0), debug_percentile=0.75)
+    sigma = float(torch.special.erfinv(torch.tensor(0.75))) * 0.3
+    assert abs(float(out.std()) - sigma) < 0.05 * sigma
+    assert not torch.equal(out[0], out[1])
 
 
 @pytest.mark.parametrize("name,channels", [("medical", 1), ("bgc_geometry", 1), ("medical", 3)])

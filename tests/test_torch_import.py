@@ -35,6 +35,8 @@ FORBIDDEN = ("gantrack_tpu", "jax", "flax", "optax", "orbax", "click", "PIL", "p
     "gantrack_tpu_torch.metrics.equivariance",
     "gantrack_tpu_torch.data.native",
     "gantrack_tpu_torch.training.augment",
+    "gantrack_tpu_torch.ops.conv3x3",
+    "gantrack_tpu_torch.ops.probes",
 ])
 def test_port_imports_no_jax(module):
     env = {k: v for k, v in os.environ.items()

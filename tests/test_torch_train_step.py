@@ -96,8 +96,10 @@ def _jax_setup():
     return loss, state, stepper
 
 
-def _port_setup(jstate):
-    g, d, g_ema = tsg2.Generator(**G_KW), tsg2.Discriminator(**D_KW), tsg2.Generator(**G_KW)
+def _port_setup(jstate, conv_impl="library"):
+    g, d, g_ema = (tsg2.Generator(**G_KW, conv_impl=conv_impl),
+                   tsg2.Discriminator(**D_KW, conv_impl=conv_impl),
+                   tsg2.Generator(**G_KW, conv_impl=conv_impl))
     consts = jax.device_get(jstate.consts_g)
     emas = jax.device_get(jstate.emas_g)
     g.load_state_dict(bridge.generator_state_dict_from_jax(
@@ -191,21 +193,30 @@ def test_phase_loss_and_grads_match_jax(phase):
     _assert_grads(module, t_grads, jgrads, "G" if phase.startswith("g") else "D")
 
 
-def test_full_step_matches_jax():
-    """Adam updates of all four phases, the G-EMA, pl_mean and one ADA update."""
+@functools.lru_cache(maxsize=None)
+def _jax_full_step():
     _, jstate, jstepper = _jax_setup()
-    state, tl = _port_setup(jstate)
+    new_j, _ = jax.jit(functools.partial(jstepper._device_step, True, True))(
+        jstate, jnp.asarray(_reals()), jnp.zeros((BATCH, 0), jnp.float32))
+    return jax.device_get(new_j)
+
+
+def _run_full_step(conv_impl="library"):
+    """One +Greg+Dreg step of both sides from the same state and draws."""
+    _, jstate, _ = _jax_setup()
+    state, tl = _port_setup(jstate, conv_impl)
     _, z, pl_noise = _step_draws(jstate)
     reals = _reals()
-    new_j, _ = jax.jit(functools.partial(jstepper._device_step, True, True))(
-        jstate, jnp.asarray(reals), jnp.zeros((BATCH, 0), jnp.float32))
+    new_j = _jax_full_step()
     stepper = tstep.TrainStepper(tl, tstep.TrainStepConfig(**STEP_KW), torch.Generator())
     draws = {f"z_{k}": torch.from_numpy(v) for k, v in z.items()}
     draws["pl_noise"] = _nchw(pl_noise)
     moments = stepper.run(state, _nchw(reals), None, True, True, draws=draws)
+    return state, new_j, moments
 
+
+def _assert_step_matches_jax(state, new_j, moments):
     assert state.step == 4 and state.cur_nimg == 1000 + BATCH
-    new_j = jax.device_get(new_j)
     for module, params, emas in ((state.G, new_j.params_g, new_j.emas_g),
                                  (state.G_ema, new_j.params_g_ema, new_j.emas_g)):
         want = bridge.generator_state_dict_from_jax(
@@ -222,6 +233,42 @@ def test_full_step_matches_jax():
     assert float(state.ada_p) != 0.2  # the controller moved p
     np.testing.assert_allclose(state.ada_signs.numpy(), np.asarray(new_j.ada_signs), **TOL)
     assert "Loss/pl_penalty" in moments and "Loss/r1_penalty" in moments
+
+
+def test_full_step_matches_jax():
+    """Adam updates of all four phases, the G-EMA, pl_mean and one ADA update."""
+    _assert_step_matches_jax(*_run_full_step())
+
+
+def test_full_step_on_the_kernel_route_matches_library_and_jax():
+    """The same step with ``conv_impl="kernel"``: every dense 3×3 stride-1
+    conv of G and D, and both differentiations of it, go through
+    ``ops.conv3x3`` (its plain version here).  Parameters equal the library
+    route's to 1e-5 (an Adam step is ±lr-sized; the convs' sums run in
+    another order) and the JAX step's at the existing tolerance."""
+    from gantrack_tpu_torch.ops import conv3x3 as c3
+
+    lib_state, _, _ = _run_full_step("library")
+    c3.LIBRARY_ROUTE.clear()
+    calls = []
+    conv, wgrad = c3._conv, c3._wgrad
+    try:
+        c3._conv = lambda x, w: calls.append("conv") or conv(x, w)
+        c3._wgrad = lambda x, g: calls.append("wgrad") or wgrad(x, g)
+        state, new_j, moments = _run_full_step("kernel")
+    finally:
+        c3._conv, c3._wgrad = conv, wgrad
+    # G 4^2..16^2 conv1 and D 16^2, 8^2 conv0 and the epilogue conv, in four
+    # phases, differentiated once or twice.
+    assert calls.count("conv") > 40 and calls.count("wgrad") > 10, (len(calls),)
+    # Only the 3×3 layers take ``conv_impl``: the strided ones stay on the library.
+    assert set(c3.LIBRARY_ROUTE) == {"up=2, down=1", "up=1, down=2"}, c3.LIBRARY_ROUTE
+    _assert_step_matches_jax(state, new_j, moments)
+    for name in ("G", "D", "G_ema"):
+        lib, ker = getattr(lib_state, name).state_dict(), getattr(state, name).state_dict()
+        for key, value in ker.items():
+            np.testing.assert_allclose(value.numpy(), lib[key].numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{name}.{key}")
 
 
 # ------------------------------------------------------------------ StyleGAN3
