@@ -5,7 +5,10 @@
 Builds the CUDA kernels from ``gantrack_tpu_torch/csrc`` (one ``nvcc``
 per source, all started together), then:
 
-0. prints the card's name and power limit and the kernel build times;
+0. prints the card's name and power limit, the kernel build times and,
+   for ``conv3x3.cu``, each kernel's registers, static shared memory and
+   spills as ``ptxas`` reports them and the number of ``HGMMA``
+   instructions in the built library;
 1. holds each kernel against its plain PyTorch version at the shapes of
    the main paths, and times both, beside the kernel's bound (the larger
    of its bytes over the card's memory rate and its operations over the
@@ -24,7 +27,10 @@ per source, all started together), then:
    with gradient and gradient of gradient, K9 bitwise equal over two
    calls, and kernel, plain and library times forward and
    forward + backward (their bound reckons bf16 matrix operations at the
-   tensor cores' rate);
+   tensor cores' rate); every bf16 shape must take the ``wgmma`` kernels,
+   the general ``mma.sync`` kernels are held against the same references
+   and timed in turns with them, and the float32 shapes are also timed on
+   a cold L2;
 2. trains 32 steps of the claro recipe (batch 32, cbase 16384, 1 kimg)
    through the port's CLI on a synthetic 256² dataset, with
    ``--metrics=fid1k`` at the snapshot; checks the outcome and that every
@@ -50,8 +56,9 @@ per source, all started together), then:
 6. runs the probes through their entry point (``probes.run_probes``), and
    the claro step with ``conv_impl="kernel"`` (every dense 3×3 stride-1
    conv of G and D through K8/K9) in its four variants beside the library
-   route from the same state and seed, profiles one step of it, and takes
-   one plain step with every augment section on;
+   route from the same state and seed (every bf16 conv of it must take
+   the ``wgmma`` kernels), profiles one step of it, and takes one plain
+   step with every augment section on;
 7. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
@@ -200,7 +207,7 @@ def _kernel_counters() -> list:
     from gantrack_tpu_torch.ops import upwarp as uw
     from gantrack_tpu_torch.ops import warp as wp
 
-    return [uw.LAUNCHES, fir.LAUNCHES, wp.LAUNCHES, c3.LAUNCHES, probes.LAUNCHES]
+    return [uw.LAUNCHES, fir.LAUNCHES, wp.LAUNCHES, c3.LAUNCHES, c3.VARIANTS, probes.LAUNCHES]
 
 
 def _reset_launches() -> None:
@@ -239,15 +246,26 @@ def _read_launches(must_run, plain_route=(), library_route=None) -> dict:
     return counts
 
 
-def _median_ms(fn, reps: int = 20) -> float:
+_L2_FLUSH = []
+
+
+def _median_ms(fn, reps: int = 20, cold: bool = False) -> float:
+    """Median time of ``fn`` over ``reps`` launches (CUDA events).  The
+    launches follow each other, so what fits the 50 MB L2 stays there;
+    ``cold`` writes a 256 MB buffer before each timed launch (outside the
+    events), so that ``fn`` finds its inputs in device memory."""
     import torch
 
+    if cold and not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if cold:
+            _L2_FLUSH[0].zero_()
         a.record()
         fn()
         b.record()
@@ -255,6 +273,23 @@ def _median_ms(fn, reps: int = 20) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def _count_hgmma(library: str) -> str:
+    """How many ``HGMMA`` instructions (what ``wgmma`` compiles to) the built
+    library holds, where the toolkit has ``cuobjdump``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "no cuobjdump in the toolkit: HGMMA instructions not counted"
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True)
+    if sass.returncode != 0:
+        return f"cuobjdump failed ({sass.returncode}): HGMMA instructions not counted"
+    n = sum("HGMMA" in line for line in sass.stdout.splitlines())
+    if n == 0:
+        raise AssertionError(f"no HGMMA instruction in {library}: the wgmma kernels are not in it")
+    return f"{n} HGMMA instructions in the built library (cuobjdump -sass)"
 
 
 def check_kernels(card: str) -> dict:
@@ -763,17 +798,36 @@ def check_conv3x3(card: str) -> dict:
         flops = 2 * n * h * wd * 9 * ci * co
         print(f"phase 1 conv3x3: x [{n}, {ci}, {h}, {wd}] {step_dtype}, w [{co}, {ci}, 3, 3]; "
               f"{flops / 1e9:.1f} GFLOP a call")
+        v8, v9 = c3.conv_variant(x.shape, dtype), c3.wgrad_variant(x.shape, dtype)
+        plan = c3.wgrad_plan(x.shape, co, dtype)
+        print(f"  variants from the shape: K8 {v8}, K9 {v9} ({plan['splits']} splits, "
+              f"{plan['scratch_bytes'] / 1e6:.1f} MB of scratch)")
+        if step_dtype == "bf16" and (v8, v9) != ("wgmma", "wgmma"):
+            raise AssertionError(f"a bf16 shape of the claro step left the wgmma kernels: "
+                                 f"{c3.wgmma_reason(x.shape, dtype)}")
+        _reset(c3.VARIANTS)
         ref = c3.conv3x3_plain(x.float(), w.float())
         err8 = _max_err(c3.conv3x3(x, w), ref)
-        _check(f"K8 {step_dtype} vs plain", err8, rel * float(ref.abs().max()))
+        _check(f"K8 {step_dtype} ({v8}) vs plain", err8, rel * float(ref.abs().max()))
         ref9 = c3.wgrad3x3_plain(x.float(), g.float())
         k9 = c3.wgrad3x3(x, g)
         err9 = _max_err(k9, ref9)
-        _check(f"K9 {step_dtype} vs plain", err9, rel * float(ref9.abs().max()))
+        _check(f"K9 {step_dtype} ({v9}) vs plain", err9, rel * float(ref9.abs().max()))
         same = torch.equal(k9, c3.wgrad3x3(x, g))
         print(f"  K9 bitwise deterministic over two calls: {same}")
         if not same:
             raise AssertionError("K9 is not bitwise deterministic")
+        ran = {k: n for k, n in c3.VARIANTS.items() if n}
+        if ran != {f"conv3x3:{v8}": 1, f"wgrad3x3:{v9}": 2}:
+            raise AssertionError(f"the launches took other variants than the shape picks: {ran}")
+        if step_dtype == "bf16":
+            # The general mma.sync kernels stay reachable (they take what TMA
+            # cannot): held against the same references at the same limits.
+            _check("K8 bf16 (mma_sync, forced) vs plain",
+                   _max_err(c3._conv_launch(x, w, "mma_sync"), ref), rel * float(ref.abs().max()))
+            _check("K9 bf16 (mma_sync, forced) vs plain",
+                   _max_err(c3._wgrad_launch(x, g, "mma_sync"), ref9),
+                   rel * float(ref9.abs().max()))
         del ref, ref9, k9
         if not whole:
             del x, w, g
@@ -793,9 +847,16 @@ def check_conv3x3(card: str) -> dict:
                 _check(f"{name} through conv3x3 vs plain, {str(dt).replace('torch.', '')}",
                        _max_err(a, b), lim * float(b.float().abs().max()))
 
-        # Times: forward; K9; forward + backward (both gradients).
+        # Times: forward; K9; forward + backward (both gradients).  For the
+        # bf16 shapes the general mma.sync kernels in the same call, in
+        # turns; for the f32 shapes each also on a cold L2.
         xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        t = {
+        bf16 = step_dtype == "bf16"
+        t = {}
+        if bf16:
+            t = {"K8 mma_sync": _median_ms(lambda: c3._conv_launch(x, w, "mma_sync")),
+                 "K9 mma_sync": _median_ms(lambda: c3._wgrad_launch(x, g, "mma_sync"))}
+        t.update({
             "K8": _median_ms(lambda: c3.conv3x3(x, w)),
             "K8 plain": _median_ms(lambda: c3.conv3x3_plain(x, w)),
             "K8 library": _median_ms(lambda: F.conv2d(x, w, padding=1)),
@@ -805,7 +866,26 @@ def check_conv3x3(card: str) -> dict:
             "fwd+bwd": _median_ms(lambda: torch.autograd.grad(c3.conv3x3(xr, wr), (xr, wr), g)),
             "fwd+bwd library": _median_ms(lambda: torch.autograd.grad(
                 conv2d_gradfix.conv2d(xr, wr, padding=1), (xr, wr), g)),
-        }
+        })
+        if bf16:
+            again = {"K8": _median_ms(lambda: c3.conv3x3(x, w)),
+                     "K9": _median_ms(lambda: c3.wgrad3x3(x, g)),
+                     "K8 mma_sync": _median_ms(lambda: c3._conv_launch(x, w, "mma_sync")),
+                     "K9 mma_sync": _median_ms(lambda: c3._wgrad_launch(x, g, "mma_sync"))}
+            print("  in turns (mma_sync, wgmma, wgmma, mma_sync), ms: K8 "
+                  f"{t['K8 mma_sync']:.4f}, {t['K8']:.4f}, {again['K8']:.4f}, "
+                  f"{again['K8 mma_sync']:.4f}; K9 {t['K9 mma_sync']:.4f}, {t['K9']:.4f}, "
+                  f"{again['K9']:.4f}, {again['K9 mma_sync']:.4f}")
+        else:
+            cold = {"K8": _median_ms(lambda: c3.conv3x3(x, w), cold=True),
+                    "K8 library": _median_ms(lambda: F.conv2d(x, w, padding=1), cold=True),
+                    "K9": _median_ms(lambda: c3.wgrad3x3(x, g), cold=True),
+                    "K9 library": _median_ms(lambda: library_wgrad(x, g, w), cold=True)}
+            print("  cold L2 (256 MB written before each launch), ms: K8 "
+                  f"{cold['K8']:.4f} (warm {t['K8']:.4f}), F.conv2d {cold['K8 library']:.4f} "
+                  f"(warm {t['K8 library']:.4f}); K9 {cold['K9']:.4f} (warm {t['K9']:.4f}), "
+                  f"aten.convolution_backward (weight) {cold['K9 library']:.4f} "
+                  f"(warm {t['K9 library']:.4f})")
         _check("library F.conv2d vs plain (same function)",
                _max_err(F.conv2d(x, w, padding=1), c3.conv3x3_plain(x.float(), w.float())),
                rel * float(c3.conv3x3_plain(x.float(), w.float()).abs().max()))
@@ -813,11 +893,14 @@ def check_conv3x3(card: str) -> dict:
         b8 = _bound(_nbytes(x, w, g), flops, rate)   # x, w in; out (g's size) out
         b9 = _bound(_nbytes(x, g, w), flops, rate)
         tf = lambda ms, k=1: k * flops / ms / 1e9
+        general = lambda k: f"; the mma.sync kernel {t[k + ' mma_sync']:.4f} ms" if bf16 else ""
         print(f"  times ({step_dtype}, median of 20, CUDA events) on {card}: K8 {t['K8']:.4f} ms "
-              f"({tf(t['K8']):.1f} TFLOP/s), plain {t['K8 plain']:.4f} ms, F.conv2d "
+              f"({tf(t['K8']):.1f} TFLOP/s; {v8}{general('K8')}), "
+              f"plain {t['K8 plain']:.4f} ms, F.conv2d "
               f"{t['K8 library']:.4f} ms ({tf(t['K8 library']):.1f} TFLOP/s), bound "
               f"{b8['bound_ms']:.4f} ms ({b8['bound_by']}); K9 {t['K9']:.4f} ms "
-              f"({tf(t['K9']):.1f} TFLOP/s), plain {t['K9 plain']:.4f} ms, "
+              f"({tf(t['K9']):.1f} TFLOP/s; {v9}{general('K9')}), "
+              f"plain {t['K9 plain']:.4f} ms, "
               f"aten.convolution_backward (weight) {t['K9 library']:.4f} ms "
               f"({tf(t['K9 library']):.1f} TFLOP/s), bound {b9['bound_ms']:.4f} ms "
               f"({b9['bound_by']}); forward+backward kernels {t['fwd+bwd']:.4f} ms "
@@ -1438,9 +1521,14 @@ def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
                 raise AssertionError(f"kernel-route {label} step: non-finite {k}")
         per_variant[label] = counts
         total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        by_variant = {k: n for k, n in counts.items() if ":" in k and n}
+        if (counts["conv3x3:mma_sync"] or counts["wgrad3x3:mma_sync"]
+                or not counts["conv3x3:wgmma"] or not counts["wgrad3x3:wgmma"]):
+            raise AssertionError(f"a bf16 conv of the {label} step left the wgmma kernels: "
+                                 f"{by_variant}")
         print(f"  {label} step on the kernel route: conv3x3 {counts['conv3x3']}, wgrad3x3 "
-              f"{counts['wgrad3x3']} launches; losses finite; convs left to the library "
-              f"{dict(c3.LIBRARY_ROUTE)}")
+              f"{counts['wgrad3x3']} launches, by variant {by_variant}; losses finite; convs left "
+              f"to the library {dict(c3.LIBRARY_ROUTE)}")
     for label in ("+Greg", "+Dreg", "+Greg+Dreg"):
         for k in ("conv3x3", "wgrad3x3"):
             if per_variant[label][k] <= per_variant["plain"][k]:
@@ -1499,6 +1587,11 @@ def main() -> int:
                        for line in info["log"].splitlines() if "registers" in line})
         print(f"build {source}: {info['seconds']:.1f} s with nvcc (sm_90a); registers {regs}")
     print(f"build: {time.perf_counter() - t0:.1f} s wall, all sources in parallel")
+    conv_build = _nvcc.BUILD_INFO["conv3x3.cu"]
+    for name, r in _nvcc.kernel_resources(conv_build["log"]).items():
+        print(f"  conv3x3.cu {name}: {r['registers']} registers, {r['smem']} bytes of static shared "
+              f"memory, spills {r['spill_stores']} / {r['spill_loads']} bytes (stores / loads)")
+    print(f"  conv3x3.cu: {_count_hgmma(conv_build['path'])}")
 
     kernels = check_kernels(card)
     kernels.update(check_fir(card))

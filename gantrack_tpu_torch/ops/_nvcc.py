@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 _SOURCE_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# Per source: {"seconds": build time or 0.0 when cached, "log": nvcc output}.
+# Per source: {"seconds": build time or 0.0 when cached, "log": nvcc output,
+# "path": the shared library}.
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -76,6 +78,7 @@ def load_library(source: str) -> ctypes.CDLL:
                 if os.path.exists(tmp):
                     os.remove(tmp)
             info = {"seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
+        info["path"] = so_path
         BUILD_INFO[source] = info
         _LIBS[source] = ctypes.CDLL(so_path)
         return _LIBS[source]
@@ -88,6 +91,37 @@ def build_all() -> Dict[str, dict]:
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(load_library, sources))
     return {s: BUILD_INFO[s] for s in sources}
+
+
+def kernel_resources(log: str) -> Dict[str, dict]:
+    """What ``-Xptxas=-v`` printed for each kernel of a build log: {kernel:
+    {"registers", "smem" (static bytes), "spill_stores", "spill_loads"}}.
+    A kernel is named by the identifier of its mangled name that ends in
+    ``_kernel``, with its integer template arguments."""
+    out: Dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            # Itanium names are length-prefixed: the identifier that ends in _kernel.
+            ids = [mangled[d.end():d.end() + int(d.group())] for d in re.finditer(r"\d+", mangled)]
+            base = next((i for i in ids if i.endswith("_kernel")), mangled)
+            ints = re.findall(r"Li(\d+)E", mangled)
+            name = base + (f"<{', '.join(ints)}>" if ints else "")
+            out[name] = {"registers": None, "smem": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def check_planes(t: torch.Tensor, name: str) -> None:

@@ -231,3 +231,138 @@ def test_conv_impl_is_checked():
     with pytest.raises(ValueError, match="conv_impl"):
         conv2d_resample(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 3, 3), padding=1,
                         conv_impl="cudnn")
+
+
+# --- which kernel a shape gets, K9's split and the packed weights: functions
+# of the static shape that run without the card.
+
+# The dense 3x3 stride-1 convs of the full-width 256^2 training step at batch
+# 32: (N, Ci, Co, H) and the step's dtype there.
+CLARO_CONVS = [
+    (32, 64, 64, 256, torch.bfloat16), (32, 128, 128, 128, torch.bfloat16),
+    (32, 256, 256, 64, torch.bfloat16), (32, 512, 512, 32, torch.bfloat16),
+    (64, 64, 64, 256, torch.bfloat16), (16, 512, 512, 32, torch.bfloat16),
+    (32, 512, 512, 16, torch.float32), (32, 512, 512, 8, torch.float32),
+    (32, 512, 512, 4, torch.float32), (64, 513, 512, 4, torch.float32),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,dtype", CLARO_CONVS)
+def test_claro_shapes_take_the_redesigned_kernels(n, ci, co, h, dtype):
+    x_shape = (n, ci, h, h)
+    if dtype == torch.bfloat16:
+        assert c3.wgmma_reason(x_shape, dtype) is None
+        assert c3.conv_variant(x_shape, dtype) == "wgmma"
+        assert c3.wgrad_variant(x_shape, dtype) == "wgmma"
+    else:
+        assert "float32" in c3.wgmma_reason(x_shape, dtype)
+        assert c3.conv_variant(x_shape, dtype) == ("f32_flat" if h * h <= 64 else "f32_tiled")
+        assert c3.wgrad_variant(x_shape, dtype) == "f32"
+
+
+@pytest.mark.parametrize("x_shape,dtype,conv,wgrad,why", [
+    ((3, 40, 19, 37), torch.float32, "f32_tiled", "f32", "float32"),      # the ragged case
+    ((3, 40, 19, 37), torch.bfloat16, "mma_sync", "mma_sync", "W=37"),
+    ((2, 513, 4, 4), torch.bfloat16, "mma_sync", "mma_sync", "W=4"),
+    ((1, 16, 5, 130), torch.bfloat16, "mma_sync", "mma_sync", "W=130"),
+    ((2, 40, 24, 40), torch.bfloat16, "wgmma", "wgmma", None),           # ragged, but W % 8 == 0
+    ((1, 513, 7, 8), torch.bfloat16, "wgmma", "wgmma", None),
+    ((3, 40, 5, 8), torch.float32, "f32_flat", "f32", "float32"),
+    ((3, 40, 9, 8), torch.float32, "f32_tiled", "f32", "float32"),        # 72 pixels: over 64
+])
+def test_variant_is_chosen_from_the_static_shape(x_shape, dtype, conv, wgrad, why):
+    assert c3.conv_variant(x_shape, dtype) == conv
+    assert c3.wgrad_variant(x_shape, dtype) == wgrad
+    reason = c3.wgmma_reason(x_shape, dtype)
+    if why is None:
+        assert reason is None
+    else:
+        assert why in reason
+        if dtype == torch.bfloat16:
+            assert "multiple of 8" in reason and "16 bytes" in reason
+    # every shape of the contract has a kernel: nothing is refused
+    assert c3.supported(x_shape, (8, x_shape[1], 3, 3), dtype)
+
+
+@pytest.mark.parametrize("n,ci,co,h,dtype", CLARO_CONVS)
+def test_wgrad_plan_is_shape_only_and_small(n, ci, co, h, dtype):
+    x_shape = (n, ci, h, h)
+    plan = c3.wgrad_plan(x_shape, co, dtype)
+    assert plan == c3.wgrad_plan(x_shape, co, dtype)           # no device, no state
+    assert plan["variant"] == c3.wgrad_variant(x_shape, dtype)
+    assert 1 <= plan["splits"] <= plan["units"]
+    assert plan["scratch_bytes"] == plan["slices"] * 9 * co * ci * 4
+    if dtype == torch.bfloat16:
+        # One block an SM: at most 132 blocks of 128 x 32 x 9 float32 sums,
+        # 19.5 MB (the general kernels' 1024 blocks need 75.5 MB).
+        blocks = plan["splits"] * plan["blocks_per_split"]
+        assert 66 < blocks <= 132
+        assert plan["slices"] == plan["splits"] * (2 if co <= 64 else 1)
+        assert plan["scratch_bytes"] <= 132 * 128 * 32 * 9 * 4
+        general = c3.wgrad_plan(x_shape, co, dtype, "mma_sync")
+        assert general["scratch_bytes"] >= 3.8 * plan["scratch_bytes"]
+        assert general["variant"] == "mma_sync" and general["slices"] == general["splits"]
+
+
+def test_wgrad_plan_geometry():
+    # 64-pixel box rows above W = 32, two rows a tile; 32-pixel rows, four a tile, below.
+    assert c3.wgrad_plan((2, 32, 7, 40), 128, torch.bfloat16)["units"] == 2 * 4 * 1
+    assert c3.wgrad_plan((2, 32, 7, 32), 128, torch.bfloat16)["units"] == 2 * 2 * 1
+    assert c3.wgrad_plan((2, 32, 7, 136), 128, torch.bfloat16)["units"] == 2 * 4 * 3
+    # blocks a split: 128 (64 where Co <= 64) output channels x 32 input channels
+    assert c3.wgrad_plan((2, 70, 8, 8), 130, torch.bfloat16)["blocks_per_split"] == 2 * 3
+    assert c3.wgrad_plan((2, 70, 8, 8), 64, torch.bfloat16)["blocks_per_split"] == 1 * 3
+    # never more splits than tiles, never fewer than one
+    tiny = c3.wgrad_plan((1, 8, 4, 8), 8, torch.bfloat16)
+    assert (tiny["units"], tiny["splits"], tiny["slices"]) == (1, 1, 2)
+    huge = c3.wgrad_plan((1, 4096, 8, 8), 4096, torch.bfloat16)
+    assert huge["splits"] == 1 and huge["blocks_per_split"] == 32 * 128
+    # the float32 kernel: 8 x 8 tiles of one image, 64 x 32 channels and all taps a block
+    f32 = c3.wgrad_plan((3, 40, 19, 37), 72, torch.float32)
+    assert f32["units"] == 3 * 3 * 5 and f32["blocks_per_split"] == 2 * 2
+    assert f32["images_per_tile"] == 0
+    # ... or whole small images a tile: 64 pixel slots, 192 window slots
+    for h, w, images in [(4, 4, 4), (8, 8, 1), (5, 8, 1), (3, 3, 7), (1, 1, 21), (2, 30, 1), (2, 32, 1),
+                         (3, 30, 0), (8, 16, 0), (1, 128, 0)]:
+        assert c3.wgrad_images_per_tile(h, w) == images, (h, w)
+    small = c3.wgrad_plan((33, 512, 4, 4), 512, torch.float32)
+    assert (small["images_per_tile"], small["units"], small["splits"]) == (4, 9, 2)
+    assert small["scratch_bytes"] == 2 * 9 * 512 * 512 * 4
+    with pytest.raises(ValueError, match="variant"):
+        c3.wgrad_plan((1, 8, 8, 8), 8, torch.float32, "tf32")
+
+
+@pytest.mark.parametrize("co,ci", [(64, 64), (72, 40), (512, 513), (8, 3), (128, 16)])
+def test_wgmma_weight_packing(co, ci):
+    rng = np.random.default_rng(co * 1000 + ci)
+    w = torch.from_numpy(rng.standard_normal((co, ci, 3, 3)).astype(np.float32))
+    q = c3.pack_weights(w, "wgmma")
+    cot = 128 if co > 64 else 64
+    slabs, tiles = -(-ci // 16), -(-co // cot)
+    assert tuple(q.shape) == (slabs, tiles, 9, 2, cot, 8) and q.is_contiguous()
+    # element [slab, tile, tap, half, c, e] is w[tile*cot + c, slab*16 + half*8 + e, tap]
+    back = q.permute(1, 4, 0, 3, 5, 2).reshape(tiles * cot, slabs * 16, 3, 3)
+    assert torch.equal(back[:co, :ci], w)
+    assert float(back[co:].abs().sum()) == 0.0 and float(back[:, ci:].abs().sum()) == 0.0
+    # one (slab, tile) block is what one bulk copy brings: 9 x 2 x cot x 8 values
+    assert q[0, 0].numel() * 2 == 9 * 2 * cot * 16
+
+
+@pytest.mark.parametrize("variant,perm", [("mma_sync", (2, 3, 0, 1)), ("f32_tiled", (2, 3, 1, 0)),
+                                          ("f32_flat", (2, 3, 1, 0))])
+def test_general_weight_packing(variant, perm):
+    w = torch.arange(5 * 7 * 9, dtype=torch.float32).reshape(5, 7, 3, 3)
+    q = c3.pack_weights(w, variant)
+    assert q.is_contiguous() and torch.equal(q, w.permute(*perm))
+    with pytest.raises(ValueError, match="variant"):
+        c3.pack_weights(w, "nhwc")
+
+
+def test_variant_counters_move_only_with_launches():
+    assert set(c3.VARIANTS) == {"conv3x3:wgmma", "conv3x3:mma_sync", "conv3x3:f32_tiled",
+                                "conv3x3:f32_flat", "wgrad3x3:wgmma", "wgrad3x3:mma_sync",
+                                "wgrad3x3:f32"}
+    before, launches = dict(c3.VARIANTS), dict(c3.LAUNCHES)
+    x, w = torch.zeros(1, 8, 8, 8), torch.zeros(4, 8, 3, 3)
+    c3.wgrad3x3(x, c3.conv3x3(x, w))        # CPU tensors: the plain versions
+    assert c3.VARIANTS == before and c3.LAUNCHES == launches

@@ -6,6 +6,10 @@ so it runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_conv3x3_cuda.py
 
+The bfloat16 shapes whose width is a multiple of 8 run the wgmma kernels
+(TMA-fed), the others the general mma.sync kernels; float32 images of at
+most 64 pixels run the kernel that packs whole images into a block.
+
 Tolerances: float32 1e-5 of the largest reference value (the kernels run
 full float32 FMA and sum in another order than cuDNN/cuBLAS with TF32
 off); bfloat16 1e-2 of it against the float32 plain version on the same
@@ -40,6 +44,23 @@ SHAPES = [
     (2, 513, 24, 4, 4),
     (1, 16, 8, 5, 130),
 ] + STEP_4X4
+
+
+# Edges of the redesigned kernels' tiles.  bfloat16 (wgmma): H, W no multiple
+# of the pixel tile but W % 8 == 0; Ci, Co no multiple of their tiles; N = 1;
+# both box widths (64 pixels above W = 32, 32 below) and both channel tiles
+# (128, 64 where Co <= 64); more pixel tiles than K9's splits.
+WGMMA_EDGES = [
+    (1, 16, 64, 4, 64), (2, 40, 72, 24, 40), (1, 513, 512, 7, 8), (1, 16, 128, 8, 32),
+    (3, 64, 64, 19, 16), (1, 8, 8, 1, 8), (2, 24, 200, 13, 72), (5, 33, 65, 9, 136),
+    (40, 32, 64, 12, 24), (1, 16, 130, 8, 16),
+]
+# float32, whole small images a block: 4x4, 5x8, 3x3, 8x8, 1x1; N no multiple
+# of the images a block holds; Co no multiple of 4 (scalar weight copies).
+FLAT_EDGES = [
+    (33, 24, 40, 4, 4), (3, 40, 72, 5, 8), (5, 7, 9, 3, 3), (3, 20, 33, 8, 8), (70, 5, 6, 1, 1),
+    (9, 513, 34, 2, 7),
+]
 
 
 @pytest.fixture
@@ -81,6 +102,92 @@ def test_conv_and_wgrad_match_plain_on_card(cuda_device, shape, dtype, rel):
     _close(out, c3.conv3x3_plain(x.float(), w.float()), rel)
     _close(dw, c3.wgrad3x3_plain(x.float(), g.float()), rel)
     assert torch.equal(dw, c3.wgrad3x3(x, g)), "K9 is not bitwise deterministic"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGMMA_EDGES)
+def test_wgmma_kernels_at_tile_edges_on_card(cuda_device, shape):
+    x, w, g = _case(cuda_device, shape, torch.bfloat16, seed=3)
+    assert c3.conv_variant(x.shape, x.dtype) == c3.wgrad_variant(x.shape, x.dtype) == "wgmma"
+    before = dict(c3.VARIANTS)
+    out, dw = c3.conv3x3(x, w), c3.wgrad3x3(x, g)
+    torch.cuda.synchronize()
+    assert c3.VARIANTS["conv3x3:wgmma"] == before["conv3x3:wgmma"] + 1
+    assert c3.VARIANTS["wgrad3x3:wgmma"] == before["wgrad3x3:wgmma"] + 1
+    ref, ref9 = c3.conv3x3_plain(x.float(), w.float()), c3.wgrad3x3_plain(x.float(), g.float())
+    _close(out, ref, 1e-2)
+    _close(dw, ref9, 1e-2)
+    assert torch.equal(dw, c3.wgrad3x3(x, g)), "K9 (wgmma) is not bitwise deterministic"
+    # The general kernels take the same shape and agree within the same limits.
+    old, old9 = c3._conv_launch(x, w, "mma_sync"), c3._wgrad_launch(x, g, "mma_sync")
+    assert c3.VARIANTS["conv3x3:mma_sync"] == before["conv3x3:mma_sync"] + 1
+    _close(old, ref, 1e-2)
+    _close(old9, ref9, 1e-2)
+    _close(out, old.float(), 1e-2)
+    _close(dw, old9.float(), 1e-2)
+    assert torch.equal(old9, c3._wgrad_launch(x, g, "mma_sync")), "K9 (mma_sync) not deterministic"
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_take_unaligned_views_on_card(cuda_device):
+    """A contiguous view whose first element is not 16-byte aligned: the
+    wrapper hands TMA an aligned copy."""
+    x, w, g = _case(cuda_device, (3, 16, 64, 8, 16), torch.bfloat16, seed=4)
+    flat = torch.zeros(x.numel() + 3, dtype=x.dtype, device=x.device)
+    flat[3:] = x.flatten()
+    xv = flat[3:].view(x.shape)
+    assert xv.data_ptr() % 16 != 0 and xv.is_contiguous()
+    assert torch.equal(c3.conv3x3(xv, w), c3.conv3x3(x, w))
+    assert torch.equal(c3.wgrad3x3(xv, g), c3.wgrad3x3(x, g))
+
+
+@pytest.mark.cuda
+def test_forcing_a_variant_the_shape_does_not_allow_raises_on_card(cuda_device):
+    x, w, g = _case(cuda_device, (1, 16, 16, 5, 9), torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        c3._conv_launch(x, w, "wgmma")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        c3._wgrad_launch(x, g, "wgmma")
+    with pytest.raises(ValueError, match="variant"):
+        c3._conv_launch(x.float(), w.float(), "mma_sync")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLAT_EDGES)
+def test_small_image_packing_on_card(cuda_device, shape):
+    x, w, g = _case(cuda_device, shape, torch.float32, seed=5)
+    assert c3.conv_variant(x.shape, x.dtype) == "f32_flat"
+    before = c3.VARIANTS["conv3x3:f32_flat"]
+    out = c3.conv3x3(x, w)
+    torch.cuda.synchronize()
+    assert c3.VARIANTS["conv3x3:f32_flat"] == before + 1
+    _close(out, c3.conv3x3_plain(x, w), 1e-5)
+    dw = c3.wgrad3x3(x, g)
+    _close(dw, c3.wgrad3x3_plain(x, g), 1e-5)
+    assert torch.equal(dw, c3.wgrad3x3(x, g)), "K9 (f32) is not bitwise deterministic"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 64, 16, 64), (1, 24, 136, 9, 24), (2, 64, 64, 8, 8)])
+def test_grad_of_grad_through_the_wgmma_kernels_on_card(cuda_device, shape):
+    """The R1 form in bfloat16: every conv of both backward passes is a
+    wgmma launch; against autograd of the plain version, which rounds at the
+    same places and sums in another order (3e-2)."""
+    x, w, _ = _case(cuda_device, shape, torch.bfloat16, seed=6)
+
+    def r1(conv):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(torch.tanh(conv(xs, ws).float()).sum(), xs, create_graph=True)
+        gw, ggx = torch.autograd.grad(gx.float().square().sum(), (ws, xs))
+        return gx.detach(), gw, ggx
+
+    for k in c3.VARIANTS:
+        c3.VARIANTS[k] = 0
+    got = r1(c3.conv3x3)
+    assert c3.VARIANTS["conv3x3:wgmma"] >= 4 and c3.VARIANTS["wgrad3x3:wgmma"] >= 1, c3.VARIANTS
+    assert c3.VARIANTS["conv3x3:mma_sync"] == 0 and c3.VARIANTS["wgrad3x3:mma_sync"] == 0
+    for a, b in zip(got, r1(c3.conv3x3_plain)):
+        _close(a, b, 3e-2)
 
 
 @pytest.mark.cuda
