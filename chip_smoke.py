@@ -16,7 +16,9 @@ per source, all started together), then:
    function, that call (timed here, used nowhere in the port):
    the upwarp pair K1/K2 (64 planes of 406 × 403, out 524², transforms
    drawn from ``medical_augment_config`` at p = 1), the resample FIR
-   K5–K7 (``ops/fir.py``) at the five FIR shapes of the claro step, and
+   K5–K7 (``ops/fir.py``) at the five FIR shapes of the claro step and
+   four ×2 shapes of StyleGAN3-T (12 taps; forward alone and
+   forward + backward, one call at a time, back to back and cold), and
    the affine warp pair K3/K4 (``ops/warp.py``) at the shape of the
    unfused augment chain (64 planes of 812 × 806, out 524², bf16) and of
    the equivariance metrics (8 planes of 256², float32), each with
@@ -45,7 +47,8 @@ per source, all started together), then:
    32, 16, 8 that fits the card, with ``--metrics=eqt1k_int,eqr1k`` at the
    snapshot, then runs ``calc_metrics --cfg=stylegan3-t
    --metrics=fid1k,eqr1k`` on the checkpoint; times each phase variant,
-   profiles one step, tries the metrics' generator pass at batch 128, 64
+   profiles one step (FIR rows named by form and tap count), tries the
+   metrics' generator pass at batch 128, 64
    and 32 (the batch the CLIs pick must fit in half the card), and prints
    the ``upfirdn2d`` calls that took the plain version because no FIR
    kernel covers their form (only the ×4 up-filters may);
@@ -136,20 +139,38 @@ SG3_ARGS = [
 # The only upfirdn2d calls of StyleGAN3-T that no FIR kernel covers (the
 # reason as ``fir.fir_spec`` words it): the x4 up-filters of its layers.
 SG3_T_PLAIN_ROUTE = ("up=4, down=1",)
-# The FIR calls of the claro step (phase 1): name, [N, C, H, W], dtype of
-# the step, then the upfirdn2d arguments.  The first of each form is the
-# one the kernel report quotes.
+# The FIR calls of phase 1: name, [N, C, H, W], dtype of the step, then
+# the upfirdn2d arguments.  The first of each form is the one the kernel
+# report quotes: for K5 and K6 the claro step's, for K7 StyleGAN3-T's
+# largest x2 call, where K7's time is (the claro image skip moves 2 MB, so
+# its time is the wrapper's host work).
 FIR_SHAPES = [
     ("G up-conv post-filter (same)", (32, 64, 259, 259), "bf16",
      dict(filter="f4", padding=0, gain=4)),
     ("D down-conv pre-filter (same, pads 2)", (32, 64, 256, 256), "bf16",
      dict(filter="f4", padding=2)),
     ("D skip (down2)", (32, 64, 256, 256), "bf16", dict(filter="f4", down=2, padding=1)),
-    ("G image skip upsample2d (up2)", (32, 1, 128, 128), "f32",
-     dict(filter="f4", up=2, padding=[2, 1, 2, 1], gain=4)),
     ("augment crop-downsample (down2, 12 taps)", (64, 1, 524, 524), "bf16",
      dict(filter="sym6", down=2, padding=-1, flip_filter=True)),
+] + [
+    # StyleGAN3-T's ×2 up-filters at batch 16 (filtered_lrelu of its
+    # layers): 12 taps, gain 4, the pads of the up-rate grid.
+    (f"StyleGAN3-T {label} (up2, 12 taps)", shape, dtype,
+     dict(filter="sg3", up=2, padding=[p0, p1, p0, p1], gain=4))
+    for label, shape, dtype, (p0, p1) in (
+        ("278² -> 562²", (16, 128, 278, 278), "bf16", (9, 8)),
+        ("278² -> 522² (cropping pads)", (16, 128, 278, 278), "bf16", (-11, -12)),
+        ("86² -> 178²", (16, 512, 86, 86), "bf16", (9, 8)),
+        ("38² -> 82²", (16, 512, 38, 38), "f32", (9, 8)))
+] + [
+    ("G image skip upsample2d (up2)", (32, 1, 128, 128), "f32",
+     dict(filter="f4", up=2, padding=[2, 1, 2, 1], gain=4)),
 ]
+# Grid sizes of the x2 kernel (blocks an SM) timed beside its own choice.
+UP2_BLOCKS_PER_SM = (4, 8, 16, 32, 64, 1024)
+# A 12-tap StyleGAN3 low-pass of the ×2 layers (Kaiser, as the generator
+# designs it: numtaps, cutoff, transition width, sampling rate).
+SG3_FILTER = (12, 32.0, 16.0, 128.0)
 
 
 def card_line() -> str:
@@ -250,10 +271,12 @@ _L2_FLUSH = []
 
 
 def _median_ms(fn, reps: int = 20, cold: bool = False) -> float:
-    """Median time of ``fn`` over ``reps`` launches (CUDA events).  The
-    launches follow each other, so what fits the 50 MB L2 stays there;
-    ``cold`` writes a 256 MB buffer before each timed launch (outside the
-    events), so that ``fn`` finds its inputs in device memory."""
+    """Median time of ``fn`` over ``reps`` launches (CUDA events), one
+    call at a time: each is synchronised, so the wrapper's host work of a
+    call is inside its time.  The launches follow each other, so what fits
+    the 50 MB L2 stays there; ``cold`` writes a 256 MB buffer before each
+    timed launch (outside the events), so that ``fn`` finds its inputs in
+    device memory."""
     import torch
 
     if cold and not _L2_FLUSH:
@@ -273,6 +296,24 @@ def _median_ms(fn, reps: int = 20, cold: bool = False) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def _b2b_ms(fn, reps: int = 20) -> float:
+    """Mean time of ``fn`` over ``reps`` calls back to back between two
+    CUDA events: the host enqueues ahead of the device, so a call's host
+    work hides behind the previous call's kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _count_hgmma(library: str) -> str:
@@ -395,20 +436,28 @@ def check_kernels(card: str) -> dict:
 
 def check_fir(card: str) -> dict:
     """Phase 1 (FIR): K5–K7 against the plain ``upfirdn2d`` at the step's
-    FIR shapes.  Returns {kernel: {max_abs_err, ms, plain_ms}} for the
-    first shape of each form."""
+    FIR shapes, and at StyleGAN3-T's ×2 shapes.  Each shape is timed
+    forward alone and forward + backward, one call at a time, back to back
+    and (forward) on a cold L2, beside its bound and the one library call
+    that computes it; at each ×2 shape K7 is also timed at the grid sizes
+    of ``UP2_BLOCKS_PER_SM``.  Returns {kernel: {max_abs_err, ms,
+    plain_ms, ...}} for the first shape of each form: the forward alone
+    (the kernel itself; its backward is the adjoint form's kernel), one
+    call at a time."""
     import importlib
 
     import torch
     import torch.nn.functional as F
 
+    from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
     from gantrack_tpu_torch.ops import fir
     from gantrack_tpu_torch.training.augment import WAVELETS
 
     ufd = importlib.import_module("gantrack_tpu_torch.ops.upfirdn2d")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    filters = {"f4": ufd.setup_filter([1, 3, 3, 1]), "sym6": ufd.setup_filter(WAVELETS["sym6"])}
+    filters = {"f4": ufd.setup_filter([1, 3, 3, 1]), "sym6": ufd.setup_filter(WAVELETS["sym6"]),
+               "sg3": torch.from_numpy(design_lowpass_filter(*SG3_FILTER))}
     report = {}
     for label, shape, step_dtype, call in FIR_SHAPES:
         kw = dict(call)
@@ -428,12 +477,14 @@ def check_fir(card: str) -> dict:
         x = torch.randn(shape, device=dev, generator=gen)
         ref = plain(x)
         got = kernel(x)
-        print(f"phase 1 FIR {label}: {list(shape)} -> {list(ref.shape)} ({name})")
+        print(f"phase 1 FIR {label}: {list(shape)} -> {list(ref.shape)} ({name}, pads "
+              f"{spec.pads})")
         err = _max_err(got, ref)
         _check(f"{name} f32 vs plain", err, 1e-5 * float(ref.abs().max()))
         xb = x.bfloat16()  # bf16 input, f32 sums: the output's rounding dominates
         refb = plain(xb.float())
         _check(f"{name} bf16 vs plain", _max_err(kernel(xb), refb), 1e-2 * float(refb.abs().max()))
+        del refb
         # Adjointness <K x, g> = <x, K^T g> through the adjoint kernel.
         g = torch.randn(ref.shape, device=dev, generator=gen)
         n, c, h, w = shape
@@ -453,63 +504,111 @@ def check_fir(card: str) -> dict:
         (gk, ggk), (gp, ggp) = r1_like(kernel), r1_like(plain)
         _check(f"{name} grad vs plain", _max_err(gk, gp), 1e-5 * float(gp.abs().max()))
         _check(f"{name} grad-of-grad vs plain", _max_err(ggk, ggp), 1e-5 * float(ggp.abs().max()))
-        # Forward + backward at the step's dtype, median of 20.
-        xt = (xb if step_dtype == "bf16" else x).requires_grad_(True)
-        gt = g.to(xt.dtype)
-        t_k = _median_ms(lambda: torch.autograd.grad(kernel(xt), xt, gt))
-        t_p = _median_ms(lambda: torch.autograd.grad(plain(xt), xt, gt))
-        # Bound of forward + backward: x and the output once each way;
-        # a separable pass of ky then kx taps per output (half of them for
-        # the polyphase up2), 2 flops a tap, both ways.
-        ky, kx = len(spec.taps_y), len(spec.taps_x)
-        taps_per_out = (ky + kx) / (2 if spec.form == "up2" else 1)
-        bound = _bound(2 * _nbytes(xt, gt), 2 * gt.numel() * 2 * taps_per_out)
-        # The one PyTorch call: a depthwise conv with the 2-D filter
-        # (stride 1 or 2), or the depthwise transposed conv (stride 2).
-        t_l = None
-        pads = _parse_library_pads(kw.get("padding", 0))
-        if pads is not None:
-            lib32 = _fir_library_call(spec.form, f_host, kw.get("gain", 1), pads, c, dev,
-                                      torch.float32)
+        del gk, ggk, gp, ggp, x2, w2
+        # The one PyTorch call: a depthwise conv (stride 1 or 2, after a view
+        # that crops), or the depthwise transposed conv (stride 2).
+        lib32 = _fir_library_call(spec, c, dev, torch.float32)
+        if lib32 is not None:
             _check(f"{name} library call vs plain (f32, same function)",
                    _max_err(lib32(x), ref), 1e-5 * float(ref.abs().max()))
-            lib = _fir_library_call(spec.form, f_host, kw.get("gain", 1), pads, c, dev, xt.dtype)
-            t_l = _median_ms(lambda: torch.autograd.grad(lib(xt), xt, gt))
-        print(f"  {name} forward+backward ({step_dtype}, median of 20, CUDA events) on {card}: "
-              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}), library call "
-              + (f"{t_l:.4f} ms" if t_l is not None else "none (negative padding)"))
+        # Times at the step's dtype, median of 20 (or of 5: ``slow``).
+        xs = xb if step_dtype == "bf16" else x
+        xt = xs.clone().requires_grad_(True)
+        gt = g.to(xt.dtype)
+        del ref, got, ktg, lib32
+        lib = _fir_library_call(spec, c, dev, xt.dtype)
+        # The plain version and the library's depthwise transposed conv take
+        # 10-100 ms a call at StyleGAN3's shapes: 5 of those, 20 of the rest.
+        slow = 5 if gt.numel() >= 5e7 else 20
+        t = {"fwd": _median_ms(lambda: kernel(xs)), "fwd b2b": _b2b_ms(lambda: kernel(xs)),
+             "fwd cold": _median_ms(lambda: kernel(xs), cold=True),
+             "fb": _median_ms(lambda: torch.autograd.grad(kernel(xt), xt, gt)),
+             "fb b2b": _b2b_ms(lambda: torch.autograd.grad(kernel(xt), xt, gt)),
+             "fwd plain": _median_ms(lambda: plain(xs), slow),
+             "fb plain": _median_ms(lambda: torch.autograd.grad(plain(xt), xt, gt), slow)}
+        if lib is not None:
+            t.update({"lib fwd": _median_ms(lambda: lib(xs), slow),
+                      "lib fwd b2b": _b2b_ms(lambda: lib(xs), slow),
+                      "lib fwd cold": _median_ms(lambda: lib(xs), slow, cold=True),
+                      "lib fb": _median_ms(lambda: torch.autograd.grad(lib(xt), xt, gt), slow),
+                      "lib fb b2b": _b2b_ms(lambda: torch.autograd.grad(lib(xt), xt, gt), slow)})
+        # Bound of the forward: x and the output once; a separable pass of
+        # ky then kx taps per output (half of them for the polyphase up2),
+        # 2 flops a tap.  Forward + backward: twice that.
+        ky, kx = len(spec.taps_y), len(spec.taps_x)
+        taps_per_out = (ky + kx) / (2 if spec.form == "up2" else 1)
+        bound_f = _bound(_nbytes(xt, gt), gt.numel() * 2 * taps_per_out)
+        bound = _bound(2 * _nbytes(xt, gt), 2 * gt.numel() * 2 * taps_per_out)
+
+        def three(prefix):
+            if f"{prefix}fwd" not in t:
+                return "none (no single call)"
+            return (f"{t[prefix + 'fwd']:.4f} / {t[prefix + 'fwd b2b']:.4f} / "
+                    f"{t[prefix + 'fwd cold']:.4f}")
+
+        fb_lib = (f"{t['lib fb']:.4f} / {t['lib fb b2b']:.4f}" if lib is not None
+                  else "none (no single call)")
+        print(f"  {name} {step_dtype} on {card}, ms (one call at a time / back to back / cold L2): "
+              f"forward kernel {three('')}, library {three('lib ')}, bound "
+              f"{bound_f['bound_ms']:.4f} ({bound_f['bound_by']}); forward+backward (one call at "
+              f"a time / back to back) kernel {t['fb']:.4f} / {t['fb b2b']:.4f}, library {fb_lib}, "
+              f"plain {t['fb plain']:.4f}, bound {bound['bound_ms']:.4f} ({bound['bound_by']}); "
+              f"forward plain {t['fwd plain']:.4f}")
+        if spec.form == "up2":
+            planes = xs.reshape(n * c, h, w)
+            grid = {bps: _b2b_ms(lambda: fir.fir_planes(planes, spec, blocks_per_sm=bps))
+                    for bps in UP2_BLOCKS_PER_SM}
+            print(f"  {name} grid on {card}: forward ms back to back by blocks an SM "
+                  + ", ".join(f"{bps}: {ms:.4f}" for bps, ms in grid.items())
+                  + f"; fastest {min(grid, key=grid.get)}; the kernel's own choice "
+                  f"{_b2b_ms(lambda: fir.fir_planes(planes, spec)):.4f}")
+            del planes
         if name not in report:
             # Kernel, plain version and library call all run at the step's dtype.
-            report[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p, **bound,
-                            "library_ms": t_l, "dtype": step_dtype,
+            t_l = t.get("lib fwd")
+            report[name] = {"max_abs_err": err, "ms": t["fwd"], "plain_ms": t["fwd plain"],
+                            **bound_f, "library_ms": t_l, "dtype": step_dtype,
                             "library_dtype": step_dtype if t_l is not None else None,
-                            "ms_at_library_dtype": t_k if t_l is not None else None}
-        del x, xb, ref, refb, got, g, ktg
-    torch.cuda.empty_cache()
+                            "ms_at_library_dtype": t["fwd"] if t_l is not None else None}
+        del x, xb, xs, xt, g, gt, lib
+        torch.cuda.empty_cache()
     return report
 
 
-def _parse_library_pads(padding):
-    """(pad_y, pad_x) if ``padding`` is what one conv call can take: the
-    same non-negative pad on both sides of an axis ([2, 1, 2, 1], the
-    up2 case, is what a transposed conv's padding 1 gives)."""
-    if isinstance(padding, int):
-        return (padding, padding) if padding >= 0 else None
-    return (1, 1) if list(padding) == [2, 1, 2, 1] else None
-
-
-def _fir_library_call(form: str, f_host, gain: float, pads, channels: int, dev, dtype):
-    """One ``torch.nn.functional`` call that computes the FIR form."""
+def _fir_library_call(spec, channels: int, dev, dtype):
+    """One ``torch.nn.functional`` call that computes the FIR of ``spec``
+    on ``[N, channels, H, W]``, or None where no one call does: for same
+    and down2 the depthwise ``F.conv2d`` (stride 1 or 2) where each axis
+    has equal pads or pads ≤ 0 (a view crops those first); for up2 the
+    depthwise ``F.conv_transpose2d(stride=2, padding=q)`` with
+    q = k − 1 − p0 ≥ 0 and p1 = p0 − 1 (p1 = p0 through
+    ``output_padding``)."""
     import torch
     import torch.nn.functional as F
 
-    f2d = f_host if f_host.ndim == 2 else torch.outer(f_host, f_host)
-    w = (f2d * gain).flip([0, 1]).to(dev, dtype)[None, None].repeat(channels, 1, 1, 1)
-    if form == "up2":
-        return lambda x: F.conv_transpose2d(x, w, stride=2, padding=pads, groups=channels)
-    stride = 2 if form == "down2" else 1
-    return lambda x: F.conv2d(x, w, stride=stride, padding=pads, groups=channels)
+    ty = torch.tensor(spec.taps_y, dtype=torch.float64)
+    tx = torch.tensor(spec.taps_x, dtype=torch.float64)
+    w2 = torch.outer(ty, tx)  # correlation taps, gain folded in
+    py0, py1, px0, px1 = spec.pads
+    ky, kx = len(ty), len(tx)
+    if spec.form == "up2":
+        q, extra = (ky - 1 - py0, kx - 1 - px0), (py1 - py0 + 1, px1 - px0 + 1)
+        if min(q) < 0 or not set(extra) <= {0, 1}:
+            return None
+        w = w2.flip([0, 1]).to(dev, dtype)[None, None].repeat(channels, 1, 1, 1)
+        return lambda x: F.conv_transpose2d(x, w, stride=2, padding=q, output_padding=extra,
+                                            groups=channels)
+    w = w2.to(dev, dtype)[None, None].repeat(channels, 1, 1, 1)
+    stride = 2 if spec.form == "down2" else 1
+    if py0 == py1 >= 0 and px0 == px1 >= 0:
+        return lambda x: F.conv2d(x, w, stride=stride, padding=(py0, px0), groups=channels)
+    if max(spec.pads) <= 0:
+        def crop_conv(x):
+            h, wd = x.shape[2:]
+            return F.conv2d(x[:, :, -py0:h + py1, -px0:wd + px1], w, stride=stride,
+                            groups=channels)
+        return crop_conv
+    return None
 
 
 def check_warp(card: str) -> dict:
@@ -616,6 +715,8 @@ def check_warp(card: str) -> dict:
         # and the library's sampler alone, its grid built outside the timing.
         t_k3_f32 = _median_ms(lambda: wp.warp_planes(x, coeffs, oh, ow))
         t_k4_f32 = _median_ms(lambda: wp.splat_planes(g, coeffs, h, w))
+        b2b_k4 = _b2b_ms(lambda: wp.splat_planes(g, coeffs, h, w))
+        b2b_l4 = _b2b_ms(lambda: torch.autograd.grad(out_l, xl, g, retain_graph=True))
         grid = F.affine_grid(theta.float(), (n, 1, oh, ow), align_corners=False)
         t_l3_sampler = _median_ms(lambda: F.grid_sample(
             x[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=False))
@@ -630,7 +731,8 @@ def check_warp(card: str) -> dict:
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) for each")
         print(f"  on the same f32 planes: K3 {t_k3_f32:.4f} ms against the library call "
               f"{t_l3:.4f} ms (F.grid_sample alone, grid given: {t_l3_sampler:.4f} ms); K4 "
-              f"{t_k4_f32:.4f} ms against its backward {t_l4:.4f} ms")
+              f"{t_k4_f32:.4f} ms against its backward {t_l4:.4f} ms (back to back: K4 "
+              f"{b2b_k4:.4f} ms, backward {b2b_l4:.4f} ms)")
         if not report:
             report = {
                 "warp": {"max_abs_err": err_k3, "ms": t_k3, "plain_ms": t_p3, **bound,
@@ -1227,12 +1329,33 @@ def _probe_metric_batch(cli, g_ema, card: str, res: int, sizes=(128, 64, 32)) ->
     torch.cuda.empty_cache()
 
 
-def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str) -> None:
-    """One profiled step: device time by kernel name, and the share of
-    the depthwise-convolution kernels, which only the plain FIR route
-    runs (its zero-stuffing and padding copies are elementwise kernels
-    and not counted, so the share is a lower bound), of all hand-written
-    kernels, and of the conv3x3 pair K8/K9 among them."""
+_FIR_FORMS = ("same (K5)", "down2 (K6)", "up2 (K7)")
+
+
+def kernel_label(name: str) -> str:
+    """A profiler row named by what it computes where it is a FIR kernel
+    (``fir_kernel<T, form, taps>``: form 0 same, 1 down2, 2 up2; the ×2
+    polyphase ``fir_up_kernel<T, factor, taps>``; taps 0 is the generic
+    tap loop), else the kernel's own name."""
+    import re
+
+    m = re.search(r"\b(fir_kernel|fir_up_kernel)<([\w:]+), (\d+), (\d+)>", name)
+    if not m:
+        return name
+    kind, dtype, form, taps = m.groups()
+    dtype = {"__nv_bfloat16": "bf16", "float": "f32"}.get(dtype, dtype)
+    what = _FIR_FORMS[int(form)] if kind == "fir_kernel" else f"up{form} (K7)"
+    return f"FIR {what}, {taps if taps != '0' else 'any'} taps, {dtype} [{kind}]"
+
+
+def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str) -> dict:
+    """One profiled step: device time by kernel (FIR rows named by form
+    and tap count: ``kernel_label``), and the share of the
+    depthwise-convolution kernels, which only the plain FIR route runs
+    (its zero-stuffing and padding copies are elementwise kernels and not
+    counted, so the share is a lower bound), of all hand-written kernels,
+    of the conv3x3 pair K8/K9 among them and of each FIR form.  Returns
+    {"total_ms", "rows": {label: ms}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1242,23 +1365,28 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
     rows = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows[ev.name] = rows.get(ev.name, 0.0) + ev.device_time / 1e3
+            key = kernel_label(ev.name)
+            rows[key] = rows.get(key, 0.0) + ev.device_time / 1e3
     total = sum(rows.values())
     if total <= 0:
         print(f"  profile of one {label} step: the profiler saw no device time")
-        return
+        return {"total_ms": 0.0, "rows": {}}
     conv = sum(t for k, t in rows.items() if "conv3x3_" in k or "wgrad3x3_" in k
                or "wgrad_reduce_kernel" in k)
-    hand = conv + sum(t for k, t in rows.items() if "gantrack" in k or "fir_kernel" in k
+    hand = conv + sum(t for k, t in rows.items() if "gantrack" in k or k.startswith("FIR ")
                       or "warp_kernel" in k or "splat" in k)
     depthwise = sum(t for k, t in rows.items() if "depthwise" in k.lower())
+    forms = {form: sum(t for k, t in rows.items() if k.startswith(f"FIR {form}"))
+             for form in ("same", "down2", "up2")}
     print(f"  profile of one {label} step on {card}: {total:.1f} ms of device time in "
           f"{len(rows)} kernels; depthwise-conv kernels (the plain FIR route) {depthwise:.1f} ms "
           f"({100 * depthwise / total:.1f} %); hand-written kernels {hand:.1f} ms "
           f"({100 * hand / total:.1f} %), of which conv3x3/wgrad3x3 {conv:.1f} ms "
-          f"({100 * conv / total:.1f} %)")
-    for name, t in sorted(rows.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {t:8.2f} ms {100 * t / total:5.1f} %  {name[:90]}")
+          f"({100 * conv / total:.1f} %); FIR by form: "
+          + ", ".join(f"{k} {t:.2f} ms ({100 * t / total:.1f} %)" for k, t in forms.items()))
+    for name, t in sorted(rows.items(), key=lambda kv: -kv[1])[:14]:
+        print(f"    {t:8.2f} ms {100 * t / total:5.1f} %  {name[:100]}")
+    return {"total_ms": total, "rows": rows}
 
 
 def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 256):

@@ -20,15 +20,14 @@
 // input pixel about once (neighbouring threads share cache lines) and
 // writes each output once; four loads, ~20 flops a pixel.  K4 is written
 // as a gather, so it needs no atomics, no zero-filled f32 canvas, and is
-// bitwise deterministic: one thread per INPUT pixel v finds, through the
-// inverse affine map, the bounding box of the output pixels whose source
-// position lies within one pixel of v and sums their tent-weighted
-// cotangents in f32 in a fixed order, then stores once in the cotangent's
-// type.  For a unit-scale transform the box holds ~25 candidates of which
-// ~4 hit.  A singular 2x2 matrix (det == 0, or an inverse that is not
-// finite) has no bounded footprint: the thread then scans the whole
-// output plane, which is slow and still exact.  Non-finite coefficients
-// give zeros in both kernels.
+// bitwise deterministic: each input pixel v sums, in a fixed order, the
+// tent-weighted cotangents of the output pixels whose source position
+// lies within one pixel of it, and stores once in the cotangent's type;
+// it visits only the candidates that the inverse map and the two strips
+// leave, about as many as hit.  A singular 2x2 matrix (det == 0, or an
+// inverse that is not finite) has no bounded footprint: the thread then
+// scans the whole output plane, which is slow and still exact.
+// Non-finite coefficients give zeros in both kernels.
 //
 // Coordinates: the source position of output pixel (ox, oy) is
 // fx = (ax*ox + bx*oy) + cx (fy likewise), rounded operation by operation
@@ -117,60 +116,146 @@ __global__ void warp_kernel(const T* __restrict__ img, const float* __restrict__
   }
 }
 
-// K4: one thread per input pixel v; gathers the tent-weighted cotangents
-// of the output pixels whose source position lies within one pixel of v.
-// The tent weights (1 - |fx - vx|)(1 - |fy - vy|) are K3's bilinear
-// weights.
+// K4: the tent-weighted cotangents of the output pixels whose source
+// position lies within one pixel of input pixel v, summed.  The tent
+// weights (1 - |fx - vx|)(1 - |fy - vy|) are K3's bilinear weights.
+//
+// The hits of v are the output pixels o inside the parallelogram
+// |fx(o) - vx| < 1, |fy(o) - vy| < 1.  A thread takes kSplatPix input
+// pixels of a column (a block a tile of kSplatTX x kSplatTY * kSplatPix)
+// and inverts the plane's map once for them.  For each pixel it visits
+// only the rows of the parallelogram's extent (from the inverse map) and,
+// on each row, only the interval of ox that the two strips give (both are
+// linear in ox); each candidate is then tested exactly on its source
+// position, computed with K3's rounding.  The bounds carry a relative
+// slack that covers the float rounding of the positions and of the bounds
+// themselves (``tests/test_torch_warp.py`` holds a float32 model of them
+// to every hit of random maps, near-singular ones included); an axis whose
+// slope in ox is under 1/64 gives no interval.  So a pixel visits about
+// as many candidates as it has hits, not the whole bounding box of its
+// preimage.  Candidates are visited in ascending oy, then ascending ox,
+// and the hits summed in f32 in that fixed order: no atomics, bitwise
+// deterministic.
+constexpr int kSplatTX = 32, kSplatTY = 8, kSplatPix = 4;
+constexpr float kMinSlope = 1.f / 64.f;
+constexpr float kSlack = 1e-5f;  // relative rounding slack of the bounds
+
+// One axis of the strip |a*ox + b*oy + c - v| < 1 on row oy: its centre
+// k0 + k1*oy with k0 = (v - c)*r, r = 1/a, and half-width h in ox, slack
+// included; r = 0 when |a| is under kMinSlope (no bound).  ``n_in`` is the
+// input extent of the axis.
+struct Strip {
+  float r, k1, h;
+};
+
+__device__ __forceinline__ Strip strip_axis(float a, float b, float c, int OH, int OW, int n_in) {
+  if (!(fabsf(a) >= kMinSlope)) return {0.f, 0.f, 0.f};
+  const float r = 1.f / a, k1 = -b * r;
+  const float pos = fabsf(a) * OW + fabsf(b) * OH + fabsf(c) + (float)n_in + 2.f;
+  const float centre = ((float)n_in + fabsf(c)) * fabsf(r) + fabsf(k1) * OH + 1.f;
+  return {r, k1, (1.f + kSlack * pos) * fabsf(r) + kSlack * centre};
+}
+
 template <typename T>
-__global__ void splat_kernel(const T* __restrict__ g, const float* __restrict__ coeffs,
-                             T* __restrict__ out, int P, int H, int W, int OH, int OW) {
-  const int vx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int vy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (vx >= W || vy >= H) return;
-  const float fvx = (float)vx, fvy = (float)vy;
+__global__ void __launch_bounds__(kSplatTX * kSplatTY)
+splat_kernel(const T* __restrict__ g, const float* __restrict__ coeffs, T* __restrict__ out,
+             int P, int H, int W, int OH, int OW) {
+  const int vx = blockIdx.x * kSplatTX + threadIdx.x;
+  const int vy0 = blockIdx.y * kSplatTY * kSplatPix + threadIdx.y;  // rows vy0 + kSplatTY * k
+  if (vx >= W || vy0 >= H) return;
+  const float fvx = (float)vx;
   for (int p = blockIdx.z; p < P; p += gridDim.z) {
     const Coef c = load_coef(coeffs, p);
-    float acc = 0.f;
-    if (coef_finite(c)) {  // non-finite coefficients: K3 wrote zeros, so the adjoint is zero
-      int ox_lo = 0, ox_hi = OW - 1, oy_lo = 0, oy_hi = OH - 1;
-      const float det = c.ax * c.by - c.bx * c.ay;
-      const float ia = c.by / det, ib = -c.bx / det, ic = -c.ay / det, id = c.ax / det;
-      if (det != 0.f && isfinite(ia) && isfinite(ib) && isfinite(ic) && isfinite(id)) {
-        // Bounding box of the preimage of the square v + (-1, 1)^2, widened
-        // by one pixel to absorb the rounding of the inverse map.
+    const T* gp = g + (size_t)p * OH * OW;
+    float acc[kSplatPix];
+#pragma unroll
+    for (int k = 0; k < kSplatPix; ++k) acc[k] = 0.f;
+    const float det = c.ax * c.by - c.bx * c.ay;
+    const float ia = c.by / det, ib = -c.bx / det, ic = -c.ay / det, id = c.ax / det;
+    if (!coef_finite(c)) {
+      // Non-finite coefficients: K3 wrote zeros, so the adjoint is zero.
+    } else if (!(det != 0.f && isfinite(ia) && isfinite(ib) && isfinite(ic) && isfinite(id))) {
+      // A singular map has no bounded footprint: scan the plane (slow, exact).
+#pragma unroll
+      for (int k = 0; k < kSplatPix; ++k) {
+        const int vy = vy0 + kSplatTY * k;
+        if (vy >= H) continue;
+        const float fvy = (float)vy;
+        for (int oy = 0; oy < OH; ++oy) {
+          const float foy = (float)oy;
+          for (int ox = 0; ox < OW; ++ox) {
+            const float fox = (float)ox;
+            const float dx = fabsf(src_pos(c.ax, c.bx, c.cx, fox, foy) - fvx);
+            if (!(dx < 1.f)) continue;
+            const float dy = fabsf(src_pos(c.ay, c.by, c.cy, fox, foy) - fvy);
+            if (!(dy < 1.f)) continue;
+            acc[k] += (1.f - dx) * (1.f - dy) * load(gp + (size_t)oy * OW + ox);
+          }
+        }
+      }
+    } else {
+      const Strip sx = strip_axis(c.ax, c.bx, c.cx, OH, OW, W);
+      const Strip sy = strip_axis(c.ay, c.by, c.cy, OH, OW, H);
+      const float kx0 = (fvx - c.cx) * sx.r;
+      // Slack of the parallelogram's extent in output pixels: the rounding
+      // of the corners through the inverse and of the positions.
+      const float mag = kSlack * ((float)(W + H) + fabsf(c.cx) + fabsf(c.cy) +
+                                  (fabsf(c.ax) + fabsf(c.ay)) * OW +
+                                  (fabsf(c.bx) + fabsf(c.by)) * OH + 2.f);
+      const float ex = (fabsf(ia) + fabsf(ib)) * mag, ey = (fabsf(ic) + fabsf(id)) * mag;
+      const float xhi = (float)OW + 1.f, yhi = (float)OH + 1.f;
+#pragma unroll
+      for (int k = 0; k < kSplatPix; ++k) {
+        const int vy = vy0 + kSplatTY * k;
+        if (vy >= H) continue;
+        const float fvy = (float)vy;
         float xmin = INFINITY, xmax = -INFINITY, ymin = INFINITY, ymax = -INFINITY;
 #pragma unroll
-        for (int sy = -1; sy <= 1; sy += 2) {
+        for (int sy_ = -1; sy_ <= 1; sy_ += 2) {
 #pragma unroll
-          for (int sx = -1; sx <= 1; sx += 2) {
-            const float px = fvx + sx - c.cx, py = fvy + sy - c.cy;
+          for (int sx_ = -1; sx_ <= 1; sx_ += 2) {
+            const float px = fvx + sx_ - c.cx, py = fvy + sy_ - c.cy;
             const float qx = ia * px + ib * py, qy = ic * px + id * py;
             xmin = fminf(xmin, qx); xmax = fmaxf(xmax, qx);
             ymin = fminf(ymin, qy); ymax = fmaxf(ymax, qy);
           }
         }
-        // Clamped to the plane (and a little beyond) before the casts, so
-        // a far-away preimage gives an empty range, not an overflow.
-        const float xhi = (float)OW + 1.f, yhi = (float)OH + 1.f;
-        ox_lo = max(ox_lo, (int)floorf(fminf(fmaxf(xmin, -2.f), xhi)) - 1);
-        ox_hi = min(ox_hi, (int)ceilf(fminf(fmaxf(xmax, -2.f), xhi)) + 1);
-        oy_lo = max(oy_lo, (int)floorf(fminf(fmaxf(ymin, -2.f), yhi)) - 1);
-        oy_hi = min(oy_hi, (int)ceilf(fminf(fmaxf(ymax, -2.f), yhi)) + 1);
-      }
-      const T* gp = g + (size_t)p * OH * OW;
-      for (int oy = oy_lo; oy <= oy_hi; ++oy) {
-        const float foy = (float)oy;
-        for (int ox = ox_lo; ox <= ox_hi; ++ox) {
-          const float fox = (float)ox;
-          const float dx = fabsf(src_pos(c.ax, c.bx, c.cx, fox, foy) - fvx);
-          if (!(dx < 1.f)) continue;
-          const float dy = fabsf(src_pos(c.ay, c.by, c.cy, fox, foy) - fvy);
-          if (!(dy < 1.f)) continue;
-          acc += (1.f - dx) * (1.f - dy) * load(gp + (size_t)oy * OW + ox);
+        // Clamped to the plane (and a little beyond) before the casts, so a
+        // far-away preimage gives an empty range, not an overflow.
+        const int c0 = max(0, (int)ceilf(fminf(fmaxf(xmin - ex, -2.f), xhi)));
+        const int c1 = min(OW - 1, (int)floorf(fminf(fmaxf(xmax + ex, -2.f), xhi)));
+        const int r0 = max(0, (int)ceilf(fminf(fmaxf(ymin - ey, -2.f), yhi)));
+        const int r1 = min(OH - 1, (int)floorf(fminf(fmaxf(ymax + ey, -2.f), yhi)));
+        const float ky0 = (fvy - c.cy) * sy.r;
+        for (int oy = r0; oy <= r1; ++oy) {
+          const float foy = (float)oy;
+          float lo = (float)c0, hi = (float)c1;
+          if (sx.r != 0.f) {
+            const float m = fmaf(sx.k1, foy, kx0);
+            lo = fmaxf(lo, m - sx.h); hi = fminf(hi, m + sx.h);
+          }
+          if (sy.r != 0.f) {
+            const float m = fmaf(sy.k1, foy, ky0);
+            lo = fmaxf(lo, m - sy.h); hi = fminf(hi, m + sy.h);
+          }
+          if (!(lo <= hi)) continue;
+          const T* grow = gp + (size_t)oy * OW;
+          for (int ox = (int)ceilf(lo); ox <= (int)floorf(hi); ++ox) {
+            const float fox = (float)ox;
+            const float dx = fabsf(src_pos(c.ax, c.bx, c.cx, fox, foy) - fvx);
+            if (!(dx < 1.f)) continue;
+            const float dy = fabsf(src_pos(c.ay, c.by, c.cy, fox, foy) - fvy);
+            if (!(dy < 1.f)) continue;
+            acc[k] += (1.f - dx) * (1.f - dy) * load(grow + ox);
+          }
         }
       }
     }
-    store(out + ((size_t)p * H + vy) * W + vx, acc);
+#pragma unroll
+    for (int k = 0; k < kSplatPix; ++k) {
+      const int vy = vy0 + kSplatTY * k;
+      if (vy < H) store(out + ((size_t)p * H + vy) * W + vx, acc[k]);
+    }
   }
 }
 
@@ -205,15 +290,15 @@ extern "C" int gantrack_warp(const void* img, const float* coeffs, void* out, in
 // K4: g [P, OH, OW] -> out [P, H, W].
 extern "C" int gantrack_splat(const void* g, const float* coeffs, void* out, int P, int H,
                               int W, int OH, int OW, int is_bf16, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid = grid_for(W, H, P, block);
+  const dim3 block(kSplatTX, kSplatTY);
+  const dim3 grid = grid_for(W, H, P, dim3(kSplatTX, kSplatTY * kSplatPix));
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     splat_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
         (const __nv_bfloat16*)g, coeffs, (__nv_bfloat16*)out, P, H, W, OH, OW);
   } else {
-    splat_kernel<float><<<grid, block, 0, s>>>((const float*)g, coeffs, (float*)out, P, H, W,
-                                               OH, OW);
+    splat_kernel<float><<<grid, block, 0, s>>>((const float*)g, coeffs, (float*)out, P, H,
+                                                    W, OH, OW);
   }
   return (int)cudaGetLastError();
 }

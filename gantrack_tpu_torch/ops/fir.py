@@ -8,7 +8,9 @@ of the up-rate grid, with the ``upfirdn2d`` contract: pad or crop, run
 the taps, keep every ``down``-th sample.
 
 * :class:`Fir` is the autograd Function.  On a CUDA tensor its forward
-  launches the kernel of ``csrc/fir.cu``; on a CPU tensor it computes the
+  launches the kernel of ``csrc/fir.cu`` (same and down2: ``fir_kernel``;
+  up2: ``fir_up_kernel``, which takes the static polyphase split of
+  :func:`up2_phases`); on a CPU tensor it computes the
   plain form with :func:`.upfirdn2d.upfirdn2d_plain`.  Its backward is
   :class:`Fir` again with the adjoint spec (``_fir_bwd`` of the JAX
   module): adjoint(same) is same with reversed taps and pads
@@ -35,10 +37,12 @@ from ._nvcc import check_planes, check_rc, load_library
 from .upfirdn2d import (NOT_SEPARABLE, Taps, _parse_padding, _parse_scaling, filter_taps,
                         upfirdn2d_plain)
 
-__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "LAUNCHES", "PLAIN_ROUTE"]
+__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "up2_phases", "LAUNCHES",
+           "PLAIN_ROUTE"]
 
 FORMS = ("same", "down2", "up2")
 MAX_TAPS = 32  # kMaxTaps of csrc/fir.cu
+MAX_PHASE_TAPS = MAX_TAPS // 2  # kMaxPhaseTaps
 # Kernel launches per form; bumped only where a kernel is launched.
 LAUNCHES = {"fir_same": 0, "fir_down2": 0, "fir_up2": 0}
 # ``upfirdn2d`` calls outside the kernels' contract, which took the plain
@@ -122,14 +126,47 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
                    (py0, py1, px0, px1)), ""
 
 
+def up2_phases(taps: Tuple[float, ...], p0: int):
+    """The static polyphase split of one axis of an up2 spec: correlation
+    ``taps`` over the ×2 zero-stuffed grid with low pad ``p0``.  Returns
+    ``(taps_r, d_r)`` for the output parities r = 0, 1, such that
+
+        out[2b + r] = sum_t taps_r[t] * x[b + d_r + t]
+
+    (the taps j ≡ p0 + r (mod 2), ascending, land on input samples; the
+    others on stuffed zeros).  ``d_1 - d_0`` is 0 (p0 odd) or 1 (p0 even):
+    the kernel's two output rows 2a + e, 2a + e + 1 with e = d_1 - d_0
+    read the same input rows."""
+    phases = []
+    for r in (0, 1):
+        j0 = (p0 + r) % 2
+        phases.append((tuple(taps[j0::2]), (r + j0 - p0) // 2))
+    return tuple(phases)
+
+
 def _lib() -> ctypes.CDLL:
     lib = load_library("fir.cu")
     if not getattr(lib, "_gantrack_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gantrack_fir.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, p, p, i, p]
         lib.gantrack_fir.restype = i
+        lib.gantrack_fir_up2.argtypes = [p, p, i, i, i, i, i, p, p, i, i, p]
+        lib.gantrack_fir_up2.restype = i
         lib._gantrack_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _c_phases(taps_y: Tuple[float, ...], taps_x: Tuple[float, ...], py0: int, px0: int):
+    """``gantrack_fir_up2``'s arrays: taps [axis][parity][MAX_PHASE_TAPS]
+    and geometry [axis][n0, n1, d0, d1], y then x."""
+    taps, geom = [], []
+    for t, p0 in ((taps_y, py0), (taps_x, px0)):
+        (t0, d0), (t1, d1) = up2_phases(t, p0)
+        for tr in (t0, t1):
+            taps += list(tr) + [0.0] * (MAX_PHASE_TAPS - len(tr))
+        geom += [len(t0), len(t1), d0, d1]
+    return (ctypes.c_float * len(taps))(*taps), (ctypes.c_int * len(geom))(*geom)
 
 
 @functools.lru_cache(maxsize=256)
@@ -137,9 +174,11 @@ def _c_taps(taps: Tuple[float, ...]):
     return (ctypes.c_float * len(taps))(*taps)
 
 
-def fir_planes(x: torch.Tensor, spec: FirSpec) -> torch.Tensor:
+def fir_planes(x: torch.Tensor, spec: FirSpec, *, blocks_per_sm: int = 0) -> torch.Tensor:
     """Launch the kernel of ``spec.form``: ``[P, H, W]`` → ``[P, OH, OW]``
-    in x's dtype, summed in float32."""
+    in x's dtype, summed in float32.  ``blocks_per_sm`` sizes the ×2
+    kernel's grid (0: the kernel's own choice); only the timing of that
+    choice in ``chip_smoke.py`` sets it."""
     check_planes(x, "x")
     p, h, w = x.shape
     oh, ow = spec.out_size(h, w)
@@ -148,12 +187,18 @@ def fir_planes(x: torch.Tensor, spec: FirSpec) -> torch.Tensor:
                          f"{len(spec.taps_y)} x {len(spec.taps_x)} taps has output {oh} x {ow}")
     out = torch.empty((p, oh, ow), dtype=x.dtype, device=x.device)
     py0, _, px0, _ = spec.pads
+    is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().gantrack_fir(
-            x.data_ptr(), out.data_ptr(), p, h, w, oh, ow, FORMS.index(spec.form), py0, px0,
-            len(spec.taps_y), len(spec.taps_x), _c_taps(spec.taps_y), _c_taps(spec.taps_x),
-            int(x.dtype == torch.bfloat16), stream)
+        if spec.form == "up2":
+            rc = _lib().gantrack_fir_up2(x.data_ptr(), out.data_ptr(), p, h, w, oh, ow,
+                                         *_c_phases(spec.taps_y, spec.taps_x, py0, px0), is_bf16,
+                                         blocks_per_sm, stream)
+        else:
+            rc = _lib().gantrack_fir(
+                x.data_ptr(), out.data_ptr(), p, h, w, oh, ow, FORMS.index(spec.form), py0, px0,
+                len(spec.taps_y), len(spec.taps_x), _c_taps(spec.taps_y), _c_taps(spec.taps_x),
+                is_bf16, stream)
     check_rc(rc, f"FIR {spec.form} kernel")
     LAUNCHES[f"fir_{spec.form}"] += 1
     return out

@@ -162,3 +162,70 @@ def test_upfirdn2d_outside_the_contract_takes_plain_on_cpu(kwargs):
     assert spec is None and why
     got = ufd.upfirdn2d(x, f, **kwargs)
     torch.testing.assert_close(got, ufd.upfirdn2d_plain(x, f, **kwargs), rtol=0, atol=0)
+
+
+# 12- and 4-tap up2 specs for the static polyphase split of the ↑2 kernel:
+# even and odd low pads, the cropping pads of StyleGAN3's layers, and
+# mixed tap counts.
+_T12 = tuple(float(t) for t in np.random.default_rng(5).standard_normal(12))
+_T4 = (0.125, 0.375, 0.375, 0.125)
+UP2_SPLITS = [
+    (_T12, _T12, (9, 8, 9, 8)),          # StyleGAN3 ×2 layers, even p0
+    (_T12, _T12, (-11, -12, -11, -12)),  # the same with cropping pads, odd p0
+    (_T12, _T12[::-1], (10, 9, 3, 2)),   # odd / even p0 on the two axes
+    (_T12, _T4, (-2, 5, 1, 2)),          # negative even pad, mixed tap counts
+    (_T4, _T4, (2, 1, 2, 1)),            # upsample2d of the claro image skip
+    (_T4, _T4[::-1], (1, 2, -1, 0)),
+    (_T4, (0.2, 0.5, 0.3), (0, 0, 3, 1)),  # odd tap count: phases of 1 and 2 taps
+]
+
+
+@pytest.mark.parametrize("ty,tx,pads", UP2_SPLITS,
+                         ids=[f"{len(s[0])}x{len(s[1])}-{s[2]}" for s in UP2_SPLITS])
+def test_up2_polyphase_split_rebuilds_plain(ty, tx, pads):
+    """``up2_phases`` (what the ↑2 kernel is given per axis and output
+    parity) rebuilds ``fir_plain``'s up2 output from same-form sums over
+    the input, float64 at 1e-6."""
+    spec = fir.FirSpec("up2", ty, tx, pads)
+    h, w = 29, 31
+    x = np.random.default_rng(6).standard_normal((2, h, w))
+    oh, ow = spec.out_size(h, w)
+
+    def axis(a, taps, p0, n_out, ax):
+        """out[2b + r] = sum_t taps_r[t] * a[b + d_r + t] along ``ax``."""
+        phases = fir.up2_phases(taps, p0)
+        assert phases[1][1] - phases[0][1] in (0, 1)
+        assert sorted(len(t) for t, _ in phases) == sorted(
+            [len(taps) // 2, (len(taps) + 1) // 2])
+        a = np.moveaxis(a, ax, -1)
+        out = np.zeros(a.shape[:-1] + (n_out,))
+        for u in range(n_out):
+            t_r, d_r = phases[u % 2]
+            for t, c in enumerate(t_r):
+                m = u // 2 + d_r + t
+                if 0 <= m < a.shape[-1]:
+                    out[..., u] += c * a[..., m]
+        return np.moveaxis(out, -1, ax)
+
+    got = axis(axis(x, ty, pads[0], oh, 1), tx, pads[2], ow, 2)
+    want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("padding", [(9, 8, 9, 8), (10, 9, 3, 2)])
+def test_12_tap_up2_matches_jax_fir2d(_interpret, padding):
+    """A StyleGAN3 ×2 geometry: JAX ``fir2d`` (K7's Pallas kernel, run in
+    interpret mode) against the port's plain version and its Fir path,
+    float32 at 1e-5."""
+    from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
+
+    taps = design_lowpass_filter(12, 32.0, 16.0, 128.0).tolist()
+    x = np.random.default_rng(7).standard_normal((1, 11, 14, 4)).astype(np.float32)
+    want = np.asarray(jfir.fir2d(jnp.asarray(x), taps, taps, up=2, padding=padding, gain=4.0))
+    py0, py1, px0, px1 = padding
+    f = torch.tensor(taps, dtype=torch.float32)
+    kw = dict(up=2, padding=[px0, px1, py0, py1], gain=4.0)
+    plain = ufd.upfirdn2d_plain(_nchw(x), f, **kw)
+    via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(taps), tuple(taps)), **kw)
+    np.testing.assert_allclose(_nhwc(plain), want, **TOL)
+    np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)

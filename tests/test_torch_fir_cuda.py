@@ -16,6 +16,7 @@ import importlib
 
 import numpy as np
 import pytest
+import scipy.signal
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +28,8 @@ ufd = importlib.import_module("gantrack_tpu_torch.ops.upfirdn2d")
 F4 = ufd.setup_filter([1, 3, 3, 1])
 SYM6 = ufd.setup_filter(WAVELETS["sym6"])
 F5 = ufd.setup_filter([1, 4, 6, 4, 1])  # generic tap count (not unrolled)
+# A 12-tap StyleGAN3 low-pass (Kaiser; numtaps, cutoff, width, sampling rate).
+SG3 = ufd.setup_filter(scipy.signal.firwin(numtaps=12, cutoff=32.0, width=16.0, fs=128.0))
 
 # (filter, up, down, padding [px0, px1, py0, py1], flip, gain, shape)
 CASES = [
@@ -42,6 +45,15 @@ CASES = [
     (F4, 2, 1, [1, 2, 2, 1], False, 4.0, (1, 2, 40, 45)),
     (SYM6, 1, 2, -1, True, 1.0, (1, 2, 100, 90)),
     (F5, 1, 1, [3, -1, 0, 2], False, 1.0, (1, 2, 50, 70)),
+    # The x2 kernel at 12 taps (StyleGAN3's layers): pads (9, 8) (even p0)
+    # and (-11, -12) (odd p0, cropping), mixed parities, tiles of 64 rows x
+    # 116 columns with ragged edges, output widths whose row pitch forbids
+    # the pair store (odd OW), and odd heights.
+    (SG3, 2, 1, [9, 8, 9, 8], False, 4.0, (2, 3, 30, 41)),
+    (SG3, 2, 1, [-11, -12, -11, -12], False, 4.0, (1, 3, 47, 37)),
+    (SG3, 2, 1, [10, 10, 9, 8], True, 4.0, (1, 2, 70, 67)),    # OW 143: odd rows unaligned
+    (SG3, 2, 1, [9, 8, -12, -12], False, 4.0, (1, 2, 45, 131)),  # odd p0, 3 column tiles
+    (SG3, 2, 1, [-10, -11, 10, 11], False, 4.0, (2, 1, 38, 38)),
 ]
 
 
@@ -133,3 +145,37 @@ def test_upfirdn2d_outside_the_contract_takes_the_counted_plain_route_on_card(cu
         ufd.upfirdn2d(x, F4.to(cuda_device))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ufd.upfirdn2d(x.double(), F4, taps=ufd.filter_taps(F4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fir_up2_walks_more_planes_than_its_grid(cuda_device, dtype):
+    """The x2 kernel's grid holds about 64 blocks an SM; a block walks
+    the planes p, p + gridDim.z, ...: 12 taps on 6000 planes of 38 x 38
+    (the smallest StyleGAN3 x2 layer's size), and 70000 planes (above the
+    65535 blocks of gridDim.z) with 4 taps."""
+    for planes, hw, taps, pads in ((6000, 38, SG3, (9, 8, 9, 8)), (70000, 6, F4, (2, 1, 2, 1))):
+        t = ufd.filter_taps(taps)[0]
+        spec = fir.FirSpec("up2", t, t, pads)
+        x = torch.randn((planes, hw, hw), device=cuda_device).to(dtype)
+        ref = fir.fir_plain(x.float(), spec)
+        got = fir.fir_planes(x, spec)
+        assert got.dtype == dtype
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        assert _max_err(got, ref) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fir_up2_grid_size_leaves_the_bits_unchanged(cuda_device, dtype):
+    """The grid of the x2 kernel (``blocks_per_sm``, which chip_smoke.py
+    times) only spreads the planes over blocks: every grid size gives the
+    same bits as the kernel's own choice, and a negative one is refused."""
+    t = ufd.filter_taps(SG3)[0]
+    spec = fir.FirSpec("up2", t, t, (9, 8, 9, 8))
+    x = torch.randn((300, 45, 38), device=cuda_device).to(dtype)
+    want = fir.fir_planes(x, spec)
+    for bps in (1, 4, 64, 1024):
+        assert torch.equal(fir.fir_planes(x, spec, blocks_per_sm=bps), want)
+    with pytest.raises(RuntimeError):
+        fir.fir_planes(x, spec, blocks_per_sm=-1)

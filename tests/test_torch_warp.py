@@ -127,3 +127,95 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         wp.splat_planes(x, coeffs, 4, 4)
     assert wp.LAUNCHES == {"warp": 0, "splat": 0}
+
+
+def _splat_bounds(coef, fv, n_in, oh, ow):
+    """float32 model of the bounds ``splat_kernel`` (``csrc/warp.cu``)
+    visits for input pixel ``fv = (vx, vy)``: the rows and columns of the
+    parallelogram's extent through the inverse map, and, per row, the
+    interval of ox that the two strips give.  Returns ``(c0, c1, r0, r1)``
+    unclamped and ``row(oy) -> (lo, hi) or None``."""
+    f32, slack = np.float32, np.float32(1e-5)
+    h, w = n_in
+    ax, bx, cx, ay, by, cy = (f32(c) for c in coef)
+    vx, vy = f32(fv[0]), f32(fv[1])
+    det = ax * by - bx * ay
+    ia, ib, ic, id_ = by / det, -bx / det, -ay / det, ax / det
+    mag = slack * (f32(w + h) + abs(cx) + abs(cy) + (abs(ax) + abs(ay)) * f32(ow)
+                   + (abs(bx) + abs(by)) * f32(oh) + f32(2))
+    ex, ey = (abs(ia) + abs(ib)) * mag, (abs(ic) + abs(id_)) * mag
+    qx = [ia * (vx + f32(sx) - cx) + ib * (vy + f32(sy) - cy) for sx in (-1, 1) for sy in (-1, 1)]
+    qy = [ic * (vx + f32(sx) - cx) + id_ * (vy + f32(sy) - cy) for sx in (-1, 1) for sy in (-1, 1)]
+    box = (int(np.ceil(min(qx) - ex)), int(np.floor(max(qx) + ex)),
+           int(np.ceil(min(qy) - ey)), int(np.floor(max(qy) + ey)))
+    strips = []
+    for a, b, c, v, n in ((ax, bx, cx, vx, w), (ay, by, cy, vy, h)):
+        if not abs(a) >= f32(1 / 64):
+            continue
+        r = f32(1) / a
+        k1 = -b * r
+        pos = abs(a) * f32(ow) + abs(b) * f32(oh) + abs(c) + f32(n) + f32(2)
+        centre = (f32(n) + abs(c)) * abs(r) + abs(k1) * f32(oh) + f32(1)
+        strips.append((k1, (v - c) * r, (f32(1) + slack * pos) * abs(r) + slack * centre))
+
+    def row(oy):
+        if not strips:
+            return None
+        lo, hi = -np.inf, np.inf
+        for k1, k0, hw in strips:
+            m = f32(np.float64(k1) * oy + np.float64(k0))  # fmaf
+            lo, hi = max(lo, m - hw), min(hi, m + hw)
+        return lo, hi
+
+    return box, row
+
+
+def _thetas_family(kind, rng, n=3):
+    out = []
+    for _ in range(n):
+        a = rng.uniform(-np.pi, np.pi)
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        m = {"shrink": rot @ np.diag(rng.uniform(0.55, 0.75, 2)),
+             "rotate": rot,
+             "shear": rot @ np.array([[1.0, rng.uniform(-2, 2)], [0.0, 1.0]]),
+             "zoom": rot @ np.diag(rng.uniform(0.05, 0.2, 2)),
+             "near-singular": np.array([[1.0, 2.0], [0.5, 1.0 + rng.uniform(-1e-4, 1e-4)]]) * 0.5,
+             }[kind]
+        out.append(np.concatenate([m, rng.uniform(-0.2, 0.2, (2, 1))], 1))
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["shrink", "rotate", "shear", "zoom", "near-singular"])
+def test_splat_bounds_hold_every_hit(kind):
+    """No output pixel whose float32 source position lies within one pixel
+    of an input pixel falls outside the rows, columns and per-row interval
+    that K4 visits for that pixel."""
+    h, w, oh, ow = 37, 41, 45, 39
+    rng = np.random.default_rng(["shrink", "rotate", "shear", "zoom", "near-singular"].index(kind))
+    theta = torch.from_numpy(_thetas_family(kind, rng))
+    coeffs = warp_coefficients(theta, h, w, oh, ow).numpy()
+    oxs, oys = np.meshgrid(np.arange(ow, dtype=np.float32), np.arange(oh, dtype=np.float32))
+    hits = in_strips = 0
+    for coef in coeffs:
+        ax, bx, cx, ay, by, cy = (np.float32(c) for c in coef)
+        fx = (ax * oxs + bx * oys) + cx  # src_pos, one rounding an operation
+        fy = (ay * oxs + by * oys) + cy
+        for vy in range(0, h, 3):
+            for vx in range(0, w, 2):
+                hit = (np.abs(fx - np.float32(vx)) < 1) & (np.abs(fy - np.float32(vy)) < 1)
+                if not hit.any():
+                    continue
+                (c0, c1, r0, r1), row = _splat_bounds(coef, (vx, vy), (h, w), oh, ow)
+                rows, cols = np.nonzero(hit)
+                hits += len(rows)
+                assert r0 <= rows.min() and rows.max() <= r1, (coef, vx, vy, rows, r0, r1)
+                assert c0 <= cols.min() and cols.max() <= c1, (coef, vx, vy, cols, c0, c1)
+                for oy in np.unique(rows):
+                    iv = row(oy)
+                    if iv is None:
+                        continue
+                    in_row = cols[rows == oy]
+                    in_strips += len(in_row)
+                    assert np.ceil(iv[0]) <= in_row.min() and in_row.max() <= np.floor(iv[1]), (
+                        coef, vx, vy, oy, in_row, iv)
+    assert hits > 0 and in_strips > 0

@@ -138,3 +138,54 @@ def test_warp_autograd_to_second_order_on_card(cuda_device):
     img = torch.from_numpy(rng.standard_normal((2, 3, H, W)).astype(np.float32)).to(cuda_device)
     ref = wp.affine_warp_plain(img, warp_coefficients(theta, H, W, OUT_H, OUT_W), OUT_H, OUT_W)
     _close(wp.affine_warp(img, theta, OUT_H, OUT_W), ref)
+
+
+def _family(kind, n=3, seed=8):
+    """Transforms that shape K4's row and strip intervals: the unfused
+    augment's shrink (0.55-0.75 with a rotation), a rotation, a shear, and
+    a zoom whose preimage spans many output rows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        a = rng.uniform(-np.pi, np.pi)
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        m = {"shrink": rot @ np.diag(rng.uniform(0.55, 0.75, 2)), "rotate": rot,
+             "shear": rot @ np.array([[1.0, rng.uniform(-2, 2)], [0.0, 1.0]]),
+             "zoom": rot @ np.diag(rng.uniform(0.04, 0.08, 2))}[kind]
+        out.append(np.concatenate([m, rng.uniform(-0.1, 0.1, (2, 1))], 1))
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("shrink", (97, 83, 62, 57)),     # an input tile's box: a few hundred outputs
+    ("rotate", (64, 70, 64, 70)),
+    ("shear", (40, 90, 52, 75)),
+    ("zoom", (20, 40, 400, 420)),    # a pixel's preimage spans many output rows
+])
+def test_splat_transforms_match_plain_on_card(cuda_device, kind, shape):
+    """K4's gather against the plain adjoint (f32 at 1e-5, bf16 at
+    1e-2), adjoint to K3 (<K3 x, g> = <x, K4 g> in float64 at 1e-5), and
+    bitwise deterministic over two calls."""
+    h, w, oh, ow = shape
+    theta = torch.from_numpy(_family(kind)).to(cuda_device)
+    n = theta.shape[0]
+    coeffs = warp_coefficients(theta, h, w, oh, ow)
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(rng.standard_normal((n, oh, ow)).astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((n, h, w)).astype(np.float32)).to(cuda_device)
+
+    def plain_adjoint(gg):
+        xs = torch.zeros((n, 1, h, w), device=cuda_device, requires_grad=True)
+        return torch.autograd.grad(wp.affine_warp_plain(xs, coeffs, oh, ow)[:, 0], xs, gg)[0][:, 0]
+
+    adj = wp.splat_planes(g, coeffs, h, w)
+    torch.cuda.synchronize()
+    _close(adj, plain_adjoint(g))
+    assert torch.equal(adj, wp.splat_planes(g, coeffs, h, w))
+    adjb = wp.splat_planes(g.bfloat16(), coeffs, h, w)
+    _close(adjb.float(), plain_adjoint(g.bfloat16().float()), rel=1e-2)
+    assert torch.equal(adjb, wp.splat_planes(g.bfloat16(), coeffs, h, w))
+    lhs = float((wp.warp_planes(x, coeffs, oh, ow).double() * g.double()).sum())
+    rhs = float((x.double() * adj.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
