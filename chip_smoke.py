@@ -17,8 +17,9 @@ per source, all started together), then:
    the upwarp pair K1/K2 (64 planes of 406 × 403, out 524², transforms
    drawn from ``medical_augment_config`` at p = 1), the resample FIR
    K5–K7 (``ops/fir.py``) at the five FIR shapes of the claro step and
-   four ×2 shapes of StyleGAN3-T (12 taps; forward alone and
-   forward + backward, one call at a time, back to back and cold), and
+   four ↓2 and four ×2 shapes of StyleGAN3-T (12 taps; forward alone and
+   forward + backward, one call at a time, back to back and cold; each
+   kernel also at several grid sizes), and
    the affine warp pair K3/K4 (``ops/warp.py``) at the shape of the
    unfused augment chain (64 planes of 812 × 806, out 524², bf16) and of
    the equivariance metrics (8 planes of 256², float32), each with
@@ -141,14 +142,25 @@ SG3_ARGS = [
 SG3_T_PLAIN_ROUTE = ("up=4, down=1",)
 # The FIR calls of phase 1: name, [N, C, H, W], dtype of the step, then
 # the upfirdn2d arguments.  The first of each form is the one the kernel
-# report quotes: for K5 and K6 the claro step's, for K7 StyleGAN3-T's
-# largest x2 call, where K7's time is (the claro image skip moves 2 MB, so
-# its time is the wrapper's host work).
+# report quotes: for K5 the claro step's, for K6 and K7 StyleGAN3-T's
+# largest call, where most of their time is (the claro image skip moves
+# 2 MB, so its time is the wrapper's host work).
 FIR_SHAPES = [
     ("G up-conv post-filter (same)", (32, 64, 259, 259), "bf16",
      dict(filter="f4", padding=0, gain=4)),
     ("D down-conv pre-filter (same, pads 2)", (32, 64, 256, 256), "bf16",
      dict(filter="f4", padding=2)),
+] + [
+    # StyleGAN3-T's ↓2 down-filters at batch 16 (filtered_lrelu of its
+    # layers, on the canvas the ×2 or ×4 up-filter made): 12 taps, pads 0.
+    (f"StyleGAN3-T {label} (down2, 12 taps)", shape, dtype,
+     dict(filter="sg3", down=2, padding=0))
+    for label, shape, dtype in (
+        ("562² -> 276²", (16, 256, 562, 562), "bf16"),
+        ("522² -> 256²", (16, 128, 522, 522), "bf16"),
+        ("306² -> 148²", (16, 512, 306, 306), "bf16"),
+        ("82² -> 36²", (16, 512, 82, 82), "f32"))
+] + [
     ("D skip (down2)", (32, 64, 256, 256), "bf16", dict(filter="f4", down=2, padding=1)),
     ("augment crop-downsample (down2, 12 taps)", (64, 1, 524, 524), "bf16",
      dict(filter="sym6", down=2, padding=-1, flip_filter=True)),
@@ -166,8 +178,9 @@ FIR_SHAPES = [
     ("G image skip upsample2d (up2)", (32, 1, 128, 128), "f32",
      dict(filter="f4", up=2, padding=[2, 1, 2, 1], gain=4)),
 ]
-# Grid sizes of the x2 kernel (blocks an SM) timed beside its own choice.
-UP2_BLOCKS_PER_SM = (4, 8, 16, 32, 64, 1024)
+# Grid sizes of the FIR kernels (blocks an SM) timed beside their own
+# choice (``kBlocksPerSM``, ``kUpBlocksPerSM`` of csrc/fir.cu).
+FIR_BLOCKS_PER_SM = (2, 4, 8, 16, 32, 64, 128, 256, 1024)
 # A 12-tap StyleGAN3 low-pass of the ×2 layers (Kaiser, as the generator
 # designs it: numtaps, cutoff, transition width, sampling rate).
 SG3_FILTER = (12, 32.0, 16.0, 128.0)
@@ -436,11 +449,11 @@ def check_kernels(card: str) -> dict:
 
 def check_fir(card: str) -> dict:
     """Phase 1 (FIR): K5–K7 against the plain ``upfirdn2d`` at the step's
-    FIR shapes, and at StyleGAN3-T's ×2 shapes.  Each shape is timed
+    FIR shapes, and at StyleGAN3-T's ↓2 and ×2 shapes.  Each shape is timed
     forward alone and forward + backward, one call at a time, back to back
     and (forward) on a cold L2, beside its bound and the one library call
-    that computes it; at each ×2 shape K7 is also timed at the grid sizes
-    of ``UP2_BLOCKS_PER_SM``.  Returns {kernel: {max_abs_err, ms,
+    that computes it, and the kernel is also timed at the grid sizes of
+    ``FIR_BLOCKS_PER_SM``.  Returns {kernel: {max_abs_err, ms,
     plain_ms, ...}} for the first shape of each form: the forward alone
     (the kernel itself; its backward is the adjoint form's kernel), one
     call at a time."""
@@ -554,15 +567,14 @@ def check_fir(card: str) -> dict:
               f"a time / back to back) kernel {t['fb']:.4f} / {t['fb b2b']:.4f}, library {fb_lib}, "
               f"plain {t['fb plain']:.4f}, bound {bound['bound_ms']:.4f} ({bound['bound_by']}); "
               f"forward plain {t['fwd plain']:.4f}")
-        if spec.form == "up2":
-            planes = xs.reshape(n * c, h, w)
-            grid = {bps: _b2b_ms(lambda: fir.fir_planes(planes, spec, blocks_per_sm=bps))
-                    for bps in UP2_BLOCKS_PER_SM}
-            print(f"  {name} grid on {card}: forward ms back to back by blocks an SM "
-                  + ", ".join(f"{bps}: {ms:.4f}" for bps, ms in grid.items())
-                  + f"; fastest {min(grid, key=grid.get)}; the kernel's own choice "
-                  f"{_b2b_ms(lambda: fir.fir_planes(planes, spec)):.4f}")
-            del planes
+        planes = xs.reshape(n * c, h, w)
+        grid = {bps: _b2b_ms(lambda: fir.fir_planes(planes, spec, blocks_per_sm=bps))
+                for bps in FIR_BLOCKS_PER_SM}
+        print(f"  {name} grid on {card}: forward ms back to back by blocks an SM "
+              + ", ".join(f"{bps}: {ms:.4f}" for bps, ms in grid.items())
+              + f"; fastest {min(grid, key=grid.get)}; the kernel's own choice "
+              f"{_b2b_ms(lambda: fir.fir_planes(planes, spec)):.4f}")
+        del planes
         if name not in report:
             # Kernel, plain version and library call all run at the step's dtype.
             t_l = t.get("lib fwd")

@@ -148,7 +148,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("fir.cu")
     if not getattr(lib, "_gantrack_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gantrack_fir.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, p, p, i, p]
+        lib.gantrack_fir.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, p, p, i, i, p]
         lib.gantrack_fir.restype = i
         lib.gantrack_fir_up2.argtypes = [p, p, i, i, i, i, i, p, p, i, i, p]
         lib.gantrack_fir_up2.restype = i
@@ -176,7 +176,7 @@ def _c_taps(taps: Tuple[float, ...]):
 
 def fir_planes(x: torch.Tensor, spec: FirSpec, *, blocks_per_sm: int = 0) -> torch.Tensor:
     """Launch the kernel of ``spec.form``: ``[P, H, W]`` → ``[P, OH, OW]``
-    in x's dtype, summed in float32.  ``blocks_per_sm`` sizes the ×2
+    in x's dtype, summed in float32.  ``blocks_per_sm`` sizes the
     kernel's grid (0: the kernel's own choice); only the timing of that
     choice in ``chip_smoke.py`` sets it."""
     check_planes(x, "x")
@@ -198,7 +198,7 @@ def fir_planes(x: torch.Tensor, spec: FirSpec, *, blocks_per_sm: int = 0) -> tor
             rc = _lib().gantrack_fir(
                 x.data_ptr(), out.data_ptr(), p, h, w, oh, ow, FORMS.index(spec.form), py0, px0,
                 len(spec.taps_y), len(spec.taps_x), _c_taps(spec.taps_y), _c_taps(spec.taps_x),
-                is_bf16, stream)
+                is_bf16, blocks_per_sm, stream)
     check_rc(rc, f"FIR {spec.form} kernel")
     LAUNCHES[f"fir_{spec.form}"] += 1
     return out

@@ -12,13 +12,14 @@ batch 32 (default routes) and StyleGAN3-T at full width at batch 16
 After three warm-up steps it takes three plain steps on the host clock
 (median) and one plain step under ``torch.profiler``; the rows of the
 FIR kernels are named by form and tap count
-(``chip_smoke.kernel_label``).  Then it takes a digest of what K7 and K4
-give at StyleGAN3-T's largest ×2 call and at the unfused augment's warp,
-from seeded inputs.  With ``--ab`` each turn is a process of its own
-that imports the ``gantrack_tpu_torch`` of its tree (so each tree builds
-and launches its own kernels), and the last lines compare the turns:
-times, and whether the two trees' kernels give the same bits.  Needs a
-CUDA card; exits 2 without one.
+(``chip_smoke.kernel_label``).  Then it takes a digest of what K7, K6,
+K5 and K4 give at StyleGAN3-T's largest ×2 and ↓2 calls, the claro G
+post-filter and the unfused augment's warp, from seeded inputs.  With
+``--ab`` each turn is a process of its own that imports the
+``gantrack_tpu_torch`` of its tree (so each tree builds and launches its
+own kernels), and the last lines compare the turns: times, the FIR rows
+by form, tap count and dtype, and whether the two trees' kernels give
+the same bits.  Needs a CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -95,9 +96,12 @@ def _digest(t) -> str:
 
 def kernel_digests() -> dict:
     """sha256 of K7's output at StyleGAN3-T's largest ×2 call (bf16
-    ``[16,128,278,278]`` → 562², 12 taps, pads (9, 8)) and of K4's at the
-    unfused augment's warp (bf16 64 × 812×806 → 524², a rotation and a
-    shrink of 0.55–0.75), from inputs made on the card from fixed seeds."""
+    ``[16,128,278,278]`` → 562², 12 taps, pads (9, 8)), of K6's at its
+    largest ↓2 call (bf16 ``[16,256,562,562]`` → 276², 12 taps, pads 0),
+    of K5's at the claro G post-filter (bf16 ``[32,64,259,259]`` → 256²,
+    4 taps, gain 4) and of K4's at the unfused augment's warp (bf16 64 ×
+    812×806 → 524², a rotation and a shrink of 0.55–0.75), from inputs
+    made on the card from fixed seeds."""
     import importlib
     import math
 
@@ -127,6 +131,15 @@ def kernel_digests() -> dict:
     g = torch.randn((64, 524, 524), device=dev, generator=gen).bfloat16()
     adj = wp.splat_planes(g, warp_coefficients(theta, 812, 806, 524, 524), 812, 806)
     out["splat bf16 64 x 812x806 <- 524²"] = _digest(adj)
+    del g, adj
+    x = torch.randn((16, 256, 562, 562), device=dev, generator=gen).bfloat16()
+    y = ufd.upfirdn2d(x, f_host.to(dev), taps=ufd.filter_taps(f_host), down=2)
+    out["fir_down2 bf16 [16,256,562,562] -> 276²"] = _digest(y)
+    del x, y
+    f4 = ufd.setup_filter([1, 3, 3, 1])
+    x = torch.randn((32, 64, 259, 259), device=dev, generator=gen).bfloat16()
+    y = ufd.upfirdn2d(x, f4.to(dev), taps=ufd.filter_taps(f4), gain=4)
+    out["fir_same bf16 [32,64,259,259] -> 256²"] = _digest(y)
     return out
 
 
@@ -161,6 +174,9 @@ def run_ab(other: str) -> int:
             print(f"  {label:5s} {cfg:12s} device {row['device_ms']:9.2f}  host step "
                   f"{row['step_ms']:9.1f}  FIR up2 {row['fir_up2_ms']:8.2f}  down2 "
                   f"{row['fir_down2_ms']:8.2f}  same {row['fir_same_ms']:8.2f}")
+            print("        by form, taps and dtype: " + "; ".join(
+                f"{k[4:].split(' [')[0]} {t:.2f}" for k, t in sorted(r["rows"].items())
+                if k.startswith("FIR ")))
     same = {}
     for kernel in results[0][1]["digests"]:
         by_turn = [(label, res["digests"][kernel]) for label, res in results]

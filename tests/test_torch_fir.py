@@ -229,3 +229,117 @@ def test_12_tap_up2_matches_jax_fir2d(_interpret, padding):
     via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(taps), tuple(taps)), **kw)
     np.testing.assert_allclose(_nhwc(plain), want, **TOL)
     np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 46, 46), (1, 2, 45, 51)])
+def test_12_tap_down2_matches_jax_fir2d(_interpret, shape):
+    """A StyleGAN3 ↓2 down-filter geometry (12 taps, pads 0, gain 1) on
+    an even and an odd canvas: JAX ``fir2d`` (K6's Pallas kernel, run in
+    interpret mode) against the port's plain version and its Fir path,
+    float32 at 1e-5."""
+    from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
+
+    taps = design_lowpass_filter(12, 16.0, 13.0, 64.0).tolist()
+    n, c, h, w = shape
+    x = np.random.default_rng(8).standard_normal((n, h, w, c)).astype(np.float32)
+    want = np.asarray(jfir.fir2d(jnp.asarray(x), taps, taps, down=2))
+    assert want.shape == (n, (h - 12) // 2 + 1, (w - 12) // 2 + 1, c)
+    f = torch.tensor(taps, dtype=torch.float32)
+    plain = ufd.upfirdn2d_plain(_nchw(x), f, down=2)
+    via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(taps), tuple(taps)), down=2)
+    np.testing.assert_allclose(_nhwc(plain), want, **TOL)
+    np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)
+
+
+# The tile geometry of ``fir_kernel`` (K5, K6) in csrc/fir.cu: kCols window
+# columns (one a thread) and kRows output rows a tile, which each thread
+# walks down its column.
+K_COLS, K_ROWS = 128, 16
+
+
+def _tile_w(s, k):
+    """``tile_w``: the widest even tile whose window, s·(TW − 1) + k
+    columns, fits ``K_COLS``."""
+    return ((K_COLS - k) // s + 1) & ~1
+
+
+def _fir_kernel_model(x, spec):
+    """``fir_kernel``'s data flow in float64: per tile, the vertical sums
+    of each window column from a register window of ky + s·(kRows − 1)
+    samples (zeros outside the image) into a buffer whose unwritten
+    entries are NaN, then each lane's output pair (u, u + 1) from the
+    buffer columns 2s·q … 2s·q + s + kx − 1 (u's taps from the first,
+    u + 1's from s on).  A read of an unwritten sum shows as a NaN in the
+    output."""
+    s = 2 if spec.form == "down2" else 1
+    planes, h, w = x.shape
+    oh, ow = spec.out_size(h, w)
+    # The taps as the kernel and ``fir_plain`` hold them: float32.
+    ty, tx = (np.float32(t).astype(np.float64) for t in (spec.taps_y, spec.taps_x))
+    ky, kx = len(ty), len(tx)
+    py0, _, px0, _ = spec.pads
+    tw = _tile_w(s, kx)
+    assert tw >= 2 and tw % 2 == 0
+    if kx == ky and kx in (4, 12):  # the lane's 2s-float words stay inside the row
+        assert s * (tw - 2) + -(-(s + kx) // (2 * s)) * 2 * s <= K_COLS
+    padded = np.zeros((planes, h + 2 * 128, w + 2 * 128))
+    padded[:, 128:128 + h, 128:128 + w] = x
+    out = np.full((planes, oh, ow), np.nan)
+    for u0 in range(0, ow, tw):
+        n_out = min(tw, (ow - u0 + 1) & ~1)
+        nc = s * (n_out - 1) + kx
+        assert nc <= K_COLS
+        cols = s * u0 - px0 + np.arange(nc) + 128
+        for v0 in range(0, oh, K_ROWS):
+            vert = np.full((planes, K_ROWS, K_COLS), np.nan)
+            iy0 = s * v0 - py0 + 128
+            win = padded[:, iy0:iy0 + ky + s * (K_ROWS - 1)][:, :, cols]
+            for a in range(K_ROWS):
+                vert[:, a, :nc] = np.einsum("i,pic->pc", ty, win[:, s * a:s * a + ky])
+            rows = min(K_ROWS, oh - v0)
+            for q in range(n_out // 2):
+                u = u0 + 2 * q
+                h0 = vert[:, :rows, 2 * s * q:2 * s * q + s + kx]
+                out[:, v0:v0 + rows, u] = h0[..., :kx] @ tx
+                if u + 1 < ow:
+                    out[:, v0:v0 + rows, u + 1] = h0[..., s:s + kx] @ tx
+    return out
+
+
+_T5 = (0.1, 0.2, 0.4, 0.2, 0.1)
+KERNEL_TILINGS = [
+    # StyleGAN3's ↓2 down-filters (12 taps, pads 0): several tiles each way,
+    # an odd canvas, and a canvas smaller than one tile.
+    (fir.FirSpec("down2", _T12, _T12, (0, 0, 0, 0)), (2, 150, 260)),
+    (fir.FirSpec("down2", _T12, _T12, (0, 0, 0, 0)), (1, 83, 131)),
+    (fir.FirSpec("down2", _T12, _T12[::-1], (0, 0, 0, 0)), (2, 30, 27)),
+    # The claro shapes: the G post-filter (3 column tiles, the last ragged),
+    # the D pre-filter and skip, the augment's cropping 12-tap ↓2.
+    (fir.FirSpec("same", _T4, _T4, (0, 0, 0, 0)), (2, 67, 259)),
+    (fir.FirSpec("same", _T4, _T4[::-1], (2, 2, 2, 2)), (1, 40, 256)),
+    (fir.FirSpec("down2", _T4, _T4, (1, 1, 1, 1)), (2, 70, 130)),
+    (fir.FirSpec("down2", tuple(WAVELETS["sym6"]), tuple(WAVELETS["sym6"]), (-1, -1, -1, -1)),
+     (1, 100, 141)),
+    # Other pads and the generic tap loop (5 taps; 1 tap: a pad or crop).
+    (fir.FirSpec("same", _T12, _T12, (3, -2, -1, 4)), (1, 45, 150)),
+    (fir.FirSpec("same", _T5, _T4, (2, 2, 1, 3)), (2, 50, 101)),
+    (fir.FirSpec("down2", _T5, _T5, (2, 2, 1, 3)), (1, 77, 203)),
+    (fir.FirSpec("same", (1.0,), (1.0,), (-3, 2, 4, -1)), (1, 35, 140)),
+    (fir.FirSpec("down2", _T12 + _T12 + _T12[:8], _T12 + _T12 + _T12[:8], (5, 4, 3, 2)),
+     (1, 60, 140)),
+]
+
+
+@pytest.mark.parametrize("spec,shape", KERNEL_TILINGS,
+                         ids=[f"{s.form}-{len(s.taps_x)}-{i}" for i, (s, _) in
+                              enumerate(KERNEL_TILINGS)])
+def test_fir_kernel_tiling_model_rebuilds_plain(spec, shape):
+    """The tiles, register windows and output pairs of ``fir_kernel``
+    (the model above) cover every output exactly from written sums, and
+    rebuild ``fir_plain`` in float64 at 1e-6 (``fir_plain`` rounds the
+    outer product of two different tap lists to float32)."""
+    x = np.random.default_rng(9).standard_normal(shape)
+    got = _fir_kernel_model(x, spec)
+    want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())

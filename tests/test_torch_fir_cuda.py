@@ -41,7 +41,8 @@ CASES = [
     (F4, 1, 1, [3, 1, -1, 2], True, 1.0, (1, 4, 21, 19)),
     (F4, 2, 1, [-1, 2, 0, -2], False, 1.0, (1, 3, 13, 11)),
     (F5, 1, 2, [2, 2, 1, 3], False, 1.0, (2, 2, 24, 25)),
-    # Several 16 x 32 output tiles per plane, with ragged edges.
+    # Several output tiles per plane (K7: 64 rows; K5, K6: 16 rows), with
+    # ragged edges.
     (F4, 2, 1, [1, 2, 2, 1], False, 4.0, (1, 2, 40, 45)),
     (SYM6, 1, 2, -1, True, 1.0, (1, 2, 100, 90)),
     (F5, 1, 1, [3, -1, 0, 2], False, 1.0, (1, 2, 50, 70)),
@@ -54,6 +55,14 @@ CASES = [
     (SG3, 2, 1, [10, 10, 9, 8], True, 4.0, (1, 2, 70, 67)),    # OW 143: odd rows unaligned
     (SG3, 2, 1, [9, 8, -12, -12], False, 4.0, (1, 2, 45, 131)),  # odd p0, 3 column tiles
     (SG3, 2, 1, [-10, -11, 10, 11], False, 4.0, (2, 1, 38, 38)),
+    # The same and ↓2 kernels at 12 taps (StyleGAN3's ↓2 down-filters, pads
+    # 0): tiles of 16 rows x 58 columns, several each way with ragged edges
+    # and an odd output width (OW 125: odd rows take scalar stores); an odd
+    # canvas; a canvas smaller than one tile; and the same rate at 12 taps.
+    (SG3, 1, 2, 0, False, 1.0, (2, 3, 150, 261)),
+    (SG3, 1, 2, 0, False, 1.0, (1, 2, 83, 131)),
+    (SG3, 1, 2, 0, False, 1.0, (2, 3, 30, 27)),
+    (SG3, 1, 1, [3, -2, -1, 4], False, 1.0, (1, 2, 45, 150)),
 ]
 
 
@@ -177,5 +186,44 @@ def test_fir_up2_grid_size_leaves_the_bits_unchanged(cuda_device, dtype):
     want = fir.fir_planes(x, spec)
     for bps in (1, 4, 64, 1024):
         assert torch.equal(fir.fir_planes(x, spec, blocks_per_sm=bps), want)
+    with pytest.raises(RuntimeError):
+        fir.fir_planes(x, spec, blocks_per_sm=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fir_same_and_down2_walk_more_planes_than_their_grid(cuda_device, dtype):
+    """K5 and K6 hold about 128 blocks an SM; a block walks the planes p,
+    p + gridDim.z, ...: 12 taps ↓2 on 6000 planes of 82 x 82 (StyleGAN3's
+    smallest ↓2 canvas), 4 taps same on 4000 planes of 35 x 35, and
+    70000 planes (above the 65535 blocks of gridDim.z) of each form."""
+    t12, t4 = ufd.filter_taps(SG3)[0], ufd.filter_taps(F4)[0]
+    for planes, hw, spec in ((6000, 82, fir.FirSpec("down2", t12, t12, (0, 0, 0, 0))),
+                             (4000, 35, fir.FirSpec("same", t4, t4, (0, 0, 0, 0))),
+                             (70000, 9, fir.FirSpec("down2", t4, t4, (1, 1, 1, 1))),
+                             (70000, 7, fir.FirSpec("same", t4, t4, (2, 2, 2, 2)))):
+        x = torch.randn((planes, hw, hw), device=cuda_device).to(dtype)
+        ref = fir.fir_plain(x.float(), spec)
+        got = fir.fir_planes(x, spec)
+        assert got.dtype == dtype
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        assert _max_err(got, ref) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["same", "down2"])
+def test_fir_grid_size_leaves_the_bits_unchanged(cuda_device, form, dtype):
+    """The grid of K5 and K6 (``blocks_per_sm``, which chip_smoke.py
+    times) only spreads the planes over blocks: every grid size gives the
+    same bits as the kernel's own choice, at 12 taps and at 4, and a
+    negative one is refused."""
+    for f in (SG3, F4):
+        t = ufd.filter_taps(f)[0]
+        spec = fir.FirSpec(form, t, t, (0, 0, 0, 0))
+        x = torch.randn((300, 75, 131), device=cuda_device).to(dtype)
+        want = fir.fir_planes(x, spec)
+        for bps in (1, 4, 64, 1024):
+            assert torch.equal(fir.fir_planes(x, spec, blocks_per_sm=bps), want)
     with pytest.raises(RuntimeError):
         fir.fir_planes(x, spec, blocks_per_sm=-1)
