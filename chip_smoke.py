@@ -15,7 +15,9 @@ per source, all started together), then:
    card's float32 rate) and, where one PyTorch call computes the same
    function, that call (timed here, used nowhere in the port):
    the upwarp pair K1/K2 (64 planes of 406 × 403, out 524², transforms
-   drawn from ``medical_augment_config`` at p = 1), the resample FIR
+   drawn from ``medical_augment_config`` at p = 1; timed at 64 and 32
+   planes one call at a time, back to back and cold, with the share of
+   their blocks that read from device memory), the resample FIR
    K5–K7 (``ops/fir.py``) at the five FIR shapes of the claro step and
    four ↓2 and four ×2 shapes of StyleGAN3-T (12 taps; forward alone and
    forward + backward, one call at a time, back to back and cold; each
@@ -181,6 +183,8 @@ FIR_SHAPES = [
 # Grid sizes of the FIR kernels (blocks an SM) timed beside their own
 # choice (``kBlocksPerSM``, ``kUpBlocksPerSM`` of csrc/fir.cu).
 FIR_BLOCKS_PER_SM = (2, 4, 8, 16, 32, 64, 128, 256, 1024)
+# Plane counts of the augment's K1/K2 calls: Dmain's fake ‖ real, Gmain's.
+UPWARP_PLANES = (64, 32)
 # A 12-tap StyleGAN3 low-pass of the ×2 layers (Kaiser, as the generator
 # designs it: numtaps, cutoff, transition width, sampling rate).
 SG3_FILTER = (12, 32.0, 16.0, 128.0)
@@ -346,30 +350,71 @@ def _count_hgmma(library: str) -> str:
     return f"{n} HGMMA instructions in the built library (cuobjdump -sass)"
 
 
+def _upwarp_case(n: int, seed: int = 0):
+    """The augment's K1/K2 call on ``n`` planes: transforms drawn from
+    ``medical_augment_config`` at p = 1 on the card, their coefficients,
+    the FIR (taps and tensor) and the shapes ``(h1, w1, oh, ow)``."""
+    import torch
+
+    from gantrack_tpu_torch.ops import upwarp as uw
+    from gantrack_tpu_torch.training.augment import AugmentPipe, medical_augment_config
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pipe = AugmentPipe(medical_augment_config(), 256, 256, 1)
+    theta, oh, ow = pipe.warp_geometry(pipe.sample_geometric(n, 1.0, dev, gen))
+    mx0, mx1, my0, my1 = pipe.margin
+    h1, w1 = 256 + my0 + my1, 256 + mx0 + mx1
+    coeffs = uw.warp_coefficients(theta, 2 * h1, 2 * w1, oh, ow)
+    return coeffs, pipe.hz_geom_taps, pipe.hz_geom.to(dev), (h1, w1, oh, ow), gen
+
+
+def time_upwarp(card: str) -> dict:
+    """K1 and K2 in bf16 at the augment's shapes, 64 planes (Dmain: fake ‖
+    real) and 32 (Gmain), one call at a time, back to back and on a cold
+    L2 (``_median_ms``, ``_b2b_ms``).  It passes only the wrappers' common
+    arguments, so it times another checkout's package as well.  Returns
+    {planes: {kernel: (one call, back to back, cold)}} in ms."""
+    import torch
+
+    from gantrack_tpu_torch.ops import upwarp as uw
+
+    out = {}
+    for n in UPWARP_PLANES:
+        coeffs, taps, _, (h1, w1, oh, ow), gen = _upwarp_case(n)
+        xb = torch.randn((n, h1, w1), device="cuda", generator=gen).bfloat16()
+        gb = torch.randn((n, oh, ow), device="cuda", generator=gen).bfloat16()
+        calls = {"K1": lambda: uw.upwarp_planes(xb, coeffs, taps, oh, ow),
+                 "K2": lambda: uw.upsplat_planes(gb, coeffs, taps, h1, w1)}
+        out[n] = {name: (_median_ms(fn), _b2b_ms(fn), _median_ms(fn, cold=True))
+                  for name, fn in calls.items()}
+        print(f"  upwarp pair, bf16 {n} x {h1}x{w1} <-> {oh}x{ow}, on {card}, ms (one call at a "
+              f"time / back to back / cold L2): "
+              + "; ".join(f"{name} {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f}"
+                          for name, t in out[n].items()))
+        del xb, gb
+    return out
+
+
 def check_kernels(card: str) -> dict:
-    """Phase 1: each kernel against the plain version at the main path's
-    shapes.  Returns {kernel: {max_abs_err, ms, plain_ms}}."""
+    """Phase 1: K1/K2 against the plain version at the augment's shapes,
+    their times (``time_upwarp``) and the share of their blocks that read
+    from device memory (K1's direct gather, K2's unstaged cotangents).
+    Returns {kernel: {max_abs_err, ms, ms_b2b, plain_ms, ...}} at 64
+    planes: ``ms`` one call at a time, as for every kernel of the line,
+    ``ms_b2b`` back to back."""
     import torch
     import torch.nn.functional as F
 
     from gantrack_tpu_torch.ops import upwarp as uw
-    from gantrack_tpu_torch.training.augment import AugmentPipe, medical_augment_config
 
     # The plain versions run through cuDNN: keep it out of TF32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    pipe = AugmentPipe(medical_augment_config(), 256, 256, 1)
-    n = 64  # Dmain augments fake ‖ real: 2 × batch 32
-    g_inv = pipe.sample_geometric(n, 1.0, dev, gen)
-    theta, oh, ow = pipe.warp_geometry(g_inv)
-    mx0, mx1, my0, my1 = pipe.margin
-    h1, w1 = 256 + my0 + my1, 256 + mx0 + mx1
-    print(f"phase 1: {n} planes {h1}x{w1} -> {oh}x{ow}, margin {pipe.margin}")
-    coeffs = uw.warp_coefficients(theta, 2 * h1, 2 * w1, oh, ow)
-    taps = pipe.hz_geom_taps
-    fir = pipe.hz_geom.to(dev)
+    n = UPWARP_PLANES[0]
+    coeffs, taps, fir, (h1, w1, oh, ow), gen = _upwarp_case(n)
+    print(f"phase 1: {n} planes {h1}x{w1} -> {oh}x{ow}")
 
     def plain(x, c=coeffs):
         return uw.up_affine_warp_plain(x[:, None], c, fir, oh, ow)[:, 0]
@@ -406,6 +451,18 @@ def check_kernels(card: str) -> dict:
     print(f"  K2 bitwise deterministic over two calls: {same}")
     if not same:
         raise AssertionError("K2 is not bitwise deterministic")
+    # The blocks whose box exceeded the shared buffer at the augment's draws
+    # (p = 1): K1's direct gather, K2's cotangents read from device memory.
+    direct = torch.zeros(1, dtype=torch.int32, device=dev)
+    unstaged = torch.zeros(1, dtype=torch.int32, device=dev)
+    uw.upwarp_planes(xb, coeffs, taps, oh, ow, direct_blocks=direct)
+    uw.upsplat_planes(gb, coeffs, taps, h1, w1, global_blocks=unstaged)
+    for name, count, blocks in (("K1 blocks that took the direct gather", direct,
+                                 uw.upwarp_blocks(n, oh, ow)),
+                                ("K2 blocks that read their cotangents from device memory",
+                                 unstaged, uw.upsplat_blocks(n, h1, w1))):
+        print(f"  {name} at the augment's draws (p = 1): {int(count)} of {blocks} "
+              f"({100 * int(count) / blocks:.2f} %)")
 
     # Gradient and gradient-of-gradient through UpWarp (an R1-like
     # penalty), on 4 planes, against autograd of the plain version.
@@ -424,24 +481,26 @@ def check_kernels(card: str) -> dict:
     _check("grad through UpWarp vs plain", _max_err(gk, gp), 1e-5 * float(gp.abs().max()))
     _check("grad-of-grad through UpWarp vs plain", _max_err(ggk, ggp), 1e-5 * float(ggp.abs().max()))
 
-    # Times at the training dtype (bf16), median of 20 launches.
-    t_k1 = _median_ms(lambda: uw.upwarp_planes(xb, coeffs, taps, oh, ow))
-    t_p1 = _median_ms(lambda: plain(xb))
-    t_k2 = _median_ms(lambda: uw.upsplat_planes(gb, coeffs, taps, h1, w1))
-    t_p2 = _median_ms(lambda: plain_adjoint(gb))
+    # Times at the training dtype (bf16).
+    t = time_upwarp(card)
+    t_p1 = _median_ms(lambda: plain(xb), 5)
+    t_p2 = _median_ms(lambda: plain_adjoint(gb), 5)
     # Bound: planes and output moved once; per output pixel 2 x 7 folded
     # weights (~4 flops each) and a 7 x 7 weighted sum (2 flops a tap).  K2 is
     # the transpose: the same products.  No single PyTorch call computes
     # either (upsample + grid_sample is two), so there is no library time.
     flops = n * oh * ow * (2 * 49 + 2 * 7 * 4)
     b1 = _bound(_nbytes(xb, gb, coeffs), flops)
-    print(f"  times (bf16, median of 20, CUDA events) on {card}: "
-          f"K1 {t_k1:.4f} ms, plain {t_p1:.4f} ms; K2 {t_k2:.4f} ms, plain adjoint {t_p2:.4f} ms; "
-          f"bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}) for each")
+    print(f"  plain versions (bf16, one call at a time, median of 5) on {card}: K1 {t_p1:.4f} ms, "
+          f"K2 {t_p2:.4f} ms; bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}) for each at "
+          f"{n} planes")
     return {
-        "upwarp": {"max_abs_err": err_k1, "ms": t_k1, "plain_ms": t_p1, **b1, "library_ms": None,
-                   "dtype": "bf16", "library_dtype": None, "ms_at_library_dtype": None},
-        "upsplat": {"max_abs_err": err_k2, "ms": t_k2, "plain_ms": t_p2, **b1,
+        "upwarp": {"max_abs_err": err_k1, "ms": t[n]["K1"][0], "ms_b2b": t[n]["K1"][1],
+                   "plain_ms": t_p1, **b1,
+                   "library_ms": None, "dtype": "bf16", "library_dtype": None,
+                   "ms_at_library_dtype": None},
+        "upsplat": {"max_abs_err": err_k2, "ms": t[n]["K2"][0], "ms_b2b": t[n]["K2"][1],
+                    "plain_ms": t_p2, **b1,
                     "library_ms": None, "dtype": "bf16", "library_dtype": None,
                     "ms_at_library_dtype": None},
     }
@@ -1342,31 +1401,43 @@ def _probe_metric_batch(cli, g_ema, card: str, res: int, sizes=(128, 64, 32)) ->
 
 
 _FIR_FORMS = ("same (K5)", "down2 (K6)", "up2 (K7)")
+# The warp kernels' rows by kernel name: K2's first version ran two
+# kernels (the canvas pass, then the decimating FIR), both K2's.
+_WARP_ROWS = {"upwarp_kernel": "K1 upwarp", "upsplat_kernel": "K2 upsplat",
+              "splat2x_kernel": "K2 upsplat", "fir_down_kernel": "K2 upsplat",
+              "warp_kernel": "K3 warp", "splat_kernel": "K4 splat"}
+_HAND_ROWS = ("FIR ", "K1 ", "K2 ", "K3 ", "K4 ")
+_DTYPES = {"__nv_bfloat16": "bf16", "float": "f32"}
 
 
 def kernel_label(name: str) -> str:
     """A profiler row named by what it computes where it is a FIR kernel
     (``fir_kernel<T, form, taps>``: form 0 same, 1 down2, 2 up2; the ×2
     polyphase ``fir_up_kernel<T, factor, taps>``; taps 0 is the generic
-    tap loop), else the kernel's own name."""
+    tap loop) or a warp kernel (K1–K4), else the kernel's own name."""
     import re
 
+    m = re.search(r"\b(" + "|".join(_WARP_ROWS) + r")<([\w:]+)", name)
+    if m:
+        kind, dtype = m.groups()
+        return f"{_WARP_ROWS[kind]}, {_DTYPES.get(dtype, dtype)} [{kind}]"
     m = re.search(r"\b(fir_kernel|fir_up_kernel)<([\w:]+), (\d+), (\d+)>", name)
     if not m:
         return name
     kind, dtype, form, taps = m.groups()
-    dtype = {"__nv_bfloat16": "bf16", "float": "f32"}.get(dtype, dtype)
     what = _FIR_FORMS[int(form)] if kind == "fir_kernel" else f"up{form} (K7)"
-    return f"FIR {what}, {taps if taps != '0' else 'any'} taps, {dtype} [{kind}]"
+    taps = taps if taps != "0" else "any"
+    return f"FIR {what}, {taps} taps, {_DTYPES.get(dtype, dtype)} [{kind}]"
 
 
 def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str) -> dict:
     """One profiled step: device time by kernel (FIR rows named by form
-    and tap count: ``kernel_label``), and the share of the
-    depthwise-convolution kernels, which only the plain FIR route runs
-    (its zero-stuffing and padding copies are elementwise kernels and not
-    counted, so the share is a lower bound), of all hand-written kernels,
-    of the conv3x3 pair K8/K9 among them and of each FIR form.  Returns
+    and tap count, K1–K4 rows by kernel: ``kernel_label``), and the share
+    of the depthwise-convolution kernels, which only the plain FIR route
+    runs (its zero-stuffing and padding copies are elementwise kernels and
+    not counted, so the share is a lower bound), of all hand-written
+    kernels, of the conv3x3 pair K8/K9 among them, of each FIR form and of
+    each warp kernel K1–K4.  Returns
     {"total_ms", "rows": {label: ms}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1385,17 +1456,20 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
         return {"total_ms": 0.0, "rows": {}}
     conv = sum(t for k, t in rows.items() if "conv3x3_" in k or "wgrad3x3_" in k
                or "wgrad_reduce_kernel" in k)
-    hand = conv + sum(t for k, t in rows.items() if "gantrack" in k or k.startswith("FIR ")
-                      or "warp_kernel" in k or "splat" in k)
+    hand = conv + sum(t for k, t in rows.items() if "gantrack" in k or k.startswith(_HAND_ROWS))
     depthwise = sum(t for k, t in rows.items() if "depthwise" in k.lower())
     forms = {form: sum(t for k, t in rows.items() if k.startswith(f"FIR {form}"))
              for form in ("same", "down2", "up2")}
+    warps = {w: sum(t for k, t in rows.items() if k.startswith(w)) for w in _HAND_ROWS[1:]}
     print(f"  profile of one {label} step on {card}: {total:.1f} ms of device time in "
           f"{len(rows)} kernels; depthwise-conv kernels (the plain FIR route) {depthwise:.1f} ms "
           f"({100 * depthwise / total:.1f} %); hand-written kernels {hand:.1f} ms "
           f"({100 * hand / total:.1f} %), of which conv3x3/wgrad3x3 {conv:.1f} ms "
           f"({100 * conv / total:.1f} %); FIR by form: "
-          + ", ".join(f"{k} {t:.2f} ms ({100 * t / total:.1f} %)" for k, t in forms.items()))
+          + ", ".join(f"{k} {t:.2f} ms ({100 * t / total:.1f} %)" for k, t in forms.items())
+          + "; warp kernels: "
+          + ", ".join(f"{k.strip()} {t:.3f} ms ({100 * t / total:.2f} %)"
+                      for k, t in warps.items()))
     for name, t in sorted(rows.items(), key=lambda kv: -kv[1])[:14]:
         print(f"    {t:8.2f} ms {100 * t / total:5.1f} %  {name[:100]}")
     return {"total_ms": total, "rows": rows}

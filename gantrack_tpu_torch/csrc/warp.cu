@@ -37,37 +37,11 @@
 // Planes go to grid.z, at most 65535 of it; a block walks the planes
 // p, p + gridDim.z, ... so any plane count runs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "affine.cuh"
 
 namespace {
 
 constexpr int kMaxGridZ = 65535;
-
-struct Coef {
-  float ax, bx, cx, ay, by, cy;
-};
-
-__device__ __forceinline__ Coef load_coef(const float* __restrict__ c, int p) {
-  const float* q = c + 6 * (size_t)p;
-  return {q[0], q[1], q[2], q[3], q[4], q[5]};
-}
-
-__device__ __forceinline__ bool coef_finite(const Coef& c) {
-  return isfinite(c.ax) && isfinite(c.bx) && isfinite(c.cx) && isfinite(c.ay) &&
-         isfinite(c.by) && isfinite(c.cy);
-}
-
-__device__ __forceinline__ float src_pos(float a, float b, float c, float ox, float oy) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, ox), __fmul_rn(b, oy)), c);
-}
-
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // The two bilinear taps of one axis at position f on an axis of n
 // samples: indices i0, i0 + 1 with weights w0, w1, zero outside [0, n).
@@ -137,25 +111,6 @@ __global__ void warp_kernel(const T* __restrict__ img, const float* __restrict__
 // and the hits summed in f32 in that fixed order: no atomics, bitwise
 // deterministic.
 constexpr int kSplatTX = 32, kSplatTY = 8, kSplatPix = 4;
-constexpr float kMinSlope = 1.f / 64.f;
-constexpr float kSlack = 1e-5f;  // relative rounding slack of the bounds
-
-// One axis of the strip |a*ox + b*oy + c - v| < 1 on row oy: its centre
-// k0 + k1*oy with k0 = (v - c)*r, r = 1/a, and half-width h in ox, slack
-// included; r = 0 when |a| is under kMinSlope (no bound).  ``n_in`` is the
-// input extent of the axis.
-struct Strip {
-  float r, k1, h;
-};
-
-__device__ __forceinline__ Strip strip_axis(float a, float b, float c, int OH, int OW, int n_in) {
-  if (!(fabsf(a) >= kMinSlope)) return {0.f, 0.f, 0.f};
-  const float r = 1.f / a, k1 = -b * r;
-  const float pos = fabsf(a) * OW + fabsf(b) * OH + fabsf(c) + (float)n_in + 2.f;
-  const float centre = ((float)n_in + fabsf(c)) * fabsf(r) + fabsf(k1) * OH + 1.f;
-  return {r, k1, (1.f + kSlack * pos) * fabsf(r) + kSlack * centre};
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kSplatTX * kSplatTY)
 splat_kernel(const T* __restrict__ g, const float* __restrict__ coeffs, T* __restrict__ out,
@@ -170,11 +125,10 @@ splat_kernel(const T* __restrict__ g, const float* __restrict__ coeffs, T* __res
     float acc[kSplatPix];
 #pragma unroll
     for (int k = 0; k < kSplatPix; ++k) acc[k] = 0.f;
-    const float det = c.ax * c.by - c.bx * c.ay;
-    const float ia = c.by / det, ib = -c.bx / det, ic = -c.ay / det, id = c.ax / det;
+    const Preimage m = preimage_of(c, H, W, OH, OW);
     if (!coef_finite(c)) {
       // Non-finite coefficients: K3 wrote zeros, so the adjoint is zero.
-    } else if (!(det != 0.f && isfinite(ia) && isfinite(ib) && isfinite(ic) && isfinite(id))) {
+    } else if (!m.bounded) {
       // A singular map has no bounded footprint: scan the plane (slow, exact).
 #pragma unroll
       for (int k = 0; k < kSplatPix; ++k) {
@@ -194,50 +148,20 @@ splat_kernel(const T* __restrict__ g, const float* __restrict__ coeffs, T* __res
         }
       }
     } else {
-      const Strip sx = strip_axis(c.ax, c.bx, c.cx, OH, OW, W);
-      const Strip sy = strip_axis(c.ay, c.by, c.cy, OH, OW, H);
-      const float kx0 = (fvx - c.cx) * sx.r;
-      // Slack of the parallelogram's extent in output pixels: the rounding
-      // of the corners through the inverse and of the positions.
-      const float mag = kSlack * ((float)(W + H) + fabsf(c.cx) + fabsf(c.cy) +
-                                  (fabsf(c.ax) + fabsf(c.ay)) * OW +
-                                  (fabsf(c.bx) + fabsf(c.by)) * OH + 2.f);
-      const float ex = (fabsf(ia) + fabsf(ib)) * mag, ey = (fabsf(ic) + fabsf(id)) * mag;
-      const float xhi = (float)OW + 1.f, yhi = (float)OH + 1.f;
+      const float kx0 = (fvx - c.cx) * m.sx.r;
 #pragma unroll
       for (int k = 0; k < kSplatPix; ++k) {
         const int vy = vy0 + kSplatTY * k;
         if (vy >= H) continue;
         const float fvy = (float)vy;
-        float xmin = INFINITY, xmax = -INFINITY, ymin = INFINITY, ymax = -INFINITY;
-#pragma unroll
-        for (int sy_ = -1; sy_ <= 1; sy_ += 2) {
-#pragma unroll
-          for (int sx_ = -1; sx_ <= 1; sx_ += 2) {
-            const float px = fvx + sx_ - c.cx, py = fvy + sy_ - c.cy;
-            const float qx = ia * px + ib * py, qy = ic * px + id * py;
-            xmin = fminf(xmin, qx); xmax = fmaxf(xmax, qx);
-            ymin = fminf(ymin, qy); ymax = fmaxf(ymax, qy);
-          }
-        }
-        // Clamped to the plane (and a little beyond) before the casts, so a
-        // far-away preimage gives an empty range, not an overflow.
-        const int c0 = max(0, (int)ceilf(fminf(fmaxf(xmin - ex, -2.f), xhi)));
-        const int c1 = min(OW - 1, (int)floorf(fminf(fmaxf(xmax + ex, -2.f), xhi)));
-        const int r0 = max(0, (int)ceilf(fminf(fmaxf(ymin - ey, -2.f), yhi)));
-        const int r1 = min(OH - 1, (int)floorf(fminf(fmaxf(ymax + ey, -2.f), yhi)));
-        const float ky0 = (fvy - c.cy) * sy.r;
+        int c0, c1, r0, r1;
+        preimage_box(m, c, fvx, fvx, fvy, fvy, OH, OW, c0, c1, r0, r1);
+        const float ky0 = (fvy - c.cy) * m.sy.r;
         for (int oy = r0; oy <= r1; ++oy) {
           const float foy = (float)oy;
           float lo = (float)c0, hi = (float)c1;
-          if (sx.r != 0.f) {
-            const float m = fmaf(sx.k1, foy, kx0);
-            lo = fmaxf(lo, m - sx.h); hi = fminf(hi, m + sx.h);
-          }
-          if (sy.r != 0.f) {
-            const float m = fmaf(sy.k1, foy, ky0);
-            lo = fmaxf(lo, m - sy.h); hi = fminf(hi, m + sy.h);
-          }
+          strip_clip(m.sx, foy, kx0, kx0, lo, hi);
+          strip_clip(m.sy, foy, ky0, ky0, lo, hi);
           if (!(lo <= hi)) continue;
           const T* grow = gp + (size_t)oy * OW;
           for (int ox = (int)ceilf(lo); ox <= (int)floorf(hi); ++ox) {

@@ -3,10 +3,10 @@
 The library has a plain C interface and is loaded with ``ctypes``, so
 the build needs no PyTorch headers (seconds, not minutes).  It is built
 at first use into ``build/gantrack_tpu_torch/`` at the repository root,
-under a name keyed by a hash of the source and the flags, so an edited
-source is rebuilt and concurrent builds do not collide.  A missing
-``nvcc`` raises: there is no fallback.  :func:`build_all` starts one
-``nvcc`` per source, all at once.
+under a name keyed by a hash of the source, the headers of ``csrc/`` and
+the flags, so an edited source or header is rebuilt and concurrent builds
+do not collide.  A missing ``nvcc`` raises: there is no fallback.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -57,8 +57,12 @@ def load_library(source: str) -> ctypes.CDLL:
         if source in _LIBS:
             return _LIBS[source]
         src_path = os.path.join(CSRC_DIR, source)
-        with open(src_path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        # The source and every header of csrc/ it may include.
+        for name in [source] + sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                digest.update(name.encode() + f.read())
+        digest = digest.hexdigest()[:16]
         stem = os.path.splitext(source)[0]
         so_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
         info = {"seconds": 0.0, "log": ""}

@@ -6,9 +6,11 @@ computes ``grid_sample(upsample2d(img, fir, up=2), affine_grid(theta))``
 augmentation.
 
 * On a CUDA tensor it launches the hand-written kernels of
-  ``csrc/upwarp.cu``: K1 (:class:`UpWarp`) never builds the 2x canvas; K2
-  (:class:`UpSplat`) is its exact adjoint, written as a deterministic
-  gather.  Each is the other's backward, so autograd closes to any order.
+  ``csrc/upwarp.cu``: K1 (:class:`UpWarp`) never builds the 2x canvas (a
+  block stages the box of the input its output tile weighs in shared
+  memory); K2 (:class:`UpSplat`) is its exact adjoint, one deterministic
+  gather kernel that builds each tile's part of the 2x canvas in shared
+  memory.  Each is the other's backward, so autograd closes to any order.
 * On a CPU tensor it runs the plain version: the plain ``upsample2d``
   followed by the gather sampler of :mod:`.grid_sample`, which autograd
   differentiates to any order.
@@ -22,7 +24,8 @@ JAX wrapper.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,8 +36,8 @@ from ._nvcc import load_library
 from .grid_sample import bilinear_gather, sample_positions, warp_coefficients
 from .upfirdn2d import upfirdn2d_plain, upsample2d_args
 
-__all__ = ["up_affine_warp", "up_affine_warp_plain", "warp_coefficients",
-           "UpWarp", "UpSplat", "LAUNCHES"]
+__all__ = ["up_affine_warp", "up_affine_warp_plain", "warp_coefficients", "upwarp_planes",
+           "upwarp_blocks", "upsplat_planes", "upsplat_blocks", "UpWarp", "UpSplat", "LAUNCHES"]
 
 NUM_TAPS = 12
 # Kernel launches per wrapper; bumped only where a kernel is launched.
@@ -45,54 +48,90 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("upwarp.cu")
     if not getattr(lib, "_gantrack_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gantrack_upwarp.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
+        lib.gantrack_upwarp.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p]
         lib.gantrack_upwarp.restype = i
-        lib.gantrack_upsplat.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
+        lib.gantrack_upwarp_blocks.argtypes = [i, i, i]
+        lib.gantrack_upwarp_blocks.restype = ctypes.c_longlong
+        lib.gantrack_upsplat.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p]
         lib.gantrack_upsplat.restype = i
+        lib.gantrack_upsplat_blocks.argtypes = [i, i, i]
+        lib.gantrack_upsplat_blocks.restype = ctypes.c_longlong
         lib._gantrack_typed = True
     return lib
 
 
+@functools.lru_cache(maxsize=64)
 def _fir_array(taps: Tuple[float, ...]):
     if len(taps) != NUM_TAPS:
         raise ValueError(f"the upwarp kernels take a {NUM_TAPS}-tap FIR, got {len(taps)}")
     return (ctypes.c_float * NUM_TAPS)(*taps)
 
 
+def _counter_ptr(counter: Optional[torch.Tensor], like: torch.Tensor, name: str):
+    """The device pointer of an optional one-element int32 block counter."""
+    if counter is None:
+        return None
+    if counter.device != like.device or counter.dtype != torch.int32:
+        raise ValueError(f"{name} must be an int32 tensor on the planes' device")
+    return counter.data_ptr()
+
+
 def upwarp_planes(planes: torch.Tensor, coeffs: torch.Tensor, taps: Tuple[float, ...],
-                  out_h: int, out_w: int) -> torch.Tensor:
-    """K1: ``[P, H1, W1]`` → ``[P, out_h, out_w]`` in the input's dtype."""
+                  out_h: int, out_w: int,
+                  direct_blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: ``[P, H1, W1]`` → ``[P, out_h, out_w]`` in the input's dtype.
+
+    ``direct_blocks``, a one-element int32 tensor on the card, counts the
+    blocks whose input box did not fit the shared buffer and took the
+    direct gather (of :func:`upwarp_blocks` blocks)."""
     _check_planes(planes, "planes")
     _check_coeffs(coeffs, planes)
+    counter = _counter_ptr(direct_blocks, planes, "direct_blocks")
     p, h1, w1 = planes.shape
     out = torch.empty((p, out_h, out_w), dtype=planes.dtype, device=planes.device)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gantrack_upwarp(
             planes.data_ptr(), coeffs.data_ptr(), out.data_ptr(), p, h1, w1, out_h, out_w,
-            int(planes.dtype == torch.bfloat16), _fir_array(taps), stream)
+            int(planes.dtype == torch.bfloat16), _fir_array(taps), counter, stream)
     _check_rc(rc, "upwarp kernel")
     LAUNCHES["upwarp"] += 1
     return out
 
 
+def upwarp_blocks(planes: int, out_h: int, out_w: int) -> int:
+    """The number of blocks K1 launches for ``planes`` planes of
+    ``out_h × out_w`` outputs."""
+    return int(_lib().gantrack_upwarp_blocks(planes, out_h, out_w))
+
+
 def upsplat_planes(g: torch.Tensor, coeffs: torch.Tensor, taps: Tuple[float, ...],
-                   h1: int, w1: int) -> torch.Tensor:
+                   h1: int, w1: int, global_blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2, the adjoint of K1: ``[P, out_h, out_w]`` → ``[P, h1, w1]`` in
-    g's dtype, summed in float32 through a ``[P, 2h1, 2w1]`` f32 scratch."""
+    g's dtype, summed in float32, one launch.
+
+    ``global_blocks``, a one-element int32 tensor on the card, counts the
+    blocks whose cotangent box did not fit shared memory and were read
+    from device memory (of :func:`upsplat_blocks` blocks)."""
     _check_planes(g, "g")
     _check_coeffs(coeffs, g)
+    counter = _counter_ptr(global_blocks, g, "global_blocks")
     p, out_h, out_w = g.shape
-    canvas = torch.empty((p, 2 * h1, 2 * w1), dtype=torch.float32, device=g.device)
     out = torch.empty((p, h1, w1), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gantrack_upsplat(
-            g.data_ptr(), coeffs.data_ptr(), canvas.data_ptr(), out.data_ptr(), p, h1, w1,
-            out_h, out_w, int(g.dtype == torch.bfloat16), _fir_array(taps), stream)
+            g.data_ptr(), coeffs.data_ptr(), out.data_ptr(), p, h1, w1, out_h, out_w,
+            int(g.dtype == torch.bfloat16), _fir_array(taps), counter, stream)
     _check_rc(rc, "upsplat kernel")
     LAUNCHES["upsplat"] += 1
     return out
+
+
+def upsplat_blocks(planes: int, h1: int, w1: int) -> int:
+    """The number of blocks K2 launches for ``planes`` planes of
+    ``h1 × w1`` outputs."""
+    return int(_lib().gantrack_upsplat_blocks(planes, h1, w1))
 
 
 class UpWarp(torch.autograd.Function):

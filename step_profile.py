@@ -11,15 +11,17 @@ batch 32 (default routes) and StyleGAN3-T at full width at batch 16
 (``chip_smoke.CLARO_ARGS``, ``chip_smoke.SG3_ARGS``), with ADA p = 0.3.
 After three warm-up steps it takes three plain steps on the host clock
 (median) and one plain step under ``torch.profiler``; the rows of the
-FIR kernels are named by form and tap count
+FIR kernels are named by form and tap count, those of K1–K4 by kernel
 (``chip_smoke.kernel_label``).  Then it takes a digest of what K7, K6,
 K5 and K4 give at StyleGAN3-T's largest ×2 and ↓2 calls, the claro G
-post-filter and the unfused augment's warp, from seeded inputs.  With
-``--ab`` each turn is a process of its own that imports the
-``gantrack_tpu_torch`` of its tree (so each tree builds and launches its
-own kernels), and the last lines compare the turns: times, the FIR rows
-by form, tap count and dtype, and whether the two trees' kernels give
-the same bits.  Needs a CUDA card; exits 2 without one.
+post-filter and the unfused augment's warp, and of what K1 and K2 give
+at the augment's call (bf16, 64 planes of 406 × 403 ↔ 524², transforms
+drawn by the pipe at p = 1), from seeded inputs.  With ``--ab`` each turn
+is a process of its own that imports the ``gantrack_tpu_torch`` of its
+tree (so each tree builds and launches its own kernels), and the last
+lines compare the turns: times, the FIR rows by form, tap count and
+dtype, the K1 and K2 rows, and whether the two trees' kernels give the
+same bits.  Needs a CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -101,7 +103,8 @@ def kernel_digests() -> dict:
     of K5's at the claro G post-filter (bf16 ``[32,64,259,259]`` → 256²,
     4 taps, gain 4) and of K4's at the unfused augment's warp (bf16 64 ×
     812×806 → 524², a rotation and a shrink of 0.55–0.75), from inputs
-    made on the card from fixed seeds."""
+    made on the card from fixed seeds; and of K1's and K2's at the
+    augment's call (``chip_smoke._upwarp_case``, 64 planes)."""
     import importlib
     import math
 
@@ -109,6 +112,7 @@ def kernel_digests() -> dict:
 
     import chip_smoke as cs
     from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
+    from gantrack_tpu_torch.ops import upwarp as uw
     from gantrack_tpu_torch.ops import warp as wp
     from gantrack_tpu_torch.ops.grid_sample import warp_coefficients
 
@@ -140,11 +144,19 @@ def kernel_digests() -> dict:
     x = torch.randn((32, 64, 259, 259), device=dev, generator=gen).bfloat16()
     y = ufd.upfirdn2d(x, f4.to(dev), taps=ufd.filter_taps(f4), gain=4)
     out["fir_same bf16 [32,64,259,259] -> 256²"] = _digest(y)
+    del x, y
+    coeffs, taps, _, (h1, w1, oh, ow), gen_k = cs._upwarp_case(64, seed=5)
+    x = torch.randn((64, h1, w1), device=dev, generator=gen_k).bfloat16()
+    g = torch.randn((64, oh, ow), device=dev, generator=gen_k).bfloat16()
+    out[f"upwarp bf16 64 x {h1}x{w1} -> {oh}²"] = _digest(
+        uw.upwarp_planes(x, coeffs, taps, oh, ow))
+    out[f"upsplat bf16 64 x {h1}x{w1} <- {oh}²"] = _digest(
+        uw.upsplat_planes(g, coeffs, taps, h1, w1))
     return out
 
 
-def _fir_ms(rows: dict, form: str) -> float:
-    return sum(t for k, t in rows.items() if k.startswith(f"FIR {form}"))
+def _rows_ms(rows: dict, prefix: str) -> float:
+    return sum(t for k, t in rows.items() if k.startswith(prefix))
 
 
 def run_ab(other: str) -> int:
@@ -168,12 +180,17 @@ def run_ab(other: str) -> int:
         for cfg in CONFIGS:
             r = res[cfg]
             row = {"turn": label, "cfg": cfg, "device_ms": r["total_ms"], "step_ms": r["step_ms"],
-                   **{f"fir_{form}_ms": _fir_ms(r["rows"], form)
-                      for form in ("same", "down2", "up2")}}
+                   **{f"fir_{form}_ms": _rows_ms(r["rows"], f"FIR {form}")
+                      for form in ("same", "down2", "up2")},
+                   "k1_ms": _rows_ms(r["rows"], "K1 "), "k2_ms": _rows_ms(r["rows"], "K2 ")}
             summary.append(row)
             print(f"  {label:5s} {cfg:12s} device {row['device_ms']:9.2f}  host step "
                   f"{row['step_ms']:9.1f}  FIR up2 {row['fir_up2_ms']:8.2f}  down2 "
-                  f"{row['fir_down2_ms']:8.2f}  same {row['fir_same_ms']:8.2f}")
+                  f"{row['fir_down2_ms']:8.2f}  same {row['fir_same_ms']:8.2f}  K1 "
+                  f"{row['k1_ms']:7.3f}  K2 {row['k2_ms']:7.3f}")
+            print("        K1, K2 by kernel and dtype: " + "; ".join(
+                f"{k} {t:.3f}" for k, t in sorted(r["rows"].items())
+                if k.startswith(("K1 ", "K2 "))))
             print("        by form, taps and dtype: " + "; ".join(
                 f"{k[4:].split(' [')[0]} {t:.2f}" for k, t in sorted(r["rows"].items())
                 if k.startswith("FIR ")))
