@@ -25,7 +25,10 @@ per source, all started together), then:
    the affine warp pair K3/K4 (``ops/warp.py``) at the shape of the
    unfused augment chain (64 planes of 812 × 806, out 524², bf16) and of
    the equivariance metrics (8 planes of 256², float32), each with
-   adjointness and gradients of both orders; the probes P1–P6
+   adjointness and gradients of both orders (K3's bytes are the input
+   samples its taps reach at the call's map), K3 timed one call at a time,
+   back to back and cold, with its device time and the ctypes path's floor
+   (1 plane of 1 × 1); the probes P1–P6
    (``ops/probes.py``), exact on ones and on small integers; and the 3×3
    implicit-GEMM conv pair K8/K9 (``ops/conv3x3.py``) at the six shapes
    of the claro step in the step's dtypes and at a small float32 shape,
@@ -65,7 +68,11 @@ per source, all started together), then:
    route from the same state and seed (every bf16 conv of it must take
    the ``wgmma`` kernels), profiles one step of it, and takes one plain
    step with every augment section on;
-7. prints the kernel report and, last, the device line.
+7. trains the claro recipe for 2 kimg through the CLI with
+   ``--metric-async`` (fid1k at kimg 1 on a background thread over a copy
+   of G_ema, at kimg 2 in the loop): the rows, the copy's size and time,
+   the peak device memory with the thread overlapping training;
+8. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
 device the script exits with code 2 and prints no result.
@@ -682,19 +689,18 @@ def _fir_library_call(spec, channels: int, dev, dtype):
     return None
 
 
-def check_warp(card: str) -> dict:
-    """Phase 1 (warp): K3/K4 against ``affine_warp_plain`` at the shape of
-    the unfused augment chain (bf16 in the step) and of the equivariance
-    metrics (float32).  Returns the report of the first shape."""
+def _warp_cases(seed: int = 2):
+    """K3's two calls on the card: the unfused augment chain's (bf16 in the
+    step, 64 planes of 812 × 806 → 524², transforms drawn from
+    ``medical_augment_config`` at p = 1) and the equivariance metrics'
+    (float32, 8 planes of 256², rotations).  Returns [(label, theta, h, w,
+    oh, ow, step dtype)] and the generator, drawn on past the thetas."""
     import torch
-    import torch.nn.functional as F
 
-    from gantrack_tpu_torch.ops import warp as wp
-    from gantrack_tpu_torch.ops.grid_sample import warp_coefficients
     from gantrack_tpu_torch.training.augment import AugmentPipe, medical_augment_config
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     pipe = AugmentPipe(medical_augment_config(), 256, 256, 1, impl="unfused")
     theta_aug, oh_aug, ow_aug = pipe.warp_geometry(pipe.sample_geometric(64, 1.0, dev, gen))
     mx0, mx1, my0, my1 = pipe.margin
@@ -702,11 +708,120 @@ def check_warp(card: str) -> dict:
     zeros = torch.zeros_like(angle)
     theta_eq = torch.stack([torch.stack([angle.cos(), angle.sin(), zeros], 1),
                             torch.stack([-angle.sin(), angle.cos(), zeros], 1)], 1)
-    shapes = [
+    return [
         ("unfused augment chain", theta_aug, 2 * (256 + my0 + my1), 2 * (256 + mx0 + mx1),
          oh_aug, ow_aug, "bf16"),
         ("equivariance metrics (eqr)", theta_eq, 256, 256, 256, 256, "f32"),
-    ]
+    ], gen
+
+
+def _device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time (ms) of a launch of the kernel whose name holds
+    ``kernel`` over ``reps`` calls of ``fn`` (one launch each), as
+    ``torch.profiler`` reads them; NaN where it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [ev.device_time for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and kernel in ev.name]
+    if len(times) != reps:
+        print(f"  the profiler saw {len(times)} of {reps} launches of {kernel}")
+    return sum(times) / 1e3 / len(times) if times else float("nan")
+
+
+def _warp_reads(coeffs, h: int, w: int, oh: int, ow: int):
+    """What K3 reads at this map: the number of input samples (of
+    ``P × h × w``) that some output's taps reach with a nonzero weight, as
+    ``warp_kernel``'s ``axis_taps`` takes them, and the number of outputs
+    (of ``P × oh × ow``) that read any sample."""
+    import torch
+
+    from gantrack_tpu_torch.ops.grid_sample import sample_positions
+
+    def taps(f, n):
+        fl = torch.floor(f)
+        on = (fl >= -1) & (fl <= n - 1)
+        w1 = f - fl
+        i0 = torch.where(on, fl, torch.zeros_like(fl)).long()
+        return i0, on & (i0 >= 0) & (1 - w1 != 0), on & (i0 + 1 < n) & (w1 != 0)
+
+    read = hit = 0
+    for p in range(coeffs.shape[0]):
+        fx, fy = sample_positions(coeffs[p:p + 1], oh, ow)
+        x0, rx0, rx1 = taps(fx[0], w)
+        y0, ry0, ry1 = taps(fy[0], h)
+        seen = torch.zeros(h * w, dtype=torch.bool, device=coeffs.device)
+        any_tap = torch.zeros_like(rx0)
+        for dy, ry in ((0, ry0), (1, ry1)):
+            for dx, rx in ((0, rx0), (1, rx1)):
+                m = ry & rx
+                seen[((y0 + dy) * w + x0 + dx)[m]] = True
+                any_tap |= m
+        read += int(seen.sum())
+        hit += int(any_tap.sum())
+    return read, hit
+
+
+def time_warp(card: str) -> dict:
+    """K3 at its two calls (``_warp_cases``) one call at a time, back to
+    back and on a cold L2 (``_median_ms``, ``_b2b_ms``), with its device
+    time from the profiler; and the ctypes path's floor: ``warp_planes``
+    on 1 plane of 1 × 1 → 1 × 1, one call at a time and back to back.  It
+    passes only the wrappers' common arguments, so it times another
+    checkout's package as well.  Returns {label: {"one", "b2b", "cold",
+    "device"}, "floor": {"one", "b2b"}} in ms."""
+    import torch
+
+    from gantrack_tpu_torch.ops import warp as wp
+    from gantrack_tpu_torch.ops.grid_sample import warp_coefficients
+
+    cases, gen = _warp_cases()
+    out = {}
+    for label, theta, h, w, oh, ow, dtype in cases:
+        n = theta.shape[0]
+        coeffs = warp_coefficients(theta, h, w, oh, ow)
+        x = torch.randn((n, h, w), device="cuda", generator=gen)
+        x = x.bfloat16() if dtype == "bf16" else x
+
+        def k3():
+            return wp.warp_planes(x, coeffs, oh, ow)
+
+        t = {"one": _median_ms(k3), "b2b": _b2b_ms(k3), "cold": _median_ms(k3, cold=True),
+             "device": _device_ms(k3, "warp_kernel")}
+        out[label] = t
+        print(f"  K3, {dtype} {n} x {h}x{w} -> {oh}x{ow} ({label}), on {card}, ms: one call at a "
+              f"time {t['one']:.4f} / back to back {t['b2b']:.4f} / cold L2 {t['cold']:.4f}; "
+              f"device time (profiler, mean of 20) {t['device']:.4f}")
+        del x
+    x1 = torch.randn((1, 1, 1), device="cuda", generator=gen)
+    c1 = warp_coefficients(torch.eye(2, 3, device="cuda")[None], 1, 1, 1, 1)
+    floor = {"one": _median_ms(lambda: wp.warp_planes(x1, c1, 1, 1)),
+             "b2b": _b2b_ms(lambda: wp.warp_planes(x1, c1, 1, 1))}
+    out["floor"] = floor
+    print(f"  K3's ctypes path's floor (warp_planes, 1 plane 1x1 -> 1x1) on {card}: one call at "
+          f"a time {floor['one']:.4f} ms, back to back {floor['b2b']:.4f} ms")
+    return out
+
+
+def check_warp(card: str) -> dict:
+    """Phase 1 (warp): K3/K4 against ``affine_warp_plain`` at the shape of
+    the unfused augment chain (bf16 in the step) and of the equivariance
+    metrics (float32), K3's times (``time_warp``).  Returns the report of
+    the first shape: ``ms`` one call at a time, ``ms_b2b`` back to back."""
+    import torch
+    import torch.nn.functional as F
+
+    from gantrack_tpu_torch.ops import warp as wp
+    from gantrack_tpu_torch.ops.grid_sample import warp_coefficients
+
+    dev = torch.device("cuda")
+    shapes, gen = _warp_cases()
     report = {}
     for label, theta, h, w, oh, ow, step_dtype in shapes:
         n = theta.shape[0]
@@ -744,6 +859,11 @@ def check_warp(card: str) -> dict:
         print(f"  K4 bitwise deterministic over two calls: {same}")
         if not same:
             raise AssertionError("K4 is not bitwise deterministic")
+        for planes in (xb, x):
+            if not torch.equal(wp.warp_planes(planes, coeffs, oh, ow),
+                               wp.warp_planes(planes, coeffs, oh, ow)):
+                raise AssertionError(f"K3 {planes.dtype} is not bitwise the same over two calls")
+        print("  K3 bits the same over two calls (bf16, f32): True")
 
         c4 = coeffs[:4].contiguous()
         wgt = torch.randn((4, oh, ow), device=dev, generator=gen)
@@ -776,7 +896,6 @@ def check_warp(card: str) -> dict:
                1e-3 * float(ref.abs().max()))
         xl = x.clone().requires_grad_(True)
         out_l = library(xl)
-        t_k3 = _median_ms(lambda: wp.warp_planes(xs, coeffs, oh, ow))
         t_p3 = _median_ms(lambda: plain(xs))
         t_l3 = _median_ms(lambda: library(x))
         t_k4 = _median_ms(lambda: wp.splat_planes(gs, coeffs, h, w))
@@ -792,29 +911,39 @@ def check_warp(card: str) -> dict:
         t_l3_sampler = _median_ms(lambda: F.grid_sample(
             x[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=False))
         del grid
-        # Bound: image, output and coefficients once; per output pixel two
-        # positions (4 flops each), four weights (6) and four taps (8).  K4
-        # is the transpose: the same products.
-        bound = _bound(_nbytes(xs, gs, coeffs), n * oh * ow * 22)
-        print(f"  times ({step_dtype}, median of 20, CUDA events) on {card}: K3 {t_k3:.4f} ms, "
+        # Bounds: per output pixel two positions (4 flops each), four weights
+        # (6) and four taps (8); K4, the transpose, does the same products.
+        # Bytes: K3 reads the input samples this map's taps reach and writes
+        # every output; K4 reads the cotangents of the outputs that read a
+        # sample and writes every input pixel; each reads the coefficients.
+        read, hit = _warp_reads(coeffs, h, w, oh, ow)
+        item = xs.element_size()
+        bound = _bound(read * item + _nbytes(gs, coeffs), n * oh * ow * 22)
+        bound4 = _bound(hit * item + _nbytes(xs, coeffs), n * oh * ow * 22)
+        print(f"  K3's taps reach {read} of the {xs.numel()} input samples; {hit} of the "
+              f"{gs.numel()} outputs read one")
+        print(f"  times ({step_dtype}, median of 20, CUDA events) on {card}: K3 below, "
               f"plain {t_p3:.4f} ms, F.grid_sample(F.affine_grid) on f32 {t_l3:.4f} ms; K4 "
-              f"{t_k4:.4f} ms, plain adjoint {t_p4:.4f} ms, its backward on f32 {t_l4:.4f} ms; bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) for each")
+              f"{t_k4:.4f} ms, plain adjoint {t_p4:.4f} ms, its backward on f32 {t_l4:.4f} ms; "
+              f"bound K3 {bound['bound_ms']:.4f} ms ({bound['bound_by']}), K4 "
+              f"{bound4['bound_ms']:.4f} ms ({bound4['bound_by']})")
         print(f"  on the same f32 planes: K3 {t_k3_f32:.4f} ms against the library call "
               f"{t_l3:.4f} ms (F.grid_sample alone, grid given: {t_l3_sampler:.4f} ms); K4 "
               f"{t_k4_f32:.4f} ms against its backward {t_l4:.4f} ms (back to back: K4 "
               f"{b2b_k4:.4f} ms, backward {b2b_l4:.4f} ms)")
         if not report:
             report = {
-                "warp": {"max_abs_err": err_k3, "ms": t_k3, "plain_ms": t_p3, **bound,
+                "warp": {"max_abs_err": err_k3, "plain_ms": t_p3, **bound,
                          "library_ms": t_l3, "dtype": step_dtype, "library_dtype": "f32",
                          "ms_at_library_dtype": t_k3_f32},
-                "splat": {"max_abs_err": err_k4, "ms": t_k4, "plain_ms": t_p4, **bound,
+                "splat": {"max_abs_err": err_k4, "ms": t_k4, "plain_ms": t_p4, **bound4,
                           "library_ms": t_l4, "dtype": step_dtype, "library_dtype": "f32",
                           "ms_at_library_dtype": t_k4_f32},
             }
         del x, g, xb, gb, ref, ref4, refb, refb4, k3, k4, xl, out_l
     torch.cuda.empty_cache()
+    t = time_warp(card)[shapes[0][0]]
+    report["warp"].update(ms=t["one"], ms_b2b=t["b2b"])
     return report
 
 
@@ -1784,6 +1913,67 @@ def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
     return total
 
 
+def run_metric_async(card: str, tmp: str, data: str) -> dict:
+    """Phase 7: the claro recipe through the CLI for 2 kimg with a snapshot
+    and fid1k each kimg and ``--metric-async``: the kimg-1 metric runs on a
+    background thread, on its own stream, on a copy of G_ema
+    (``training.loop.metric_snapshot``, timed here on the card and on the
+    host clock) while training goes on; the kimg-2 metric runs in the
+    loop.  Checks the rows stamped 1 and 2, and prints the peak device
+    memory before the thread (tick 1's record) and with it overlapping
+    training (tick 2's).  Returns the run's launch counts."""
+    import torch
+
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.training import loop
+
+    args = [a for a in CLARO_ARGS if not a.startswith("--kimg=")] + ["--kimg=2", "--metric-async"]
+    _cli_device(cli, args)
+    argv = [f"--outdir={os.path.join(tmp, 'runs_async')}", f"--data={data}", *args]
+    print(f"phase 7: python -m gantrack_tpu_torch.tools.train {' '.join(argv)}")
+    copies = []
+    snapshot = loop.metric_snapshot
+
+    def timed_snapshot(state):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        snap = snapshot(state)
+        b.record()
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*snap.G_ema.parameters(), *snap.G_ema.buffers()))
+        copies.append((a, b, (time.perf_counter() - t0) * 1e3, nbytes))
+        return snap
+
+    loop.metric_snapshot = timed_snapshot
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run_dir = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        loop.metric_snapshot = snapshot
+    seconds = time.perf_counter() - t0
+    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2"))
+    rows = _metric_rows(run_dir, "fid1k")
+    if [row["kimg"] for row in rows] != [1, 2] or len(copies) != 1:
+        raise AssertionError(f"fid1k rows at kimg {[row['kimg'] for row in rows]}, "
+                             f"{len(copies)} copies of G_ema for the thread: expected 1, 2 and 1")
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        peaks = [json.loads(line).get("Resources/peak_gpu_mem_gb") for line in f]
+    a, b, host_ms, nbytes = copies[0]
+    print(f"  CLI run: {seconds:.1f} s wall on {card}; fid1k at kimg 1 (thread) "
+          f"{rows[0]['results']['fid1k']:.4f} in {rows[0]['total_time']:.2f} s, at kimg 2 (loop) "
+          f"{rows[1]['results']['fid1k']:.4f} in {rows[1]['total_time']:.2f} s")
+    print(f"  the thread's copy of G_ema: {nbytes / 2**20:.2f} MiB, {a.elapsed_time(b):.3f} ms on "
+          f"the card, {host_ms:.3f} ms on the host clock; peak device memory by tick (GiB): "
+          + ", ".join(f"{p:.2f}" for p in peaks)
+          + " (tick 1 before the thread, tick 2 with it overlapping training)")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1807,24 +1997,32 @@ def main() -> int:
               f"memory, spills {r['spill_stores']} / {r['spill_loads']} bytes (stores / loads)")
     print(f"  conv3x3.cu: {_count_hgmma(conv_build['path'])}")
 
-    kernels = check_kernels(card)
-    kernels.update(check_fir(card))
-    kernels.update(check_warp(card))
-    kernels.update(check_probes(card))
-    kernels.update(check_conv3x3(card))
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        print(f"{label}: {time.perf_counter() - t:.1f} s wall")
+        return result
+
+    kernels = timed("phase 1 (K1/K2)", check_kernels, card)
+    kernels.update(timed("phase 1 (FIR)", check_fir, card))
+    kernels.update(timed("phase 1 (warp)", check_warp, card))
+    kernels.update(timed("phase 1 (probes)", check_probes, card))
+    kernels.update(timed("phase 1 (conv3x3)", check_conv3x3, card))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data = _synthetic_dataset(tmp)
-        run_dir, claro = train_claro(card, tmp, data)
-        run_calc_metrics(card, tmp, data, run_dir)
-        sg3 = train_stylegan3(card, tmp, data)
-        unfused = run_unfused_augment(card, tmp, data)
-        probed = run_probe_path()
-        routed = run_kernel_route(card, tmp, data)
+        run_dir, claro = timed("phase 2", train_claro, card, tmp, data)
+        timed("phase 3", run_calc_metrics, card, tmp, data, run_dir)
+        sg3 = timed("phase 4", train_stylegan3, card, tmp, data)
+        unfused = timed("phase 5", run_unfused_augment, card, tmp, data)
+        probed = timed("phase 6 (probes)", run_probe_path)
+        routed = timed("phase 6 (conv route)", run_kernel_route, card, tmp, data)
+        asynced = timed("phase 7", run_metric_async, card, tmp, data)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall since the build began")
     # Launches on the main paths: the claro run, the StyleGAN3 run with its
-    # metrics, the unfused augment steps, the probes' run and the
-    # kernel-route steps, each counted from 0.
+    # metrics, the unfused augment steps, the probes' run, the kernel-route
+    # steps and the metric-async run, each counted from 0.
     paths = {"claro": claro, "stylegan3-t": sg3, "unfused augment": unfused, "probes": probed,
-             "kernel conv route": routed}
+             "kernel conv route": routed, "claro, metric-async": asynced}
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     print("kernel launches by main path: "
           + "; ".join(f"{name} { {k: n for k, n in counts.items() if n} }"

@@ -23,6 +23,7 @@ coefficients built on the device from ``theta``
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -34,34 +35,44 @@ __all__ = ["affine_warp", "affine_warp_plain", "warp_planes", "splat_planes",
 
 # Kernel launches per wrapper; bumped only where a kernel is launched.
 LAUNCHES = {"warp": 0, "splat": 0}
+_LIB: Optional[ctypes.CDLL] = None
 
 
 def _lib() -> ctypes.CDLL:
-    lib = load_library("warp.cu")
-    if not getattr(lib, "_gantrack_typed", False):
+    """The built ``warp.cu``, its entry points typed; kept after the first
+    call, so a launch looks nothing up."""
+    global _LIB
+    if _LIB is None:
+        lib = load_library("warp.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.gantrack_warp, lib.gantrack_splat):
             fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
-        lib._gantrack_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def _launch(name: str, src: torch.Tensor, coeffs: torch.Tensor, h: int, w: int,
             out_h: int, out_w: int, out_hw) -> torch.Tensor:
     """Launch K3 (``warp``: src is the ``[P, h, w]`` image) or K4
-    (``splat``: src is the ``[P, out_h, out_w]`` cotangent)."""
+    (``splat``: src is the ``[P, out_h, out_w]`` cotangent) on the current
+    stream of src's device."""
     check_planes(src, name)
     check_coeffs(coeffs, src)
     p = src.shape[0]
     if p == 0 or min(h, w, out_h, out_w) < 1:
         raise ValueError(f"{name}: empty planes ({p} x {h} x {w} -> {out_h} x {out_w})")
+    lib = _lib()
+    fn = lib.gantrack_warp if name == "warp" else lib.gantrack_splat
     out = torch.empty((p, *out_hw), dtype=src.dtype, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_lib(), f"gantrack_{name}")(
-            src.data_ptr(), coeffs.data_ptr(), out.data_ptr(), p, h, w, out_h, out_w,
-            int(src.dtype == torch.bfloat16), stream)
+    dev = src.device.index
+    args = (src.data_ptr(), coeffs.data_ptr(), out.data_ptr(), p, h, w, out_h, out_w,
+            int(src.dtype == torch.bfloat16), torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args)
     check_rc(rc, f"{name} kernel")
     LAUNCHES[name] += 1
     return out
@@ -131,6 +142,6 @@ def affine_warp(img: torch.Tensor, theta: torch.Tensor, out_h: int, out_w: int) 
         return affine_warp_plain(img, coeffs, out_h, out_w)
     dt = img.dtype if img.dtype in (torch.bfloat16, torch.float32) else torch.float32
     planes = img.reshape(n * ch, h, w).to(dt).contiguous()
-    coeffs_planes = coeffs.repeat_interleave(ch, dim=0).contiguous()
+    coeffs_planes = coeffs if ch == 1 else coeffs.repeat_interleave(ch, dim=0)
     out = Warp.apply(planes, coeffs_planes, out_h, out_w)
     return out.reshape(n, ch, out_h, out_w).to(img.dtype)

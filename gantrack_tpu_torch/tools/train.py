@@ -87,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metric-snap", dest="metric_snap", type=int, default=1,
                    help="Evaluate metrics only on every N-th snapshot")
     p.add_argument("--metric-async", dest="metric_async", action="store_true",
-                   help="Not taken yet: metrics run in the loop's thread (ROADMAP C6)")
+                   help="Run the metrics of a snapshot that is not the last on a background "
+                        "thread while training goes on")
     p.add_argument("--detector-weights", dest="detector_weights", default=None,
                    help="Converted InceptionV3 weights .npz for FID (tools/convert_detector.py)")
     p.add_argument("--workers", type=int, default=1)
@@ -114,9 +115,6 @@ def check_slice(opts) -> None:
             raise SystemExit(f"--metrics: {m} needs a StyleGAN3 generator (--cfg=stylegan3-t|-r)")
     if opts.metric_snap < 1:
         raise SystemExit("--metric-snap: must be at least 1")
-    if opts.metric_async:
-        raise SystemExit("--metric-async: metrics run in the loop's thread; the background "
-                         "thread is queued with ROADMAP C6")
     if opts.num_devices not in (None, 1):
         raise SystemExit("--devices: one device in this slice (data parallelism: ROADMAP A7)")
     if opts.batch_gpu not in (None, opts.batch):
@@ -337,7 +335,7 @@ def train(c: dict, opts, run_dir: str):
             total_kimg=c["total_kimg"], kimg_per_tick=c["kimg_per_tick"],
             snapshot_ticks=c["snapshot_ticks"], image_snapshot_ticks=c["snapshot_ticks"],
             sample_fn=sample_fn, metrics=c["metrics"], metric_fn=metric_fn,
-            metric_snapshot_every=opts.metric_snap)
+            metric_snapshot_every=opts.metric_snap, metric_async=opts.metric_async)
     finally:
         loader.close()
 

@@ -3,15 +3,18 @@
 Port of ``gantrack_tpu/training/loop.py``.  Same tick report (field
 names), real/fake grids, full-state snapshots and metric evaluation at
 every ``metric_snapshot_every``-th snapshot (a metric failure is logged
-and training goes on).  The metrics run in the loop's thread: the JAX
-loop's ``metric_async`` thread is queued with ROADMAP C6.  The loop
-keeps the step's moments on the device and fetches them once per tick.
+and training goes on), in the loop's thread or, with ``metric_async``,
+on a background thread as the JAX loop runs them.  The loop keeps the
+step's moments on the device and fetches them once per tick.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 import resource
+import threading
 import time
 import traceback
 from typing import Callable, Optional, Sequence
@@ -50,6 +53,25 @@ def to_device_batch(images: np.ndarray, labels: np.ndarray, device):
     return img, lab.to(device, non_blocking=True)
 
 
+def metric_snapshot(state: TrainState) -> TrainState:
+    """The state a background metric evaluates: ``state`` with a copy of
+    ``G_ema``, the one network the metrics read.  JAX arrays are immutable,
+    so the JAX loop hands its thread the state itself; here the next step
+    updates ``G_ema`` in place.  The copy is queued on the caller's stream,
+    so it reads ``G_ema`` as the steps queued before it leave it.  The other
+    fields are shared with ``state`` and are not read by the metrics."""
+    return dataclasses.replace(state, G_ema=copy.deepcopy(state.G_ema))
+
+
+def _hand_to_stream(snap: TrainState, stream) -> None:
+    """Let ``stream`` run after the copy in ``snap`` and keep the copy's
+    memory from reuse on the loop's stream until ``stream``'s work on it
+    is done."""
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    for t in (*snap.G_ema.parameters(), *snap.G_ema.buffers()):
+        t.record_stream(stream)
+
+
 def training_loop(
     *,
     run_dir: str,
@@ -65,6 +87,7 @@ def training_loop(
     metrics: Sequence[str] = (),
     metric_fn: Optional[Callable[..., dict]] = None,
     metric_snapshot_every: int = 1,
+    metric_async: bool = False,
     verbose: bool = True,
 ) -> TrainState:
     """Run until ``total_kimg``; returns the final state.
@@ -73,6 +96,15 @@ def training_loop(
     G_ema samples for the fakes grid; ``metric_fn(state, kimg=...) ->
     {name: value}`` evaluates ``metrics`` on every
     ``metric_snapshot_every``-th snapshot (and on the last one).
+
+    ``metric_async=True`` runs ``metric_fn`` of a snapshot that is not the
+    last on a daemon thread while training goes on, as the JAX loop does:
+    on :func:`metric_snapshot` of the state, stamped with the snapshot's
+    kimg.  At most one metric thread runs (a still-running one is joined
+    first, a wait that lands in ``Timing/maintenance_sec``); the last
+    snapshot joins it and runs in the loop's thread, and the loop joins
+    any thread before it returns.  On a CUDA device the thread queues its
+    work on a stream of its own, which waits for the copy.
     """
     start_time = time.time()
     collector = stats_lib.Collector()
@@ -89,15 +121,20 @@ def training_loop(
         save_image_grid(sample_fn(state, grid_z, grid_c),
                         os.path.join(run_dir, "fakes_init.png"), grid_size=(gw, gh))
 
-    def run_metrics(kimg: int) -> None:
+    def run_metrics(snap_state: TrainState, kimg: int, stream=None) -> None:
         # A metric failure must not end a long training run: the snapshot
         # holds the state, so log it and go on.
         try:
-            for name, value in metric_fn(state, kimg=kimg).items():
+            with torch.cuda.stream(stream):  # None: the caller's stream
+                results = metric_fn(snap_state, kimg=kimg)
+            for name, value in results.items():
                 print(f"metric {name}: {value:.4f}", flush=True)
         except Exception as e:  # noqa: BLE001 (deliberate isolation)
             print(f"metric evaluation failed at kimg {kimg} (continuing): {e!r}", flush=True)
             traceback.print_exc()
+
+    metric_thread = None
+    metric_stream = torch.cuda.Stream(device) if metric_async and device.type == "cuda" else None
 
     snapshot_idx = 0
     cur_tick = 0
@@ -158,12 +195,26 @@ def training_loop(
             snapshot_idx += 1
             if (metric_fn is not None and metrics
                     and (done or (snapshot_idx - 1) % max(metric_snapshot_every, 1) == 0)):
-                run_metrics(state.cur_nimg // 1000)
+                kimg = state.cur_nimg // 1000
+                if metric_thread is not None:
+                    metric_thread.join()
+                    metric_thread = None
+                if metric_async and not done:
+                    snap = metric_snapshot(state)
+                    if metric_stream is not None:
+                        _hand_to_stream(snap, metric_stream)
+                    metric_thread = threading.Thread(target=run_metrics,
+                                                     args=(snap, kimg, metric_stream), daemon=True)
+                    metric_thread.start()
+                else:
+                    run_metrics(state, kimg)
 
         cur_tick += 1
         tick_start_nimg = state.cur_nimg
         maintenance_time = time.time() - maintenance_start
         tick_start_time = time.time()
 
+    if metric_thread is not None:
+        metric_thread.join()
     jsonl.close()
     return state

@@ -1,27 +1,29 @@
 """Device time of one profiled training step by kernel, on one NVIDIA GPU,
 for this checkout or another one of the repository.
 
-    python3 step_profile.py            # claro and StyleGAN3-T, this tree
+    python3 step_profile.py            # claro, StyleGAN3-T, unfused claro
     python3 step_profile.py --ab=DIR   # DIR's tree and this one in turns:
                                        # DIR, this, this, DIR
 
 Each configuration is built as the training CLI builds it, from a fixed
 seed, on a synthetic 256² dataset: the claro StyleGAN2-ADA recipe at
-batch 32 (default routes) and StyleGAN3-T at full width at batch 16
-(``chip_smoke.CLARO_ARGS``, ``chip_smoke.SG3_ARGS``), with ADA p = 0.3.
-After three warm-up steps it takes three plain steps on the host clock
-(median) and one plain step under ``torch.profiler``; the rows of the
-FIR kernels are named by form and tap count, those of K1–K4 by kernel
-(``chip_smoke.kernel_label``).  Then it takes a digest of what K7, K6,
-K5 and K4 give at StyleGAN3-T's largest ×2 and ↓2 calls, the claro G
-post-filter and the unfused augment's warp, and of what K1 and K2 give
-at the augment's call (bf16, 64 planes of 406 × 403 ↔ 524², transforms
-drawn by the pipe at p = 1), from seeded inputs.  With ``--ab`` each turn
-is a process of its own that imports the ``gantrack_tpu_torch`` of its
-tree (so each tree builds and launches its own kernels), and the last
-lines compare the turns: times, the FIR rows by form, tap count and
-dtype, the K1 and K2 rows, and whether the two trees' kernels give the
-same bits.  Needs a CUDA card; exits 2 without one.
+batch 32 (default routes), StyleGAN3-T at full width at batch 16
+(``chip_smoke.CLARO_ARGS``, ``chip_smoke.SG3_ARGS``) and the claro recipe
+with ``AugmentPipe(impl="unfused")`` (K7 → K3 → K6, K4 in the backward),
+with ADA p = 0.3.  After three warm-up steps it takes three plain steps
+on the host clock (median) and one plain step under ``torch.profiler``;
+the rows of the FIR kernels are named by form and tap count, those of
+K1–K4 by kernel (``chip_smoke.kernel_label``).  Then it takes a digest
+of what K7, K6, K5 and K4 give at StyleGAN3-T's largest ×2 and ↓2 calls,
+the claro G post-filter and the unfused augment's warp, of what K1 and
+K2 give at the augment's call (bf16, 64 planes of 406 × 403 ↔ 524²,
+transforms drawn by the pipe at p = 1), and of what K3 gives at its two
+calls (``chip_smoke._warp_cases``), from seeded inputs.  With ``--ab``
+each turn is a process of its own that imports the ``gantrack_tpu_torch``
+of its tree (so each tree builds and launches its own kernels), and the
+last lines compare the turns: times, the FIR rows by form, tap count and
+dtype, the K1–K4 rows, and whether the two trees' kernels give the same
+bits.  Needs a CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CONFIGS = ("claro", "stylegan3-t")
+CONFIGS = ("claro", "stylegan3-t", "claro-unfused")
 
 
 def profile_tree(tree: str) -> dict:
@@ -59,11 +61,13 @@ def profile_tree(tree: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="step_profile_") as tmp:
         data = cs._synthetic_dataset(tmp, count=64)
         for cfg in CONFIGS:
-            args = cs.CLARO_ARGS if cfg == "claro" else [*cs.SG3_ARGS, "--batch=16"]
+            args = cs.CLARO_ARGS if cfg.startswith("claro") else [*cs.SG3_ARGS, "--batch=16"]
             opts = cli.build_parser().parse_args([f"--outdir={tmp}", f"--data={data}", *args])
             device = cs._cli_device(cli, args)
             torch.manual_seed(0)
-            _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
+            impl = "unfused" if cfg == "claro-unfused" else "fused"
+            _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device,
+                                                           augment_impl=impl)
             try:
                 real_img, real_c = to_device_batch(*next(loader), device)
             finally:
@@ -104,7 +108,10 @@ def kernel_digests() -> dict:
     4 taps, gain 4) and of K4's at the unfused augment's warp (bf16 64 ×
     812×806 → 524², a rotation and a shrink of 0.55–0.75), from inputs
     made on the card from fixed seeds; and of K1's and K2's at the
-    augment's call (``chip_smoke._upwarp_case``, 64 planes)."""
+    augment's call (``chip_smoke._upwarp_case``, 64 planes), and of K3's at
+    its two calls (``chip_smoke._warp_cases``: the unfused augment's bf16
+    64 × 812×806 → 524² at the pipe's draws at p = 1, the eq metrics' f32
+    8 × 256² at rotations)."""
     import importlib
     import math
 
@@ -152,6 +159,15 @@ def kernel_digests() -> dict:
         uw.upwarp_planes(x, coeffs, taps, oh, ow))
     out[f"upsplat bf16 64 x {h1}x{w1} <- {oh}²"] = _digest(
         uw.upsplat_planes(g, coeffs, taps, h1, w1))
+    del x, g
+    cases, gen_w = cs._warp_cases()
+    for _, theta, h, w, oh, ow, dtype in cases:
+        n = theta.shape[0]
+        x = torch.randn((n, h, w), device=dev, generator=gen_w)
+        x = x.bfloat16() if dtype == "bf16" else x
+        out[f"warp {dtype} {n} x {h}x{w} -> {oh}x{ow}"] = _digest(
+            wp.warp_planes(x, warp_coefficients(theta, h, w, oh, ow), oh, ow))
+        del x
     return out
 
 
@@ -182,15 +198,16 @@ def run_ab(other: str) -> int:
             row = {"turn": label, "cfg": cfg, "device_ms": r["total_ms"], "step_ms": r["step_ms"],
                    **{f"fir_{form}_ms": _rows_ms(r["rows"], f"FIR {form}")
                       for form in ("same", "down2", "up2")},
-                   "k1_ms": _rows_ms(r["rows"], "K1 "), "k2_ms": _rows_ms(r["rows"], "K2 ")}
+                   **{f"k{i}_ms": _rows_ms(r["rows"], f"K{i} ") for i in (1, 2, 3, 4)}}
             summary.append(row)
             print(f"  {label:5s} {cfg:12s} device {row['device_ms']:9.2f}  host step "
                   f"{row['step_ms']:9.1f}  FIR up2 {row['fir_up2_ms']:8.2f}  down2 "
                   f"{row['fir_down2_ms']:8.2f}  same {row['fir_same_ms']:8.2f}  K1 "
-                  f"{row['k1_ms']:7.3f}  K2 {row['k2_ms']:7.3f}")
-            print("        K1, K2 by kernel and dtype: " + "; ".join(
+                  f"{row['k1_ms']:7.3f}  K2 {row['k2_ms']:7.3f}  K3 {row['k3_ms']:7.3f}  K4 "
+                  f"{row['k4_ms']:7.3f}")
+            print("        K1-K4 by kernel and dtype: " + "; ".join(
                 f"{k} {t:.3f}" for k, t in sorted(r["rows"].items())
-                if k.startswith(("K1 ", "K2 "))))
+                if k.startswith(("K1 ", "K2 ", "K3 ", "K4 "))))
             print("        by form, taps and dtype: " + "; ".join(
                 f"{k[4:].split(' [')[0]} {t:.2f}" for k, t in sorted(r["rows"].items())
                 if k.startswith("FIR ")))

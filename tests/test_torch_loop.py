@@ -12,6 +12,12 @@
   finite ``metric-fid1k.jsonl`` rows on every other snapshot (and the
   last); a failing metric is logged and training goes on;
   ``calc_metrics --device=cpu`` on the run directory writes ``kid10k``.
+* ``metric_async``, as ``tests/test_metric_cadence.py`` holds the JAX
+  loop: kimg stamps 1, 2, 3, the snapshots that are not the last off the
+  loop's thread, the last on it; the thread reads the snapshot's
+  ``G_ema`` after the loop has stepped on; ``--metric-async`` trains
+  through the CLI; the zip reader gives the same items read from threads
+  at once as read in turn.
 * StyleGAN3: exact resume of a state that holds ``magnitude_ema``; the
   CLI with ``--cfg=stylegan3-t`` and ``-r`` for two ticks, a checkpoint,
   ``--resume``, and the equivariance metrics of the run's G_ema at 8
@@ -21,7 +27,11 @@
 import functools
 import json
 import os
+import pickle
 import struct
+import threading
+import time
+import zipfile
 import zlib
 
 import numpy as np
@@ -29,6 +39,7 @@ import pytest
 import torch
 
 from gantrack_tpu_torch.data import pack_shards
+from gantrack_tpu_torch.data.dataset import ZipSliceDataset
 from gantrack_tpu_torch.metrics import registry
 from gantrack_tpu_torch.metrics.equivariance import compute_equivariance_metrics
 from gantrack_tpu_torch.models import stylegan2 as tsg2
@@ -200,7 +211,7 @@ def test_cli_dry_run_prints_config(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--metrics=eqr1k", "--metrics=ppl2_wend", "--devices=2",
-                                  "--batch-gpu=2", "--freezed=2", "--metric-async"])
+                                  "--batch-gpu=2", "--freezed=2"])
 def test_cli_refuses_what_the_slice_does_not_run(flag, tmp_path):
     opts = cli.build_parser().parse_args(
         [f"--outdir={tmp_path}", "--data=unused", *TINY_ARGS, flag])
@@ -373,3 +384,141 @@ def test_cli_trains_stylegan3_and_resumes(cfg, tiny_dataset, tmp_path, monkeypat
         tmetrics.calc_metric = saved
     assert set(results) == {"eqt_int", "eqt_frac", "eqr"}
     assert all(np.isfinite(v) for v in results.values())
+
+
+class _CountingStepper:
+    """A stand-in step for the loop's metric cadence: ``batch_size`` images
+    a call, and every ``G_ema`` parameter raised by 1 in place, as
+    ``update_ema`` writes it."""
+
+    def __init__(self, batch_size):
+        self.cfg = tstep.TrainStepConfig(batch_size=batch_size, z_dim=ZDIM)
+        self.generator = torch.Generator().manual_seed(0)
+
+    def __call__(self, state, real_img, real_c):
+        with torch.no_grad():
+            for p in state.G_ema.parameters():
+                p.add_(1.0)
+        state.step += 1
+        state.cur_nimg += self.cfg.batch_size
+        return {}
+
+
+class _Batches:
+    dataset = None
+
+    def __next__(self):
+        return np.zeros((BATCH, RES, RES, 1), np.float32), np.zeros((BATCH, 0), np.float32)
+
+
+def _cadence_run(tmp_path, metric_fn, **kwargs):
+    """3 kimg at 250 images a step, a tick a kimg after tick 0 (the first
+    step), a snapshot every tick: metrics at kimg 1, 2 and 3 (the last)."""
+    state, _ = _stepper()
+    run_dir = str(tmp_path / "run")
+    os.makedirs(run_dir)
+    loop.training_loop(run_dir=run_dir, stepper=_CountingStepper(250), state=state,
+                       loader=_Batches(), device=torch.device("cpu"), total_kimg=3,
+                       kimg_per_tick=1, snapshot_ticks=1, image_snapshot_ticks=None,
+                       metrics=["fake_metric"], metric_fn=metric_fn, verbose=False, **kwargs)
+    return state
+
+
+@pytest.mark.parametrize("metric_async", [False, True], ids=["sync", "async"])
+def test_metric_cadence_and_threads(tmp_path, metric_async):
+    calls = []
+
+    def metric_fn(state, kimg=None):
+        calls.append(dict(kimg=kimg, thread=threading.get_ident(), step=state.step))
+        return {"fake_metric": float(kimg)}
+
+    _cadence_run(tmp_path, metric_fn, metric_async=metric_async)
+    assert [c["kimg"] for c in calls] == [1, 2, 3]
+    main = threading.get_ident()
+    if metric_async:  # the snapshots that are not the last run off the loop's thread
+        assert all(c["thread"] != main for c in calls[:-1])
+    else:
+        assert all(c["thread"] == main for c in calls)
+    assert calls[-1]["thread"] == main
+    steps = [c["step"] for c in calls]  # each call sees its own snapshot's state
+    assert steps == sorted(steps) and len(set(steps)) == 3
+
+
+def test_metric_thread_reads_the_snapshot_g_ema(tmp_path):
+    """A background metric that waits until the loop has taken another step
+    still reads ``G_ema`` as the snapshot left it: the live one has moved
+    on in place (every step adds 1 to each parameter)."""
+    seen = []
+    live = {}
+
+    def metric_fn(state, kimg=None):
+        if threading.get_ident() != main:
+            deadline = time.monotonic() + 60
+            while live["state"].step <= state.step and time.monotonic() < deadline:
+                time.sleep(0.001)
+        first = next(state.G_ema.parameters())
+        seen.append(dict(step=state.step, live_step=live["state"].step,
+                         shift=float((first - init).max()), spread=float((first - init).min())))
+        return {"fake_metric": 0.0}
+
+    main = threading.get_ident()
+    state, _ = _stepper()
+    init = next(state.G_ema.parameters()).detach().clone()
+    live["state"] = state
+    run_dir = str(tmp_path / "run")
+    os.makedirs(run_dir)
+    loop.training_loop(run_dir=run_dir, stepper=_CountingStepper(250), state=state,
+                       loader=_Batches(), device=torch.device("cpu"), total_kimg=3,
+                       kimg_per_tick=1, snapshot_ticks=1, image_snapshot_ticks=None,
+                       metrics=["fake_metric"], metric_fn=metric_fn, metric_async=True,
+                       verbose=False)
+    # Each step moves G_ema by 1; 1e-3 is the float32 rounding of the adds.
+    assert len(seen) == 3
+    for row in seen[:-1]:
+        assert row["live_step"] > row["step"]  # the loop stepped on while the metric ran
+        for moved in (row["shift"], row["spread"]):  # the snapshot's G_ema, not the live one
+            assert abs(moved - row["step"]) < 1e-3
+    assert seen[-1]["step"] == state.step and abs(seen[-1]["shift"] - state.step) < 1e-3
+
+
+def test_cli_train_with_metric_async(tiny_dataset, tmp_path):
+    """``--metric-async`` through the CLI: the first snapshot's fid1k runs
+    on the thread, the last one's in the loop; both rows are written."""
+    run_dir = str(tmp_path / "run")
+    _train(tiny_dataset, run_dir, ["--metrics=fid1k", "--metric-async"], steps=3)
+    with open(os.path.join(run_dir, "metric-fid1k.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert len(rows) == 2  # snapshots at ticks 1 and 2 (the last)
+    for row in rows:
+        assert row["metric"] == "fid1k" and np.isfinite(row["results"]["fid1k"])
+
+
+def test_zip_reader_reads_alike_from_threads(tmp_path):
+    """The metric thread reads real images from the dataset the loader's
+    workers read: a zip reader shares one ``ZipFile``, whose member reads
+    CPython serialises, so four threads at once read what one reads in
+    turn."""
+    path = str(tmp_path / "slices.zip")
+    rng = np.random.default_rng(1)
+    with zipfile.ZipFile(path, "w") as z:
+        for i in range(24):
+            item = {m: rng.uniform(0, 255, (RES, RES)).astype(np.float32)
+                    for m in ("MR_nonrigid_CT", "MR_MR_T2")}
+            z.writestr(f"train/p{i}/p{i}_0.pickle", pickle.dumps(item))
+    dataset = ZipSliceDataset(path)
+    want = [dataset[i][0] for i in range(len(dataset))]
+    got = {}
+
+    def read(k):
+        for _ in range(5):
+            for i in range(k, len(dataset), 4):
+                got.setdefault(i, []).append(dataset[i][0])
+
+    threads = [threading.Thread(target=read, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sorted(got) == list(range(len(dataset)))
+    for i, images in got.items():
+        assert all(np.array_equal(img, want[i]) for img in images)

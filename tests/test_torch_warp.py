@@ -10,6 +10,9 @@ against ``jax.grad``; the gradient of a gradient against the JAX gather
 form only, because Pallas interpret mode cannot nest kernel traces.
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,7 @@ from gantrack_tpu.ops.pallas.warp import window_bounds_for
 from gantrack_tpu_torch import ops
 from gantrack_tpu_torch.ops import warp as wp
 from gantrack_tpu_torch.ops.grid_sample import warp_coefficients
+from gantrack_tpu_torch.training.augment import AugmentPipe, medical_augment_config
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -219,3 +223,87 @@ def test_splat_bounds_hold_every_hit(kind):
                     assert np.ceil(iv[0]) <= in_row.min() and in_row.max() <= np.floor(iv[1]), (
                         coef, vx, vy, oy, in_row, iv)
     assert hits > 0 and in_strips > 0
+
+
+# ---------------------------------------------------------------------------
+# K3's maps: the unfused augment's draws at p = 1, the eq metrics'
+# rotations, and the kinds the card tests hold K3 to.  The port's
+# ``affine_warp`` on them against JAX's gather form; and the count of input
+# samples K3 reads there (``chip_smoke._warp_reads``, which its byte bound
+# is made of) against the support of the plain version's gradient.
+
+_ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _rot(angle_deg, scale=1.0, shift=(0.0, 0.0)):
+    a = np.deg2rad(angle_deg)
+    return [[scale * np.cos(a), scale * np.sin(a), shift[0]],
+            [-scale * np.sin(a), scale * np.cos(a), shift[1]]]
+
+
+_K3_THETAS = {
+    "rotate 45, scale 0.5": (_rot(45, 0.5, (0.03, -0.02)), (70, 66, 75, 81)),
+    "rotate 45, scale 2": (_rot(45, 2.0), (70, 66, 40, 44)),
+    "x-flip, rotate 30": ([[-np.cos(0.5), -np.sin(0.5), 0.0], [-np.sin(0.5), np.cos(0.5), 0.1]],
+                          (45, 53, 67, 33)),
+    "shrink 2.2": (_rot(0, 1.0), (264, 264, 120, 120)),
+    "zoom out 8": (_rot(10, 8.0), (300, 280, 70, 75)),
+    "near-singular shear": ([[0.5, 1.0, 0.1], [0.25, 0.5 + 3e-5, -0.1]], (60, 64, 50, 70)),
+    "integer positions": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], (64, 64, 64, 64)),
+}
+_K3_KINDS = ["augment p=1", "eq rotation", *_K3_THETAS]
+
+
+def _k3_case(kind):
+    """theta [N, 2, 3] float32 and (h, w, oh, ow) of a K3 call."""
+    if kind == "augment p=1":
+        pipe = AugmentPipe(medical_augment_config(), 32, 32, 1, impl="unfused")
+        gen = torch.Generator().manual_seed(7)
+        theta, oh, ow = pipe.warp_geometry(pipe.sample_geometric(3, 1.0, "cpu", gen))
+        mx0, mx1, my0, my1 = pipe.margin
+        return theta.float(), (2 * (32 + my0 + my1), 2 * (32 + mx0 + mx1), oh, ow)
+    if kind == "eq rotation":
+        angle = np.random.default_rng(5).uniform(0, 360, 3)
+        return torch.tensor([_rot(a) for a in angle], dtype=torch.float32), (96, 96, 96, 96)
+    theta, shape = _K3_THETAS[kind]
+    return torch.tensor([theta], dtype=torch.float32), shape
+
+
+# JAX's gather form takes its positions from a normalised grid, in
+# another order of operations; at the zoom out by 8 they reach 600 pixels,
+# where the two roundings part by more than TOL, so that map is held to
+# the plain version on the card only.
+@pytest.mark.parametrize("kind", [k for k in _K3_KINDS if k != "zoom out 8"])
+def test_forward_matches_jax_gather_at_k3_maps(kind):
+    theta, (h, w, oh, ow) = _k3_case(kind)
+    rng = np.random.default_rng(_K3_KINDS.index(kind))
+    img = rng.standard_normal((theta.shape[0], h, w, 1)).astype(np.float32)
+    want = np.asarray(j_grid_sample(jnp.asarray(img), j_affine_grid(jnp.asarray(theta.numpy()),
+                                                                    oh, ow)))
+    got = _nhwc(ops.affine_warp(_nchw(img), theta, oh, ow))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("kind", _K3_KINDS)
+def test_k3_reads_are_the_plain_gradient_support(kind):
+    """The input samples K3 reads (a tap with a nonzero weight on the
+    plane) are those where the plain version's gradient against a random
+    cotangent is nonzero, and the outputs that read any are those where
+    the warp of ones is positive (the weights are nonnegative)."""
+    theta, (h, w, oh, ow) = _k3_case(kind)
+    n = theta.shape[0]
+    coeffs = warp_coefficients(theta, h, w, oh, ow)
+    read, hit = _chip_smoke()._warp_reads(coeffs, h, w, oh, ow)
+    x = torch.zeros((n, 1, h, w), requires_grad=True)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal((n, 1, oh, ow)).astype(np.float32))
+    (grad,) = torch.autograd.grad(wp.affine_warp_plain(x, coeffs, oh, ow), x, g)
+    ones = wp.affine_warp_plain(torch.ones((n, 1, h, w)), coeffs, oh, ow)
+    assert read == int((grad != 0).sum()) and hit == int((ones > 0).sum())
+    assert 0 < read and 0 < hit

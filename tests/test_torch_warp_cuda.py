@@ -5,9 +5,14 @@ so it runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_warp_cuda.py
 
-Tolerance 1e-5 of the largest reference value in float32: kernel and
-plain version sample at bitwise-equal positions and sum the same four
-terms in another order.  K4 must be bitwise deterministic.
+Tolerance 1e-5 of the largest reference value in float32 (1e-2 in bf16,
+where the output's rounding dominates): kernel and plain version sample
+at bitwise-equal positions and sum the same four terms in another order.
+K3 and K4 must be bitwise deterministic.  K3 (a block a 32 × 32 output
+tile in several planes, a thread two columns of two rows) is held to the
+plain version at tile edges, odd widths and 1-pixel outputs, on a zoom
+out and a shrink, on a view that starts at an odd element, with inf and
+NaN inputs under zero weights and with non-finite coefficients.
 """
 
 import numpy as np
@@ -189,3 +194,117 @@ def test_splat_transforms_match_plain_on_card(cuda_device, kind, shape):
     lhs = float((wp.warp_planes(x, coeffs, oh, ow).double() * g.double()).sum())
     rhs = float((x.double() * adj.double()).sum())
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+def _k3_checks(x, coeffs, oh, ow, rel=1e-5):
+    """K3 against the plain version in f32 (1e-5) and bf16 (1e-2), bitwise
+    the same over two calls."""
+    for planes, tol in ((x, rel), (x.bfloat16(), 1e-2)):
+        got = wp.warp_planes(planes, coeffs, oh, ow)
+        torch.cuda.synchronize()
+        ref = wp.affine_warp_plain(planes.float()[:, None], coeffs, oh, ow)[:, 0]
+        _close(got.float(), ref, rel=tol)
+        assert torch.equal(got, wp.warp_planes(planes, coeffs, oh, ow))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (40, 44, 33, 31),     # partial tiles on both axes
+    (37, 53, 65, 97),     # odd widths, an output larger than the input
+    (48, 48, 32, 32),     # whole tiles
+    (9, 7, 1, 1),         # one output pixel
+    (1, 1, 1, 1),         # one input pixel
+    (50, 57, 1, 40),      # one output row
+])
+def test_k3_tiles_at_edges_on_card(cuda_device, shape):
+    """K3 at tile edges, odd widths (a thread's second column off the
+    plane, pairs stored at odd offsets) and 1-pixel outputs."""
+    h, w, oh, ow = shape
+    rng = np.random.default_rng(11)
+    theta = torch.from_numpy(_thetas(rng, 4)).to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((4, h, w)).astype(np.float32)).to(cuda_device)
+    _k3_checks(x, warp_coefficients(theta, h, w, oh, ow), oh, ow)
+
+
+@pytest.mark.cuda
+def test_k3_zoom_out_and_shrink_on_card(cuda_device):
+    """A zoom out by 8 (a tile's taps spread over 256 input columns) and a
+    shrink by 2.2 agree with the plain version."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((1, 300, 280)).astype(np.float32)).to(cuda_device)
+    a = np.deg2rad(10)
+    zoom = torch.tensor([[[8 * np.cos(a), 8 * np.sin(a), 0.0], [-8 * np.sin(a), 8 * np.cos(a), 0.0]]],
+                        dtype=torch.float32, device=cuda_device)
+    _k3_checks(x, warp_coefficients(zoom, 300, 280, 70, 75), 70, 75)
+    shrink = torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]], device=cuda_device)
+    x = torch.from_numpy(rng.standard_normal((1, 264, 264)).astype(np.float32)).to(cuda_device)
+    _k3_checks(x, warp_coefficients(shrink, 264, 264, 120, 120), 120, 120)
+
+
+@pytest.mark.cuda
+def test_k3_on_a_view_at_an_odd_offset_on_card(cuda_device):
+    """Planes that start at an odd element of their storage (a contiguous
+    view of a larger buffer, even widths) warp as their copy does."""
+    rng = np.random.default_rng(16)
+    theta = torch.from_numpy(_thetas(rng, 3)).to(cuda_device)
+    coeffs = warp_coefficients(theta, 40, 44, 36, 38)
+    flat = torch.from_numpy(rng.standard_normal(1 + 3 * 40 * 44).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = flat.to(cuda_device, dtype)
+        view = buf[1:].view(3, 40, 44)
+        assert view.is_contiguous() and view.storage_offset() == 1
+        got = wp.warp_planes(view, coeffs, 36, 38)
+        torch.cuda.synchronize()
+        assert torch.equal(got, wp.warp_planes(view.clone(), coeffs, 36, 38))
+
+
+@pytest.mark.cuda
+def test_k3_skips_inf_and_nan_under_zero_weights_on_card(cuda_device):
+    """Integer source positions give zero weights to the second tap of
+    each axis; an inf or NaN there stays out of the sum, in the staged
+    at a shift and at a zoom out by 8: K3 gives the pixels it reads, where
+    the plain version's 0 * NaN is NaN."""
+    rng = np.random.default_rng(13)
+    for shift, scale, (h, w), (oh, ow) in ((3, 1, (40, 44), (36, 40)), (0, 8, (300, 300), (37, 37))):
+        x = torch.from_numpy(rng.standard_normal((2, h, w)).astype(np.float32)).to(cuda_device)
+        read = torch.zeros((h, w), dtype=torch.bool, device=cuda_device)
+        read[shift:shift + scale * oh:scale, shift:shift + scale * ow:scale] = True
+        bad = x.clone()
+        bad[0][~read] = float("inf")
+        bad[1][~read] = float("nan")
+        coeffs = torch.tensor([[scale, 0.0, shift, 0.0, scale, shift]] * 2, device=cuda_device)
+        want = x[:, shift:shift + scale * oh:scale, shift:shift + scale * ow:scale]
+        for planes in (bad, bad.bfloat16()):
+            got = wp.warp_planes(planes, coeffs, oh, ow)
+            torch.cuda.synchronize()
+            assert torch.equal(got.float(), want.to(planes.dtype).float())
+
+
+@pytest.mark.cuda
+def test_k3_non_finite_coefficients_give_zeros_on_card(cuda_device):
+    """NaN or inf coefficients: K3 writes zeros, and the other planes of
+    the call are unaffected."""
+    rng = np.random.default_rng(14)
+    theta = torch.from_numpy(_thetas(rng, 4)).to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((4, H, W)).astype(np.float32)).to(cuda_device)
+    coeffs = warp_coefficients(theta, H, W, OUT_H, OUT_W)
+    coeffs[1, 2] = float("inf")
+    coeffs[2, 4] = float("nan")
+    coeffs[3, 0] = -float("inf")
+    got = wp.warp_planes(x, coeffs, OUT_H, OUT_W)
+    torch.cuda.synchronize()
+    assert not got[1:].any()
+    _close(got[:1], _plain(x[:1], coeffs[:1]))
+
+
+@pytest.mark.cuda
+def test_k3_digest_stable_over_two_calls_on_card(cuda_device):
+    """K3's bits at a rotation and shrink of the unfused augment's kind, in
+    bf16 and f32, are the same over two calls."""
+    rng = np.random.default_rng(15)
+    theta = torch.from_numpy(_family("shrink", n=4)).to(cuda_device)
+    coeffs = warp_coefficients(theta, 203, 201, 131, 129)
+    x = torch.from_numpy(rng.standard_normal((4, 203, 201)).astype(np.float32)).to(cuda_device)
+    for planes in (x, x.bfloat16()):
+        first = wp.warp_planes(planes, coeffs, 131, 129)
+        assert torch.equal(first, wp.warp_planes(planes, coeffs, 131, 129))
