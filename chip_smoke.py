@@ -47,12 +47,15 @@ per source, all started together), then:
    the default (random projection) detector, and fid1k with a
    ``tfslim`` InceptionV3 of seeded random weights at 299²; times the
    generator pass of each detector;
-4. trains StyleGAN3-T at its published width and depth (cbase 32768,
-   cmax 512, 14 layers, mapping depth 2, bf16 in the 4 highest rates)
-   through the CLI on the same dataset for 1 kimg at the largest batch of
-   32, 16, 8 that fits the card, with ``--metrics=eqt1k_int,eqr1k`` at the
+4. trains StyleGAN3-T at its published width, depth and batch (cbase
+   32768, cmax 512, 14 layers, mapping depth 2, bf16 in the 4 highest
+   rates, batch 32) through the CLI on the same dataset for 1 kimg, its
+   gradients accumulated over the largest chunk (``--batch-gpu``) of 32,
+   16, 8 that fits the card, with ``--metrics=eqt1k_int,eqr1k`` at the
    snapshot, then runs ``calc_metrics --cfg=stylegan3-t
-   --metrics=fid1k,eqr1k`` on the checkpoint; times each phase variant,
+   --metrics=fid1k,eqr1k`` on the checkpoint; times each phase variant of
+   the accumulated step at 32 beside an unaccumulated step at 16 from the
+   same state, with the peak memory of each,
    profiles one step (FIR rows named by form and tap count), tries the
    metrics' generator pass at batch 128, 64
    and 32 (the batch the CLIs pick must fit in half the card), and prints
@@ -72,7 +75,14 @@ per source, all started together), then:
    ``--metric-async`` (fid1k at kimg 1 on a background thread over a copy
    of G_ema, at kimg 2 in the loop): the rows, the copy's size and time,
    the peak device memory with the thread overlapping training;
-8. prints the kernel report and, last, the device line.
+8. runs the generation leg on the claro and StyleGAN3-T checkpoints at
+   full width through the port's tools: ``gen_images`` (32 seeds, ψ 0.7,
+   StyleGAN3-T also rotated and translated), ``style_mixing``,
+   ``gen_video``, ``capture_layers``, ``avg_spectra`` (256 reals, 256
+   fakes), ``project`` on 2 slices for 200 steps with a random-weight
+   VGG16 as the LPIPS network, w-space PPL on 2000 samples and the
+   visualizer's routes on localhost, which launch K5, K6 and K7;
+9. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
 device the script exits with code 2 and prints no result.
@@ -80,6 +90,7 @@ device the script exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1447,21 +1458,25 @@ def _step_times(stepper, state, real_img, real_c, variants, plain_route=(),
     return out
 
 
-def _pick_batch(cli, tmp: str, data: str, args, device, sizes=(32, 16, 8)) -> int:
-    """The largest batch of ``sizes`` at which one +Dreg step fits the
-    card with room to spare: its peak must stay under 80 % of the card's
-    memory, because the CLI run also renders image grids and evaluates
-    metrics between steps, and the caching allocator fragments (at batch
-    32 the step alone peaked at 94 % of an 80 GB card and the run then ran
-    out in G-main).  Running out of device memory here is the question
-    asked, so it is caught; nothing else is."""
+def _pick_batch_gpu(cli, tmp: str, data: str, args, device, batch: int = 32,
+                    sizes=(32, 16, 8)) -> int:
+    """The largest chunk of ``sizes`` (``--batch-gpu``) at which one +Dreg
+    step of ``--batch=batch`` fits the card with room to spare: its peak
+    must stay under 80 % of the card's memory, because the CLI run also
+    renders image grids and evaluates metrics between steps, and the
+    caching allocator fragments (unaccumulated, batch 32 peaked at 94 % of
+    an 80 GB card and the run then ran out in G-main).  Running out of
+    device memory here is the question asked, so it is caught; nothing
+    else is."""
     import torch
 
     from gantrack_tpu_torch.training.loop import to_device_batch
 
-    for batch in sizes:
-        argv = [f"--outdir={tmp}", f"--data={data}", f"--batch={batch}", *args]
+    for batch_gpu in sizes:
+        argv = [f"--outdir={tmp}", f"--data={data}", f"--batch={batch}",
+                f"--batch-gpu={batch_gpu}", *args]
         opts = cli.build_parser().parse_args(argv)
+        cli.check_slice(opts)
         _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
         try:
             real_img, real_c = to_device_batch(*next(loader), device)
@@ -1477,15 +1492,15 @@ def _pick_batch(cli, tmp: str, data: str, args, device, sizes=(32, 16, 8)) -> in
         peak = torch.cuda.max_memory_allocated() / 2**30
         total = torch.cuda.get_device_properties(device).total_memory / 2**30
         roomy = fits and peak <= 0.8 * total
-        print(f"  batch {batch}: one +Dreg step "
+        print(f"  batch {batch} in chunks of {batch_gpu}: one +Dreg step "
               + (f"peaks at {peak:.2f} GiB of {total:.2f} GiB" if fits
                  else f"runs out of memory (at {peak:.2f} GiB of {total:.2f} GiB)")
               + ("" if roomy else ": not taken"))
         del state, stepper, real_img, real_c
         torch.cuda.empty_cache()
         if roomy:
-            return batch
-    raise AssertionError(f"no batch of {sizes} fits the card")
+            return batch_gpu
+    raise AssertionError(f"batch {batch} fits the card in no chunk of {sizes}")
 
 
 def _probe_metric_batch(cli, g_ema, card: str, res: int, sizes=(128, 64, 32)) -> None:
@@ -1605,9 +1620,11 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
 
 
 def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 256):
-    """Phase 4: StyleGAN3-T at full width through the CLI with the
-    equivariance metrics at the snapshot, then ``calc_metrics`` on its
-    checkpoint.  Returns the launch counts of both runs, summed."""
+    """Phase 4: StyleGAN3-T at full width and its published batch 32
+    (gradients accumulated over chunks of ``--batch-gpu``) through the CLI
+    with the equivariance metrics at the snapshot, then ``calc_metrics``
+    on its checkpoint.  Returns the run dir and the launch counts of both
+    runs, summed."""
     import numpy as np
     import torch
 
@@ -1615,12 +1632,16 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     from gantrack_tpu_torch.tools import calc_metrics
     from gantrack_tpu_torch.tools import train as cli
     from gantrack_tpu_torch.training.loop import to_device_batch
+    from gantrack_tpu_torch.training.step import TrainStepper
     from gantrack_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 
     device = _cli_device(cli, args)
-    print("phase 4: StyleGAN3-T at full width; the largest batch of 32, 16, 8 that fits")
-    batch = _pick_batch(cli, tmp, data, args, device)
-    argv = [f"--outdir={os.path.join(tmp, 'runs3')}", f"--data={data}", f"--batch={batch}", *args]
+    batch = 32
+    print(f"phase 4: StyleGAN3-T at full width, batch {batch}; the largest chunk (--batch-gpu) "
+          "of 32, 16, 8 that fits")
+    batch_gpu = _pick_batch_gpu(cli, tmp, data, args, device, batch)
+    argv = [f"--outdir={os.path.join(tmp, 'runs3')}", f"--data={data}", f"--batch={batch}",
+            f"--batch-gpu={batch_gpu}", *args]
     print(f"phase 4: python -m gantrack_tpu_torch.tools.train {' '.join(argv)}")
     _reset_launches()
     t0 = time.perf_counter()
@@ -1698,13 +1719,23 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
           f"ada_p {float(state.ada_p):.6f}; G, D, G_ema changed; magnitude_ema "
           f"{min(emas):.4f} .. {max(emas):.4f}; G_ema output finite")
 
-    torch.cuda.reset_peak_memory_stats()
-    times = _step_times(stepper, state, real_img, real_c,
-                        (("plain", (False, False)), ("+Dreg", (False, True))), SG3_T_PLAIN_ROUTE)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    for label, ms in times.items():
-        print(f"  step {label}: median {ms:.1f} ms of 3 (batch {batch}, {res}^2) on {card}")
-    print(f"  peak device memory over those steps: {peak:.2f} GiB (batch {batch}) on {card}")
+    # The accumulated step at 32, then one unaccumulated step at 16 from
+    # the same state (its first 16 images), each with its peak memory.
+    variants = (("plain", (False, False)), ("+Dreg", (False, True)))
+    half = TrainStepper(stepper.loss, dataclasses.replace(stepper.cfg, batch_size=batch // 2,
+                                                          micro_batches=1),
+                        stepper.generator, stepper.label_bank)
+    for label, st, n in ((f"batch {batch} in {stepper.cfg.micro_batches} chunks of {batch_gpu}",
+                          stepper, batch), (f"batch {batch // 2}, unaccumulated", half,
+                                            batch // 2)):
+        torch.cuda.reset_peak_memory_stats()
+        times = _step_times(st, state, real_img[:n], None if real_c is None else real_c[:n],
+                            variants, SG3_T_PLAIN_ROUTE)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for variant, ms in times.items():
+            print(f"  step {variant}, {label}: median {ms:.1f} ms of 3 ({res}^2; "
+                  f"{n / ms * 1e3:.1f} img/s) on {card}")
+        print(f"  peak device memory over those steps ({label}): {peak:.2f} GiB on {card}")
     _profile_step(stepper, state, real_img, real_c, (False, False), card, "plain StyleGAN3-T")
     _probe_metric_batch(cli, state.G_ema, card, res)
     del state, stepper, real_img, fakes
@@ -1724,7 +1755,7 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
           f"{dict(fir.PLAIN_ROUTE)}")
     for metric in ("fid1k", "eqr1k"):
         _metric_rows(run_dir, metric)
-    return {k: trained[k] + launches[k] for k in trained}
+    return run_dir, {k: trained[k] + launches[k] for k in trained}
 
 
 def run_unfused_augment(card: str, tmp: str, data: str, args=CLARO_ARGS):
@@ -1974,6 +2005,291 @@ def run_metric_async(card: str, tmp: str, data: str) -> dict:
     return launches
 
 
+def _record_fir_calls():
+    """Start noting every FIR kernel call: ``({(spec, planes shape, dtype):
+    calls}, stop)``; ``stop()`` puts the plain wrapper back."""
+    from gantrack_tpu_torch.ops import fir
+
+    calls = {}
+    launch = fir.fir_planes
+
+    def recording(x, spec, **kw):
+        key = (spec, tuple(x.shape), x.dtype)
+        calls[key] = calls.get(key, 0) + 1
+        return launch(x, spec, **kw)
+
+    fir.fir_planes = recording
+    return calls, lambda: setattr(fir, "fir_planes", launch)
+
+
+def check_fir_calls(card: str, calls: dict, path: str) -> None:
+    """Every distinct FIR call a path made (its spec, planes and dtype),
+    once more on a seeded random input: the kernel against ``fir_plain``
+    at phase 1's limits, 1e-5 of the largest output in float32 and 1e-2
+    in bf16 (the output's rounding).  These launches are not the path's."""
+    import torch
+
+    from gantrack_tpu_torch.ops import fir
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {}
+    for (spec, shape, dtype), n in calls.items():
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        ref = fir.fir_plain(x.float(), spec)
+        err = _max_err(fir.fir_planes(x, spec), ref)
+        limit = (1e-2 if dtype == torch.bfloat16 else 1e-5) * float(ref.abs().max())
+        name = f"fir_{spec.form}"
+        label = f"{list(shape)} {str(dtype)[6:]} pads {spec.pads}, {len(spec.taps_y)} taps"
+        if err > limit:
+            raise AssertionError(f"{path}: {name} {label}: error {err} above limit {limit}")
+        count, total, most = worst.get(name, (0, 0, (-1.0, "")))
+        worst[name] = (count + 1, total + n, max(most, (err / limit, label)))
+        del x, ref
+    torch.cuda.empty_cache()
+    for name, (count, total, (ratio, label)) in sorted(worst.items()):
+        print(f"  {name} on {path}'s own shapes: {count} distinct calls (of {total} on the "
+              f"path), each against the plain version; worst error {ratio:.3f} of its limit, "
+              f"at {label} on {card}")
+
+
+def compare_generation_routes(card: str, G, G3, vgg, target) -> None:
+    """The generation leg's two uses of the FIR kernels end to end, once on
+    the kernels and once with every kernel call replaced by its plain
+    version (``fir_plain`` in float32 on the same input, rounded to the
+    input's dtype, as phase 1 holds the kernels), on the same inputs: one
+    projector step (forward and backward through the claro synthesis at
+    batch 1, VGG16 LPIPS at 224²) at the card test's limits (loss rel
+    1e-3; gradients of w and of each noise buffer at relative norm error
+    ≤ 1e-2), and the images of two seeds, ψ 0.7, at batch 1 of claro and
+    of the rotated and translated StyleGAN3-T (relative norm error
+    ≤ 1e-2)."""
+    import torch
+
+    from gantrack_tpu_torch.models.vgg import lpips_features
+    from gantrack_tpu_torch.ops import fir
+    from gantrack_tpu_torch.tools import gen_images, projector
+
+    dev = torch.device("cuda")
+    cfg = projector.ProjectorConfig()
+    w_avg, _ = projector.compute_w_stats(G, 1000)
+    gen = torch.Generator().manual_seed(1)
+    noise0 = {n: torch.randn(b.shape, generator=gen)
+              for n, b in projector.noise_buffers(G).items()}
+    feature_fn = lambda x: lpips_features(vgg, x)  # noqa: E731
+    z = [gen_images.seed_latent(seed, G.z_dim).to(dev) for seed in (0, 1)]
+
+    def run():
+        w = w_avg.clone().requires_grad_(True)
+        noise = {n: b.to(dev).requires_grad_(True) for n, b in noise0.items()}
+        modes = projector.target_modalities(target, dev)
+        with torch.no_grad():
+            feats = [feature_fn(m) for m in modes]
+        loss, *_ = projector.projection_loss(G, w, noise, modes, feats, feature_fn, cfg)
+        grads = torch.autograd.grad(loss, [w, *noise.values()])
+        with torch.no_grad():
+            images = [g(zi, None, truncation_psi=0.7, noise_mode="const")
+                      for g in (G, G3) for zi in z]
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, images
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+    fir.PLAIN_ROUTE.clear()
+    loss_k, grads_k, images_k = run()
+    if not set(fir.PLAIN_ROUTE) <= set(SG3_T_PLAIN_ROUTE):
+        raise AssertionError(f"FIR calls left the kernels: {fir.PLAIN_ROUTE}")
+    launch, launched = fir.fir_planes, dict(fir.LAUNCHES)
+    fir.fir_planes = lambda x, spec, **kw: fir.fir_plain(x.float(), spec).to(x.dtype)
+    try:
+        loss_p, grads_p, images_p = run()
+    finally:
+        fir.fir_planes = launch
+    if fir.LAUNCHES != launched:
+        raise AssertionError("the plain run launched FIR kernels")
+    fir.PLAIN_ROUTE.clear()
+    _check("projector step loss, kernels vs plain (relative)", abs(loss_k - loss_p) / abs(loss_p),
+           1e-3)
+    _check(f"projector step gradients of w and {len(grads_k) - 1} noise buffers, kernels vs "
+           "plain (worst relative norm error)", max(map(rel, grads_k, grads_p)), 1e-2)
+    for i, label in enumerate(("claro seed 0", "claro seed 1", "StyleGAN3-T rotated seed 0",
+                               "StyleGAN3-T rotated seed 1")):
+        _check(f"{label} image, kernels vs plain (relative norm error)",
+               rel(images_k[i], images_p[i]), 1e-2)
+    print(f"  (the generation leg's kernels against the plain route on {card})")
+
+
+def run_generation(card: str, tmp: str, data: str, claro_dir: str, sg3_dir: str) -> dict:
+    """Phase 8: the generation leg on phase 2's claro checkpoint and phase
+    4's StyleGAN3-T checkpoint, at full width, through the port's tools:
+    ``gen_images`` (32 seeds, ψ 0.7; StyleGAN3-T also rotated and
+    translated), ``style_mixing`` 3×3, ``gen_video`` as a frame directory,
+    ``capture_layers`` for one seed, ``avg_spectra`` on 256 reals and 256
+    fakes, ``project`` on 2 dataset slices for 200 steps each with a
+    seeded random-weight VGG16 at 224² as the LPIPS network (the loss must
+    fall and the noise buffers stay normalised), ``compute_ppl`` in w space
+    at the path's end on 2000 samples with the same VGG16 as its detector,
+    and the visualizer served on localhost with its three routes fetched.
+    Every PNG must decode with the port's reader.  K5, K6 and K7 must
+    launch.  Then every distinct FIR call of the phase is checked against
+    the plain version (``check_fir_calls``), and the projector step and
+    the batch-1 images against the plain route end to end
+    (``compare_generation_routes``).  Returns the launch counts of the
+    phase."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from gantrack_tpu_torch.data import open_dataset
+    from gantrack_tpu_torch.metrics import metric_utils
+    from gantrack_tpu_torch.metrics.ppl import compute_ppl
+    from gantrack_tpu_torch.models.vgg import lpips_features, random_vgg
+    from gantrack_tpu_torch.tools import (avg_spectra, capture_layers, gen_images, gen_video,
+                                          projector, style_mixing, visualizer)
+    from gantrack_tpu_torch.utils.checkpoint import decode_png
+
+    claro = [f"--network={claro_dir}", "--resolution=256", "--channels=1", *NET_ARGS]
+    sg3 = [f"--network={sg3_dir}", "--resolution=256", "--channels=1",
+           *(a for a in SG3_ARGS if a.startswith(("--cfg=", "--cbase=", "--cmax=")))]
+    out = os.path.join(tmp, "generation")
+    dev = torch.device("cuda")
+
+    def png(path, shape):
+        with open(path, "rb") as f:
+            pixels = decode_png(f.read())
+        if pixels.shape != shape or pixels.min() == pixels.max():
+            raise AssertionError(f"{path}: {pixels.shape} (want {shape}), "
+                                 f"range {pixels.min()}..{pixels.max()}")
+        return pixels
+
+    def timed_call(label, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        print(f"  {label}: {seconds:.2f} s wall on {card}")
+        return result, seconds
+
+    _reset_launches()
+    fir_calls, stop_recording = _record_fir_calls()
+    for name, net, extra in (("claro", claro, []),
+                             ("stylegan3-t", sg3, ["--rotate=10", "--translate=0.1,-0.05"])):
+        paths, seconds = timed_call(
+            f"gen_images {name}, 32 seeds, psi 0.7 {' '.join(extra)} (checkpoint load included)",
+            gen_images.main,
+            [*net, "--seeds=0-31", "--trunc=0.7", *extra, f"--outdir={out}/{name}"])
+        if len(paths) != 32:
+            raise AssertionError(f"gen_images wrote {len(paths)} images")
+        first = [png(p, (256, 256)) for p in paths[:2]]
+        if np.array_equal(*first):
+            raise AssertionError("two seeds gave the same image")
+    (grid,), _ = timed_call("style_mixing 3x3 (checkpoint load included)", style_mixing.main,
+                            [*claro, "--rows=0-2", "--cols=3-5", f"--outdir={out}/mix"])
+    png(grid, (4 * 256, 4 * 256))
+    frames, _ = timed_call(
+        "gen_video 2x1 grid, 2 keyframes, 4 frames each (checkpoint load included)",
+        gen_video.main, [*claro, "--seeds=0-3", "--grid=2x1", "--w-frames=4",
+                         f"--output={out}/video"])
+    names = sorted(os.listdir(f"{out}/video"))
+    if frames != 8 or len(names) != 8:
+        raise AssertionError(f"gen_video: {frames} frames, files {names}")
+    png(os.path.join(out, "video", names[-1]), (256, 512))
+    written, _ = timed_call("capture_layers seed 0 (checkpoint load included)", capture_layers.main,
+                            [*claro, "--seeds=0", "--layer=b(64|256)/conv1$", "--save-pngs",
+                             f"--outdir={out}/layers"])
+    if written[0] != ["synthesis/b64/conv1", "synthesis/b256/conv1"]:
+        raise AssertionError(f"capture_layers wrote {written}")
+    act = np.load(os.path.join(out, "layers", "seed0000", "synthesis_b256_conv1.npy"))
+    if act.shape != (256, 256, 64) or not np.isfinite(act).all():
+        raise AssertionError(f"b256 conv1 activations {act.shape}")
+    png(os.path.join(out, "layers", "seed0000", "synthesis_b256_conv1.png"), (8 * 256, 8 * 256))
+    spectra, _ = timed_call(
+        "avg_spectra, 256 reals and 256 fakes (checkpoint load included)", avg_spectra.main,
+        [*claro, f"--data={data}", "--num=256", f"--outdir={out}/spectra"])
+    if not all(np.isfinite(v).all() for v in spectra.values()):
+        raise AssertionError("non-finite spectra")
+    print(f"  spectra: azimuthal average at the highest bin, real {spectra['az_real'][-1]:.4e}, "
+          f"generated {spectra['az_fake'][-1]:.4e}")
+
+    opts = visualizer.build_parser().parse_args(claro)
+    G = gen_images.load_generator(opts, dev)
+    httpd = visualizer.serve(visualizer.RenderEngine(G, 1), "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        t = time.perf_counter()
+        with urllib.request.urlopen(f"{base}/api/render?seed=1&psi=0.7&mix_seed=2&mix_cutoff=6",
+                                    timeout=120) as r:
+            render_ms = r.headers["X-Render-Ms"]
+            img = decode_png(r.read())
+        with urllib.request.urlopen(f"{base}/api/layers", timeout=120) as r:
+            layers = json.loads(r.read())["layers"]
+        with urllib.request.urlopen(f"{base}/api/layer?name=synthesis/b64/conv1&seed=1",
+                                    timeout=120) as r:
+            grid = decode_png(r.read())
+        seconds = time.perf_counter() - t
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    if img.shape != (256, 256) or grid.shape != (8 * 64, 8 * 64) or len(layers) < 20:
+        raise AssertionError(f"visualizer: render {img.shape}, layer grid {grid.shape}, "
+                             f"{len(layers)} layers")
+    print(f"  visualizer on localhost: /api/render ({render_ms} ms to render), /api/layers "
+          f"({len(layers)} layers), /api/layer: {seconds:.2f} s wall for the three on {card}")
+
+    vgg = random_vgg(0, device=dev)
+    feature_fn = lambda x: lpips_features(vgg, x)  # noqa: E731
+    dataset = open_dataset(data)
+    cfg = projector.ProjectorConfig(num_steps=200)
+    for idx in (0, 1):
+        target = np.asarray(dataset[idx][0], np.float32) / 127.5 - 1.0
+        torch.cuda.reset_peak_memory_stats()
+        result, seconds = timed_call(
+            f"project slice {idx}, {cfg.num_steps} steps", projector.project, G, target,
+            feature_fn, cfg)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = result["losses"]
+        rms = {n: float(np.sqrt(np.mean(b ** 2))) for n, b in result["noise"].items()}
+        means = {n: float(np.mean(b)) for n, b in result["noise"].items()}
+        print(f"  project slice {idx}: {seconds / cfg.num_steps * 1e3:.2f} ms a step (wall over "
+              f"the call, w statistics and target features included), peak {peak:.2f} GiB on "
+              f"{card}; loss {losses[0]:.2f} -> {losses[-1]:.2f} (best {min(losses):.2f} at "
+              f"step {result['best_step']}); {len(rms)} noise buffers, RMS "
+              f"{min(rms.values()):.6f}..{max(rms.values()):.6f}")
+        if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+            raise AssertionError(f"projection loss did not fall: {losses[0]} -> {losses[-1]}")
+        if max(abs(r - 1) for r in rms.values()) > 1e-3 or max(map(abs, means.values())) > 1e-3:
+            raise AssertionError(f"noise buffers not normalised: RMS {rms}, means {means}")
+
+    mopts = metric_utils.MetricOptions(
+        generator=lambda z, c: G(z, c, noise_mode="const"),
+        mapping=lambda z, c: G.mapping(z, c),
+        synthesis=lambda ws: G.synthesis(ws, noise_mode="const"),
+        z_dim=G.z_dim, detector=metric_utils.make_vgg_detector(seed=0, device=dev), device=dev)
+    value, seconds = timed_call("compute_ppl w space, end, 2000 samples (VGG16 detector)",
+                                compute_ppl, mopts, 2000, 1e-4, "w", "end")
+    if not np.isfinite(value) or value <= 0:
+        raise AssertionError(f"PPL {value}")
+    print(f"  ppl (w, end, 2000 samples, random-weight VGG16): {value:.4f}")
+    launches = _read_launches(("fir_same", "fir_down2", "fir_up2"), SG3_T_PLAIN_ROUTE)
+    stop_recording()
+    print(f"  kernel launches of the generation leg: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+
+    check_fir_calls(card, fir_calls, "the generation leg")
+    G3 = gen_images.load_generator(visualizer.build_parser().parse_args(sg3), dev)
+    gen_images.set_input_transform(G3, (0.1, -0.05), 10.0)
+    target = np.asarray(dataset[0][0], np.float32) / 127.5 - 1.0
+    compare_generation_routes(card, G, G3, vgg, target)
+    del G, G3, vgg
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2012,17 +2328,19 @@ def main() -> int:
         data = _synthetic_dataset(tmp)
         run_dir, claro = timed("phase 2", train_claro, card, tmp, data)
         timed("phase 3", run_calc_metrics, card, tmp, data, run_dir)
-        sg3 = timed("phase 4", train_stylegan3, card, tmp, data)
+        sg3_dir, sg3 = timed("phase 4", train_stylegan3, card, tmp, data)
         unfused = timed("phase 5", run_unfused_augment, card, tmp, data)
         probed = timed("phase 6 (probes)", run_probe_path)
         routed = timed("phase 6 (conv route)", run_kernel_route, card, tmp, data)
         asynced = timed("phase 7", run_metric_async, card, tmp, data)
+        generated = timed("phase 8", run_generation, card, tmp, data, run_dir, sg3_dir)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall since the build began")
     # Launches on the main paths: the claro run, the StyleGAN3 run with its
     # metrics, the unfused augment steps, the probes' run, the kernel-route
-    # steps and the metric-async run, each counted from 0.
+    # steps, the metric-async run and the generation leg, each counted from 0.
     paths = {"claro": claro, "stylegan3-t": sg3, "unfused augment": unfused, "probes": probed,
-             "kernel conv route": routed, "claro, metric-async": asynced}
+             "kernel conv route": routed, "claro, metric-async": asynced,
+             "generation": generated}
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     print("kernel launches by main path: "
           + "; ".join(f"{name} { {k: n for k, n in counts.items() if n} }"

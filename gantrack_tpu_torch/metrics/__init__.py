@@ -1,4 +1,5 @@
-"""Quality metrics of G_ema: FID, KID, precision/recall, Inception Score."""
+"""Quality metrics of G_ema: FID, KID, precision/recall, Inception Score,
+equivariance and perceptual path length."""
 
 from .feature_stats import FeatureStats, cache_path
 from .metric_utils import (
@@ -8,6 +9,7 @@ from .metric_utils import (
     compute_feature_stats_for_generator,
     make_inception_detector,
     make_random_projection_detector,
+    make_vgg_detector,
 )
 from .registry import (
     calc_metric,
@@ -27,6 +29,7 @@ __all__ = [
     "compute_feature_stats_for_generator",
     "make_inception_detector",
     "make_random_projection_detector",
+    "make_vgg_detector",
     "calc_metric",
     "check_metric",
     "is_valid_metric",

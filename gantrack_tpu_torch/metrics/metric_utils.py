@@ -44,6 +44,10 @@ class MetricOptions:
     generator_with_transform: Optional[Callable] = None
     #   generator_with_transform(z, c, transform_3x3) -> images: synthesis with the user
     #   transform of StyleGAN3's input set (the equivariance metrics)
+    mapping: Optional[Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]] = None
+    #   mapping(z, c) -> ws [N, num_ws, w_dim]  (needed by w-space PPL)
+    synthesis: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    #   synthesis(ws) -> images [N, C, H, W] in [-1, 1]  (needed by w-space PPL)
     z_dim: int = 512
     c_dim: int = 0
     dataset: Any = None
@@ -120,6 +124,25 @@ def make_inception_detector(weights_path: Optional[str] = None, seed: int = 0,
     model = inception.load_npz(weights_path, device=device)
     return Detector(model, f"inception-{model.variant}:{os.path.basename(weights_path)}",
                     device)
+
+
+def make_vgg_detector(weights_path: Optional[str] = None, seed: int = 0,
+                      device: torch.device = torch.device("cpu"),
+                      resize_to: int = 224) -> Detector:
+    """VGG16's 4096-d ``fc2`` embedding (precision/recall, PPL) from
+    converted weights (a local ``.npz``), or from seeded random weights
+    without them."""
+    from ..models import vgg
+
+    if weights_path:
+        if not os.path.isfile(weights_path):
+            raise FileNotFoundError(f"VGG16 weights {weights_path!r} not found")
+        model = vgg.load_npz(weights_path, resize_to=resize_to, device=device)
+        name = f"vgg16:{os.path.basename(weights_path)}"
+    else:
+        model = vgg.random_vgg(seed, resize_to=resize_to, device=device)
+        name = f"vgg16-torch:random-seed{seed}"
+    return Detector(model, name, device)
 
 
 def to_detector_input(images: torch.Tensor, mode_idx: Optional[int]) -> torch.Tensor:

@@ -4,8 +4,7 @@ Port of ``gantrack_tpu/metrics/registry.py``: ``@register_metric``
 functions, ``calc_metric`` (runs and times one metric) and
 ``report_metric`` (appends ``metric-<mode>-<metric>.jsonl`` rows, stamped
 with ``kimg``), and the JAX registry's configurations, the StyleGAN3
-equivariance metrics included.  The metric that needs a network the port
-does not have yet is known by name and refused with its ROADMAP item.
+equivariance metrics and ``ppl2_wend`` included.
 """
 
 from __future__ import annotations
@@ -18,11 +17,6 @@ from typing import Callable, Dict, Optional
 from .metric_utils import MetricOptions
 
 _metric_dict: Dict[str, Callable] = {}
-
-# Registered in the JAX package, not ported yet.
-UNPORTED_METRICS = {
-    "ppl2_wend": "ROADMAP A8 (needs the VGG16/LPIPS network)",
-}
 
 
 def register_metric(fn: Callable) -> Callable:
@@ -41,8 +35,6 @@ def list_valid_metrics():
 
 def check_metric(metric: str) -> None:
     """Raise ``ValueError`` naming why ``metric`` cannot run."""
-    if metric in UNPORTED_METRICS:
-        raise ValueError(f"metric {metric} is not ported yet: {UNPORTED_METRICS[metric]}")
     if not is_valid_metric(metric):
         raise ValueError(f"unknown metric {metric}; valid: {list_valid_metrics()}")
 
@@ -132,6 +124,15 @@ def is50k(opts: MetricOptions) -> dict:
 
     mean, std = compute_is(opts, num_gen=50000, num_splits=10)
     return {"is50k_mean": mean, "is50k_std": std}
+
+
+@register_metric
+def ppl2_wend(opts: MetricOptions) -> dict:
+    """Needs ``opts.mapping`` and ``opts.synthesis`` (w space)."""
+    from .ppl import compute_ppl
+
+    value = compute_ppl(opts, num_samples=50000, epsilon=1e-4, space="w", sampling="end")
+    return {"ppl2_wend": value}
 
 
 # StyleGAN3-only equivariance metrics; they need a transform-capable

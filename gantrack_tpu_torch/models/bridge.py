@@ -12,6 +12,8 @@
   the folded ``bn_scale`` / ``bn_offset``, the ``output`` dense layer;
   from the nested flax variables or from the flat ``a/b/c`` keys of a
   converted ``.npz``.
+* VGG16 (``gantrack_tpu/models/vgg.py``): HWIO → OIHW convs and
+  ``[in, out]`` → ``[out, in]`` dense layers, by the same flat rule.
 * The random-projection detector's matrices, which both packages apply
   to images flattened in HWC order, carry over as they are.
 
@@ -126,10 +128,11 @@ def discriminator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str,
     return sd
 
 
-def inception_state_dict_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flat ``"Mixed_5b/branch1x1/conv/kernel"``-style arrays (the
-    ``.npz`` of ``tools/convert_detector.py``) → the port's
-    ``InceptionV3Features`` state dict."""
+def flax_state_dict_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flat ``"a/b/kernel"``-style Flax arrays → a state dict of
+    ``nn.Conv2d`` / ``nn.Linear`` modules named ``a.b``: HWIO → OIHW conv
+    kernels, ``[in, out]`` → ``[out, in]`` dense kernels, the rest as they
+    are."""
     sd: Dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         if key == "__variant__":
@@ -145,9 +148,11 @@ def inception_state_dict_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.T
     return sd
 
 
-def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"params"}`` of the JAX ``InceptionV3Features`` → the port's
-    state dict."""
+def flax_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params"}`` of a JAX Flax module whose port names its modules the
+    same way (``InceptionV3Features``, ``VGG16``) → the port's state dict.
+    VGG16's ``fc1`` keeps its rows' NHWC order, since the port flattens
+    NHWC too."""
     flat: Dict[str, Any] = {}
 
     def walk(prefix, tree):
@@ -159,7 +164,7 @@ def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, tor
                 flat[key] = sub
 
     walk("", variables["params"])
-    return inception_state_dict_from_flat(flat)
+    return flax_state_dict_from_flat(flat)
 
 
 def random_projection_from_jax(matrices) -> list:

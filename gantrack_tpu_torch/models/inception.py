@@ -2,7 +2,7 @@
 
 Port of ``gantrack_tpu/models/inception.py``: the same graph, module
 names and parameters (conv weights without bias, batch norm folded into
-``bn_scale`` / ``bn_offset``), so ``bridge.inception_state_dict_from_jax``
+``bn_scale`` / ``bn_offset``), so ``bridge.flax_state_dict_from_jax``
 carries JAX variables over and :func:`load_npz` reads the flat ``a/b/c``
 ``.npz`` files that ``gantrack_tpu/tools/convert_detector.py`` writes.
 
@@ -252,13 +252,13 @@ def load_npz(path: str, return_logits: bool = False,
     """A detector from converted weights (the flat ``.npz`` of
     ``tools/convert_detector.py``; files without ``__variant__`` are
     torchvision).  Raises if a parameter is missing."""
-    from .bridge import inception_state_dict_from_flat
+    from .bridge import flax_state_dict_from_flat
 
     data = dict(np.load(path))
     variant = str(data.pop("__variant__")) if "__variant__" in data else "torchvision"
     model = InceptionV3Features(variant=variant, return_logits=return_logits,
                                 logits_bias="output/bias" in data)
-    model.load_state_dict(inception_state_dict_from_flat(data), strict=True)
+    model.load_state_dict(flax_state_dict_from_flat(data), strict=True)
     return model.to(device).eval().requires_grad_(False)
 
 

@@ -486,3 +486,33 @@ class Discriminator(nn.Module):
             x, img = getattr(self, f"b{res}")(x, img, **block_kwargs)
         cmap = self.mapping(None, c) if self.c_dim > 0 else None
         return self.b4(x, img, cmap)
+
+
+def discriminator_freeze_mask(D: Discriminator, freeze_layers: int) -> set:
+    """Freeze-D: the names of the parameters of ``D`` that stay trainable
+    when its first ``freeze_layers`` layers (top resolution inward) are
+    frozen.  Port of the JAX ``discriminator_freeze_mask``: a block's
+    layers are counted in construction order, ``fromrgb`` (on the first
+    block, or under ``skip``), ``conv0``, ``conv1``, then ``skip`` (under
+    ``resnet``); the epilogue (``b4``) and the conditioning mapping are
+    never frozen."""
+    layer_idx = {}
+    cur = 0
+    for i, res in enumerate(D.block_resolutions):
+        block = getattr(D, f"b{res}")
+        names = []
+        if i == 0 or block.architecture == "skip":
+            names.append("fromrgb")
+        names += ["conv0", "conv1"]
+        if block.architecture == "resnet":
+            names.append("skip")
+        for name in names:
+            layer_idx[(f"b{res}", name)] = cur
+            cur += 1
+    trainable = set()
+    for name, _ in D.named_parameters():
+        parts = name.split(".")
+        idx = layer_idx.get((parts[0], parts[1] if len(parts) > 2 else ""))
+        if idx is None or idx >= freeze_layers:
+            trainable.add(name)
+    return trainable

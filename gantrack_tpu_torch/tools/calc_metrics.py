@@ -12,7 +12,9 @@ evaluates every metric for every modality of 2-channel data, and appends
 ``metric-<mode>-<metric>.jsonl`` rows to the run directory.  Runs on the CUDA device; ``--device=cpu``
 runs on the CPU instead.  Without ``--detector-weights`` (a converted
 InceptionV3 ``.npz``) the detector is the random projection, whose FID
-is only comparable with itself.  NVIDIA pickles are ROADMAP A11.
+is only comparable with itself.  NVIDIA pickles are ROADMAP A11b.
+``ppl2_wend`` is refused here, as the JAX CLI fails on it (it hands the
+metrics no mapping); ``tools.train`` evaluates it.
 """
 
 from __future__ import annotations
@@ -34,11 +36,19 @@ def evaluate_metrics(G_ema, metrics: Sequence[str], dataset, detector, device: t
                      kimg: Optional[int] = None, snapshot_path: Optional[str] = None) -> dict:
     """Run and report ``metrics`` of ``G_ema`` for each modality (one pass
     for 1- or 3-channel data, one per channel of 2-channel data); returns
-    ``{name: value}``, names prefixed with the modality."""
+    ``{name: value}``, names prefixed with the modality.  The metrics get
+    G_ema's mapping and synthesis apart (w-space PPL), as the JAX training
+    loop hands them."""
     from ..metrics import MetricOptions, calc_metric, report_metric
 
     def generator(z, c):
         return G_ema(z, c, noise_mode="const")
+
+    def mapping(z, c):
+        return G_ema.mapping(z, c)
+
+    def synthesis(ws):
+        return G_ema.synthesis(ws, noise_mode="const")
 
     # The equivariance metrics synthesise with a user transform set on
     # StyleGAN3's input, and put the trained one back afterwards.
@@ -60,6 +70,7 @@ def evaluate_metrics(G_ema, metrics: Sequence[str], dataset, detector, device: t
     for mode_name, mode_idx in modes:
         opts = MetricOptions(generator=generator,
                              generator_with_transform=generator_with_transform,
+                             mapping=mapping, synthesis=synthesis,
                              z_dim=G_ema.z_dim, c_dim=G_ema.c_dim,
                              dataset=dataset, detector=detector, mode_idx=mode_idx,
                              batch_size=batch_size, cache_dir=cache_dir, device=device)
@@ -113,6 +124,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
             raise SystemExit(f"--metrics: {e}") from None
         if m.startswith("eq") and opts.cfg == "stylegan2":
             raise SystemExit(f"--metrics: {m} needs a StyleGAN3 generator (--cfg=stylegan3-t|-r)")
+        if m == "ppl2_wend":
+            raise SystemExit("--metrics: ppl2_wend needs G's mapping and synthesis apart, which "
+                             "calc_metrics does not hand over, as the JAX calc_metrics does not "
+                             "(ROADMAP C9); the training loop evaluates it")
     if opts.checkpoint.endswith((".pkl", ".pickle")):
         raise SystemExit("--network: NVIDIA pickles are not read yet (ROADMAP A11)")
     device = torch.device(opts.device)

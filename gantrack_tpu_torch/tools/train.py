@@ -14,10 +14,12 @@ radial filters, and fades a discriminator blur) on one CUDA device
 size) and evaluates ``--metrics`` of G_ema (the ``eq*`` equivariance
 metrics for StyleGAN3 only) at every ``--metric-snap``-th snapshot, with
 the InceptionV3 of ``--detector-weights`` or, without weights, the random
-projection detector.  No ``--batch-gpu`` accumulation, no freeze-D and no
-``--metric-async``; those raise.  The
-JAX CLI's ``--dtype`` (read by nothing) and ``--rng-impl`` (a TPU
-generator) are not taken.
+projection detector.  ``--batch-gpu`` accumulates gradients over
+``batch / batch-gpu`` chunks of the batch in every phase, ``--freezed=N``
+freezes D's first ``N`` layers (they get no Adam update and no Adam
+state), and ``--metric-async`` runs the metrics of a snapshot that is not
+the last on a background thread.  The JAX CLI's ``--dtype`` (read by
+nothing) and ``--rng-impl`` (a TPU generator) are not taken.
 """
 
 from __future__ import annotations
@@ -117,10 +119,21 @@ def check_slice(opts) -> None:
         raise SystemExit("--metric-snap: must be at least 1")
     if opts.num_devices not in (None, 1):
         raise SystemExit("--devices: one device in this slice (data parallelism: ROADMAP A7)")
-    if opts.batch_gpu not in (None, opts.batch):
-        raise SystemExit("--batch-gpu: no gradient accumulation in this slice (ROADMAP A7)")
-    if opts.freezed:
-        raise SystemExit("--freezed: freeze-D is not ported yet")
+    if opts.batch_gpu is not None and (opts.batch_gpu < 1 or opts.batch % opts.batch_gpu):
+        raise SystemExit(f"--batch-gpu {opts.batch_gpu} must divide the per-device batch "
+                         f"{opts.batch} (batch {opts.batch} / 1 devices)")
+    # D sees a chunk of the batch at a time (its fakes and its reals apart);
+    # the JAX minibatch_stddev asserts that its group divides what it sees.
+    chunk = opts.batch_gpu or opts.batch
+    group = min(opts.mbstd_group, chunk)
+    if group < 1 or chunk % group:
+        raise SystemExit(f"--mbstd-group {opts.mbstd_group}: D's batch of {chunk} is not "
+                         f"divisible by its minibatch-std group {group}")
+
+
+def micro_batches(opts) -> int:
+    """Chunks of the batch a phase accumulates over (``--batch-gpu``)."""
+    return opts.batch // opts.batch_gpu if opts.batch_gpu else 1
 
 
 def resolve_config(opts) -> dict:
@@ -136,7 +149,8 @@ def resolve_config(opts) -> dict:
                mbstd_group=opts.mbstd_group),
         glr=opts.glr if opts.glr is not None else (0.002 if opts.cfg == "stylegan2" else 0.0025),
         dlr=opts.dlr, gamma=opts.gamma, ema_kimg=opts.batch * 10 / 32,
-        aug=opts.aug, target=opts.target,
+        aug=opts.aug, target=opts.target, batch_gpu=opts.batch // micro_batches(opts),
+        freezed=opts.freezed,
     )
 
 
@@ -214,7 +228,7 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
     cuDNN; ``"kernel"``: ``ops.conv3x3``); neither has a CLI flag, as in
     the JAX CLI."""
     from ..data import InfiniteLoader, open_dataset
-    from ..models.stylegan2 import Discriminator
+    from ..models.stylegan2 import Discriminator, discriminator_freeze_mask
     from ..training.augment import AugmentConfig, AugmentPipe
     from ..training.loss import StyleGAN2Loss, StyleGAN2LossConfig
     from ..training.step import TrainStepConfig, TrainStepper
@@ -244,8 +258,10 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
                       epilogue_kwargs=dict(mbstd_group_size=c["D"]["mbstd_group"]),
                       conv_impl=conv_impl).to(device)
     g_reg_interval = 4 if sg2 else None  # StyleGAN3 has no path-length phase
+    # Freeze-D: the first --freezed layers of D (top resolution inward).
+    d_trainable = discriminator_freeze_mask(D, opts.freezed) if opts.freezed > 0 else None
     state = create_train_state(G, D, c["glr"], c["dlr"], g_reg_interval=g_reg_interval,
-                               d_reg_interval=16)
+                               d_reg_interval=16, d_trainable=d_trainable)
     generator = torch.Generator(device=device).manual_seed(opts.seed)
     if opts.resume:
         from ..utils.checkpoint import load_checkpoint, resolve_checkpoint_path
@@ -282,6 +298,7 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
             [dataset.get_label(i) for i in range(len(dataset))]).astype(np.float32)).to(device)
     step_cfg = TrainStepConfig(
         batch_size=opts.batch, z_dim=c["G"]["z_dim"], c_dim=c_dim, ema_kimg=c["ema_kimg"],
+        micro_batches=micro_batches(opts),
         ema_rampup=None if opts.resume else 0.05, g_reg_interval=g_reg_interval,
         d_reg_interval=16,
         ada_target=ada_target, ada_kimg=100 if opts.resume else opts.ada_kimg)

@@ -6,15 +6,25 @@ then D-reg (R1) every ``d_reg_interval`` steps; each phase's gradients
 are NaN/Inf-scrubbed before its Adam update; then the G-EMA with rampup
 and the ADA controller.  One process, one device: the JAX package's
 ``shard_map`` split, jit fast path and host syncs are not carried, and
-gradient accumulation (``micro_batches > 1``) and the mesh-size
-invariance mode (``rng_mode="global_sample"``) wait for the
-data-parallel slice (ROADMAP A7).
+the mesh-size invariance mode (``rng_mode="global_sample"``) waits for
+the data-parallel slice (ROADMAP A7b).
+
+Gradient accumulation (``micro_batches = M > 1``, the CLI's
+``--batch-gpu``): every phase splits its batch into ``M`` chunks in
+order and takes one ``torch.autograd.grad`` a chunk, which frees that
+chunk's graph before the next; the per-chunk mean gradients are
+**summed**, not averaged (the JAX ``_accum``, the reference's
+accumulate-then-step), then scrubbed once and applied in one optimizer
+step.  ``pl_mean`` and G's EMA buffers go from chunk to chunk; moments
+sum over the chunks.  The parameters a phase updates are those its
+optimizer holds, so a discriminator built with frozen layers
+(``--freezed``) still passes gradients through them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,11 +54,29 @@ def _scrub(grads):
     return [torch.nan_to_num(g, nan=0.0, posinf=1e5, neginf=-1e5) for g in grads]
 
 
-def _apply(opt: torch.optim.Optimizer, params, loss: torch.Tensor) -> None:
-    """Gradients of ``loss`` w.r.t. ``params`` only, scrubbed, then an
-    optimizer step."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+def _opt_params(opt: torch.optim.Optimizer) -> List[torch.nn.Parameter]:
+    """The parameters ``opt`` updates: a phase differentiates only these."""
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+def _accumulate(params, num_chunks: int,
+                chunk_loss: Callable[[int], Tuple[torch.Tensor, stats.Moments]]):
+    """Sum of the gradients of ``chunk_loss(j)`` w.r.t. ``params`` over
+    the chunks ``j`` in order, and the chunks' moments summed; each
+    chunk's graph is freed before the next is built."""
+    total: Optional[List[torch.Tensor]] = None
+    moments: stats.Moments = {}
+    for j in range(num_chunks):
+        loss, m = chunk_loss(j)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        total = grads if total is None else [a + g for a, g in zip(total, grads)]
+        moments = stats.merge(moments, m)
+    return total, moments
+
+
+def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
+    """Scrubbed gradients, then one optimizer step."""
     for p, g in zip(params, _scrub(grads)):
         p.grad = g
     opt.step()
@@ -77,12 +105,11 @@ class TrainStepper:
 
     def __init__(self, loss: StyleGAN2Loss, cfg: TrainStepConfig,
                  generator: torch.Generator, label_bank: Optional[torch.Tensor] = None):
-        if cfg.micro_batches != 1:
-            raise NotImplementedError("micro_batches > 1 waits for the data-parallel slice "
-                                      "(ROADMAP A7)")
+        if cfg.micro_batches < 1:
+            raise ValueError(f"micro_batches must be at least 1, not {cfg.micro_batches}")
         if cfg.rng_mode != "device":
             raise NotImplementedError("rng_mode='global_sample' waits for the data-parallel "
-                                      "slice (ROADMAP A7)")
+                                      "slice (ROADMAP A7b)")
         self.loss = loss
         self.cfg = cfg
         self.generator = generator
@@ -115,49 +142,77 @@ class TrainStepper:
 
     def run(self, state: TrainState, real_img: torch.Tensor, real_c: Optional[torch.Tensor],
             do_gpl: bool, do_dr1: bool,
-            draws: Optional[Dict[str, torch.Tensor]] = None) -> stats.Moments:
+            draws: Optional[Dict[str, object]] = None) -> stats.Moments:
         """One batch with the given regularisation phases.  ``draws`` may
         hand in what the step would otherwise draw: ``z_gmain``,
-        ``z_gpl``, ``z_dmain`` (and ``c_*``), ``pl_noise``."""
+        ``z_gpl``, ``z_dmain`` (and ``c_*``), each for the whole batch
+        (split into the chunks in order), and ``pl_noise``: the NCHW
+        standard normal of the path-length pass, or with
+        ``micro_batches > 1`` a sequence of one per chunk."""
         cfg, loss, gen = self.cfg, self.loss, self.generator
         draws = draws or {}
         b = real_img.shape[0]
+        M = cfg.micro_batches
+        if b % M:
+            raise ValueError(f"batch {b} is not divisible by micro_batches {M}")
+        n = b // M
         dev = real_img.device
         if cfg.c_dim == 0:
             real_c = None
         cur_nimg = float(state.cur_nimg)
-        g_params = list(state.G.parameters())
-        d_params = list(state.D.parameters())
+        g_params = _opt_params(state.opt_g)
+        d_params = _opt_params(state.opt_d)
 
         def zc(phase):
             if f"z_{phase}" in draws:
                 return draws[f"z_{phase}"], draws.get(f"c_{phase}")
             return self._sample_zc(b, dev)
 
+        def chunk(x: Optional[torch.Tensor], j: int) -> Optional[torch.Tensor]:
+            return None if x is None else x[j * n:(j + 1) * n]
+
         # G-main.
         z, c = zc("gmain")
-        loss_g, m = loss.gmain(z, c, gen, state.ada_p, cur_nimg)
-        _apply(state.opt_g, g_params, loss_g)
-        moments = m
+        grads, moments = _accumulate(g_params, M, lambda j: loss.gmain(
+            chunk(z, j), chunk(c, j), gen, state.ada_p, cur_nimg))
+        _apply(state.opt_g, g_params, grads)
 
-        # G-reg (path length).
+        # G-reg (path length); pl_mean goes from chunk to chunk.
         if do_gpl:
             z, c = zc("gpl")
-            loss_pl, new_pl_mean, m = loss.gpl(z, c, gen, state.pl_mean, draws.get("pl_noise"))
-            _apply(state.opt_g, g_params, loss_pl * float(cfg.g_reg_interval))
-            state.pl_mean = new_pl_mean
+            pl_noise = draws.get("pl_noise")
+            gain = float(cfg.g_reg_interval)
+
+            def gpl_chunk(j):
+                noise = pl_noise if M == 1 or pl_noise is None else pl_noise[j]
+                loss_pl, state.pl_mean, m = loss.gpl(chunk(z, j), chunk(c, j), gen,
+                                                     state.pl_mean, noise)
+                return loss_pl * gain, m
+
+            grads, m = _accumulate(g_params, M, gpl_chunk)
+            _apply(state.opt_g, g_params, grads)
             moments = stats.merge(moments, m)
 
-        # D-main (updates w_avg and StyleGAN3's magnitude_ema from the fake pass).
+        # D-main (updates w_avg and StyleGAN3's magnitude_ema from each
+        # chunk's fake pass, in chunk order).
         z, c = zc("dmain")
-        loss_d, m = loss.dmain(z, c, real_img, real_c, gen, state.ada_p, cur_nimg)
-        _apply(state.opt_d, d_params, loss_d)
+        grads, m = _accumulate(d_params, M, lambda j: loss.dmain(
+            chunk(z, j), chunk(c, j), chunk(real_img, j), chunk(real_c, j), gen, state.ada_p,
+            cur_nimg))
+        _apply(state.opt_d, d_params, grads)
         moments = stats.merge(moments, m)
 
         # D-reg (R1).
         if do_dr1:
-            loss_r1, m = loss.dr1(real_img, real_c, gen, state.ada_p, cur_nimg)
-            _apply(state.opt_d, d_params, loss_r1 * float(cfg.d_reg_interval))
+            gain = float(cfg.d_reg_interval)
+
+            def dr1_chunk(j):
+                loss_r1, m = loss.dr1(chunk(real_img, j), chunk(real_c, j), gen, state.ada_p,
+                                      cur_nimg)
+                return loss_r1 * gain, m
+
+            grads, m = _accumulate(d_params, M, dr1_chunk)
+            _apply(state.opt_d, d_params, grads)
             moments = stats.merge(moments, m)
 
         update_ema(state.G_ema, state.G, cfg.batch_size, state.cur_nimg, cfg.ema_kimg,

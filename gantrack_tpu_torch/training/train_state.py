@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Iterable, Optional
+from typing import Collection, Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -48,15 +48,21 @@ class TrainState:
 
 def create_train_state(G: nn.Module, D: nn.Module, glr: float, dlr: float,
                        g_reg_interval: Optional[int] = 4,
-                       d_reg_interval: Optional[int] = 16) -> TrainState:
+                       d_reg_interval: Optional[int] = 16,
+                       d_trainable: Optional[Collection[str]] = None) -> TrainState:
     """Wrap networks (already on their device) with optimizers and a
-    G_ema copy of G."""
+    G_ema copy of G.  ``d_trainable`` names the D parameters its optimizer
+    updates (freeze-D: ``models.stylegan2.discriminator_freeze_mask``);
+    the others keep no Adam state and are never updated, but stay in
+    autograd, so gradients still flow through them to D's input."""
     device = next(G.parameters()).device
     G_ema = copy.deepcopy(G).eval().requires_grad_(False)
+    d_params = [p for name, p in D.named_parameters()
+                if d_trainable is None or name in d_trainable]
     return TrainState(
         G=G, D=D, G_ema=G_ema,
         opt_g=lazy_reg_adam(G.parameters(), glr, reg_interval=g_reg_interval),
-        opt_d=lazy_reg_adam(D.parameters(), dlr, reg_interval=d_reg_interval),
+        opt_d=lazy_reg_adam(d_params, dlr, reg_interval=d_reg_interval),
         pl_mean=torch.zeros([], device=device),
         ada_p=torch.zeros([], device=device),
         ada_signs=torch.zeros([2], device=device),

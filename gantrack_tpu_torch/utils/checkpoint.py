@@ -3,8 +3,8 @@
 A checkpoint holds everything a step mutates: G, D and G_ema state
 dicts, both optimizers, ``pl_mean``, the ADA state, the step counters
 and the step generator's state, so a resumed run continues exactly.
-Image grids are written by a small numpy + ``zlib`` PNG encoder (no
-image library is needed).
+Images are written (and read back) by a small numpy + ``zlib`` PNG
+encoder and decoder: no image library is needed.
 """
 
 from __future__ import annotations
@@ -96,6 +96,40 @@ def encode_png(pixels: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
+def save_png(path: str, pixels: np.ndarray) -> None:
+    """Write 8-bit grayscale ``[H, W]`` or RGB ``[H, W, 3]`` pixels."""
+    with open(path, "wb") as f:
+        f.write(encode_png(np.ascontiguousarray(pixels)))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """What :func:`encode_png` writes (8-bit grayscale or RGB, one IDAT
+    stream, row filter 0) → ``[H, W]`` or ``[H, W, 3]`` uint8; raises on
+    anything else or on a chunk whose CRC does not match."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if crc != zlib.crc32(tag + body) & 0xFFFFFFFF:
+            raise ValueError(f"PNG chunk {tag!r}: CRC mismatch")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in (0, 2) or interlace:
+        raise ValueError(f"PNG of depth {depth}, colour type {color}, interlace {interlace}")
+    ch = 1 if color == 0 else 3
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
+    if rows[:, 0].any():
+        raise ValueError("PNG rows with a filter other than 0")
+    return rows[:, 1:].reshape(h, w) if ch == 1 else rows[:, 1:].reshape(h, w, 3)
+
+
 def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1),
                     grid_size: Optional[tuple] = None) -> None:
     """Export an ``[N, H, W, C]`` batch as one PNG grid (2-channel pairs
@@ -119,8 +153,7 @@ def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1),
         pixels = np.concatenate([grid[:, :, 0], grid[:, :, 1]], axis=1)
     else:
         pixels = grid
-    with open(path, "wb") as f:
-        f.write(encode_png(np.ascontiguousarray(pixels)))
+    save_png(path, pixels)
 
 
 def allocate_run_dir(outdir: str, desc: str) -> str:

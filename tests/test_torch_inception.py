@@ -42,7 +42,7 @@ def _jax_variables(variant, resize_to):
 def test_inception_matches_jax(variant, size, resize_to):
     variables = _jax_variables(variant, resize_to)
     x = np.random.default_rng(2).uniform(0, 255, (2, size, size, 3)).astype(np.float32)
-    sd = bridge.inception_state_dict_from_jax(variables)
+    sd = bridge.flax_state_dict_from_jax(variables)
     xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
     for logits in (False, True):
         jm = jinc.InceptionV3Features(resize_to=resize_to, variant=variant, return_logits=logits)

@@ -210,12 +210,12 @@ def test_cli_dry_run_prints_config(capsys, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", ["--metrics=eqr1k", "--metrics=ppl2_wend", "--devices=2",
-                                  "--batch-gpu=2", "--freezed=2"])
+@pytest.mark.parametrize("flag", ["--metrics=eqr1k", "--devices=2", "--batch-gpu=3",
+                                  "--mbstd-group=3"])
 def test_cli_refuses_what_the_slice_does_not_run(flag, tmp_path):
     opts = cli.build_parser().parse_args(
         [f"--outdir={tmp_path}", "--data=unused", *TINY_ARGS, flag])
-    with pytest.raises(SystemExit, match="ROADMAP|not ported|needs a StyleGAN3"):
+    with pytest.raises(SystemExit, match="ROADMAP|needs a StyleGAN3|must divide|not divisible"):
         cli.check_slice(opts)
 
 
@@ -287,7 +287,7 @@ def test_calc_metrics_on_the_run_dir_writes_kid(metric_run, tiny_dataset):
 @pytest.mark.parametrize("args,match", [
     (["--metrics=eqr50k"], "needs a StyleGAN3"),
     (["--network=x.pkl"], "A11"),
-    (["--metrics=ppl2_wend", "--cfg=stylegan3-r"], "A8"),
+    (["--metrics=ppl2_wend", "--cfg=stylegan3-r"], "C9"),
 ])
 def test_calc_metrics_refuses_what_is_not_ported(args, match, tiny_dataset):
     argv = ["--network=unused", f"--data={tiny_dataset}", "--device=cpu", *args]
@@ -491,6 +491,42 @@ def test_cli_train_with_metric_async(tiny_dataset, tmp_path):
     assert len(rows) == 2  # snapshots at ticks 1 and 2 (the last)
     for row in rows:
         assert row["metric"] == "fid1k" and np.isfinite(row["results"]["fid1k"])
+
+
+def test_cli_train_with_batch_gpu_and_freezed(tiny_dataset, tmp_path):
+    """``--batch-gpu=2`` (two chunks of the batch of 4) and ``--freezed=2``
+    through the CLI: D's first two layers (b16 fromrgb and conv0) keep
+    their initial weights in the checkpoint and have no Adam state; the
+    other layers and G train; ``--metrics=ppl2_wend`` (cut to 8 samples)
+    runs with G_ema's mapping and synthesis apart."""
+    from gantrack_tpu_torch.metrics import ppl
+
+    run_dir = str(tmp_path / "run")
+    real = ppl.compute_ppl
+    ppl.compute_ppl = lambda opts, **kw: real(opts, **dict(kw, num_samples=8))
+    try:
+        _train(tiny_dataset, run_dir, ["--batch-gpu=2", "--freezed=2", "--metrics=ppl2_wend"],
+               steps=2)
+    finally:
+        ppl.compute_ppl = real
+    with open(os.path.join(run_dir, "metric-ppl2_wend.jsonl")) as f:
+        (row,) = [json.loads(line) for line in f]
+    assert np.isfinite(row["results"]["ppl2_wend"])
+    opts = cli.build_parser().parse_args([f"--outdir={run_dir}", f"--data={tiny_dataset}",
+                                          *TINY_ARGS, "--batch-gpu=2", "--freezed=2"])
+    _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts,
+                                                   torch.device("cpu"))
+    loader.close()
+    assert stepper.cfg.micro_batches == 2
+    init = {n: p.detach().clone() for n, p in state.D.named_parameters()}
+    load_checkpoint(latest_checkpoint(os.path.join(run_dir, "checkpoints")), state,
+                    stepper.generator)
+    assert state.step == 2
+    frozen = {n for n in init if n.startswith(("b16.fromrgb.", "b16.conv0."))}
+    assert len(frozen) == 4
+    for name, p in state.D.named_parameters():
+        assert torch.equal(p, init[name]) == (name in frozen), name
+    assert len(state.opt_d.state) == len(init) - len(frozen)
 
 
 def test_zip_reader_reads_alike_from_threads(tmp_path):

@@ -211,7 +211,7 @@ def test_report_metric_writes_the_jsonl_row(tmp_path, capsys):
     assert '"fid1k": 12.5' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name,item", [("ppl2_wend", "A8"), ("eqt2k_int", "unknown"),
+@pytest.mark.parametrize("name,item", [("ppl2_zend", "unknown"), ("eqt2k_int", "unknown"),
                                        ("eqr", "unknown"), ("fid2k", "unknown")])
 def test_unported_and_unknown_metrics_are_refused(name, item):
     with pytest.raises(ValueError, match=item):
