@@ -82,7 +82,19 @@ per source, all started together), then:
    fakes), ``project`` on 2 slices for 200 steps with a random-weight
    VGG16 as the LPIPS network, w-space PPL on 2000 samples and the
    visualizer's routes on localhost, which launch K5, K6 and K7;
-9. prints the kernel report and, last, the device line.
+9. runs the claro recipe data-parallel: the CLI under ``python -m
+   torch.distributed.run --nproc_per_node=1`` (an NCCL group of one rank,
+   32 steps) after the four phase variants of its step, against the same
+   without a process group, bit for bit; with two cards, also two ranks
+   in ``rng_mode="global_sample"`` against one (each phase's gradient,
+   the one rank's leaky-ReLU and clamp branches replayed near their
+   thresholds: ``KinkPins``);
+10. trains CycleGAN ``resnet_9blocks`` and pix2pix ``unet_256`` (ngf 64,
+   256², batch 1) through ``train_i2i`` on synthetic PNG sets, runs
+   ``test_i2i`` on each checkpoint, times the trainer's iteration (host
+   clock and device time) with its peak memory, and holds one generator
+   forward on the card against the CPU;
+11. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
 device the script exits with code 2 and prints no result.
@@ -100,10 +112,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NET_ARGS = ["--cbase=16384", "--cmax=512", "--map-depth=2"]
+# ``--devices=1``: one process on one card however many the machine shows,
+# so the kernels' counts are this process's (the CLI's default is every
+# visible GPU, one process each).
 CLARO_ARGS = [
     "--cfg=stylegan2", "--batch=32", "--gamma=0.4096", *NET_ARGS, "--glr=0.0025",
     "--dlr=0.0025", "--aug=ada", "--target=0.6", "--mirror=1", "--kimg=1", "--tick=1",
-    "--snap=1", "--metrics=fid1k",
+    "--snap=1", "--metrics=fid1k", "--devices=1",
 ]
 # name: (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -155,7 +170,7 @@ EVERY_AUG_OPT = ("xflip,rotate90,xint,scale,rotate,aniso,xfrac,brightness,contra
 SG3_ARGS = [
     "--cfg=stylegan3-t", "--gamma=0.4096", "--cbase=32768", "--cmax=512", "--glr=0.0025",
     "--dlr=0.0025", "--aug=ada", "--target=0.6", "--mirror=1", "--kimg=1", "--tick=1",
-    "--snap=1", "--metrics=eqt1k_int,eqr1k",
+    "--snap=1", "--metrics=eqt1k_int,eqr1k", "--devices=1",
 ]
 # The only upfirdn2d calls of StyleGAN3-T that no FIR kernel covers (the
 # reason as ``fir.fir_spec`` words it): the x4 up-filters of its layers.
@@ -2290,6 +2305,592 @@ def run_generation(card: str, tmp: str, data: str, claro_dir: str, sg3_dir: str)
     return launches
 
 
+# Phase 9: the claro recipe data-parallel.  The CLI runs under torchrun
+# (``python -m torch.distributed.run --nproc_per_node=1``) inside this
+# script's worker mode, which runs the module as ``-m`` would
+# (``runpy``), so the kernels' counts of that process can be read.
+DP_ARGS = [a for a in CLARO_ARGS if not a.startswith("--metrics=")] + ["--metrics=none"]
+DP_VARIANTS = ((True, True), (False, False), (True, False), (False, True))
+
+
+def _digest(tensors: dict) -> dict:
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+            for k, v in sorted(tensors.items())}
+
+
+def _state_tensors(state) -> dict:
+    out = {f"{name}.{k}": v for name in ("G", "D", "G_ema")
+           for k, v in getattr(state, name).state_dict().items()}
+    out.update(pl_mean=state.pl_mean, ada_p=state.ada_p, ada_signs=state.ada_signs)
+    return out
+
+
+def dp_worker(out_path: str, argv: list) -> int:
+    """One rank of phase 9 (or the run without a process group): the four
+    phase variants of the step from the CLI's build, then the CLI itself
+    as ``python -m gantrack_tpu_torch.tools.train`` runs it; writes the
+    digests of both states and the kernels' counts to ``out_path``."""
+    import runpy
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from gantrack_tpu_torch.parallel import mesh as pm
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.training.loop import to_device_batch
+    from gantrack_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    # cuDNN's deterministic algorithms, so that two runs may be held bit for bit.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    started = pm.initialize_distributed("cuda")
+    try:
+        mesh = pm.create_mesh(None if dist.is_initialized() else 1, "cuda")
+        device = torch.device("cuda", torch.cuda.current_device())
+        opts = cli.build_parser().parse_args(argv)
+        _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device,
+                                                      mesh=mesh)
+        try:
+            real_img, real_c = to_device_batch(*next(loader), device)
+        finally:
+            loader.close()
+        _reset_launches()
+        for flags in DP_VARIANTS:
+            stepper.run(state, real_img, real_c, *flags)
+        variants = _digest(_state_tensors(state))
+        del state, stepper
+        saved = sys.argv
+        sys.argv = ["gantrack_tpu_torch.tools.train", *argv]
+        try:
+            runpy.run_module("gantrack_tpu_torch.tools.train", run_name="__main__",
+                             alter_sys=True)
+        finally:
+            sys.argv = saved
+        torch.cuda.synchronize()
+        launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2"))
+        outdir = opts.outdir
+        (run_dir,) = [os.path.join(outdir, d) for d in os.listdir(outdir)]
+        payload = torch.load(latest_checkpoint(os.path.join(run_dir, "checkpoints")),
+                             map_location="cpu", weights_only=True)
+        ckpt = {f"{name}.{k}": v for name in ("G", "D", "G_ema") for k, v in payload[name].items()}
+        ckpt.update({k: payload[k] for k in ("pl_mean", "ada_p", "ada_signs")})
+        result = dict(world=mesh.world, backend=dist.get_backend() if dist.is_initialized()
+                      else None, variants=variants, checkpoint=_digest(ckpt),
+                      step=payload["step"], launches=launches)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+# The 2-rank global_sample check (only where the machine has 2 cards):
+# one +Greg+Dreg step at claro width in float32 (TF32 off, cuDNN's
+# deterministic algorithms), two NCCL ranks against one rank without a
+# group on the same global batch of 8.  Two runs that split a batch
+# otherwise round otherwise, and where a pre-activation lies within a
+# rounding of a leaky ReLU's kink or of a clamp the two take different
+# branches: on one card such flips move the G-main gradient by up to
+# 2.5e-3 (relative norm) against 1e-6 with the branches pinned, whether
+# the batch is split or z is scaled by 1 + 2^-23, on the FIR kernels and
+# on their plain version alike (``split_numerics.py``; ROADMAP C13).  The
+# check therefore replays the one-rank run's branch at every element
+# within 1e-3 of a kink or clamp (``KinkPins``) in the two ranks' run, and
+# holds each phase's gradient (relative norm over the phase's flattened
+# gradient) at this bound, fixed before its first run; the unpinned
+# gradients' errors and the flips are printed beside it.
+GLOBAL_SAMPLE_GRAD_BOUND = 1e-4
+
+
+def claro_float32(device, batch: int, *, mbstd=(4, 0), mixing: float = 0.9, micro: int = 1,
+                  rng_mode: str = "device", mesh=None, res: int = 256, cbase: int = 16384,
+                  cmax: int = 512):
+    """The float32 claro G and D (``num_fp16_res=0``, seed-0 weights), a
+    fresh train state, the loss (r1 0.4096, const noise, ``mixing``) and a
+    stepper of global batch ``batch`` whose generator is seeded 0:
+    what ``gs_worker`` and ``split_numerics.py`` step.  ``res``, ``cbase``
+    and ``cmax`` shrink it for a rehearsal on the CPU."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from gantrack_tpu_torch.models.stylegan2 import Discriminator
+    from gantrack_tpu_torch.tools.train import make_generator
+    from gantrack_tpu_torch.training import step as tstep
+    from gantrack_tpu_torch.training.loss import StyleGAN2Loss, StyleGAN2LossConfig
+    from gantrack_tpu_torch.training.train_state import create_train_state
+
+    torch.manual_seed(0)
+    G = make_generator("stylegan2", resolution=res, channels=1, c_dim=0, cbase=cbase, cmax=cmax,
+                       map_depth=2, num_fp16_res=0).to(device)
+    D = Discriminator(c_dim=0, img_resolution=res, img_channels=1, channel_base=cbase,
+                      channel_max=cmax, num_fp16_res=0,
+                      epilogue_kwargs=dict(mbstd_group_size=mbstd[0],
+                                           mbstd_num_channels=mbstd[1])).to(device)
+    state = create_train_state(G, D, 0.0025, 0.0025)
+    loss = StyleGAN2Loss(G, D, StyleGAN2LossConfig(r1_gamma=0.4096, style_mixing_prob=mixing,
+                                                   pl_batch_shrink=1, noise_mode="const"))
+    stepper = tstep.TrainStepper(loss, tstep.TrainStepConfig(
+        batch_size=batch, z_dim=512, micro_batches=micro, rng_mode=rng_mode),
+        torch.Generator(device).manual_seed(0), mesh=mesh)
+    return G, D, state, loss, stepper
+
+
+class KinkPins:
+    """The branches of ``bias_act``'s leaky ReLU and clamp, recorded in one
+    run and replayed in another, as a stand-in for
+    ``models.stylegan2.bias_act`` (``with pins.active(): ...``).
+
+    ``record`` (``row0`` None) runs ``bias_act`` unchanged and keeps, for
+    each call in order, the elements whose pre-activation lies within
+    ``band`` of the kink (relative to the call's rms) or whose activation
+    lies within ``band`` of the clamp (relative to the clamp), with the
+    branch each took; ``keep`` also keeps every pre-activation.
+    ``replay(row0)`` runs the calls of another run whose batch holds the
+    recorded samples ``row0, row0 + 1, ...`` and makes each of those
+    elements take the recorded branch (``only``: in the calls named
+    there, the others as they are); ``flips`` counts, per call, the
+    elements whose own branch was the other one, and ``drift`` (with
+    ``keep``) the largest difference of the pre-activation from the
+    recorded one, relative to its rms."""
+
+    def __init__(self, band: float = 1e-3, keep: bool = False):
+        self.band, self.keep = band, keep
+        self.calls, self.kept = [], []
+        self.row0 = self.only = None
+        self.k = 0
+        self.flips, self.drift = [], []
+
+    def replay(self, row0: int, only=None) -> "KinkPins":
+        """Replay from sample ``row0`` on; ``only`` (call indices) pins
+        those calls alone."""
+        self.row0, self.only, self.k, self.flips, self.drift = row0, only, 0, [], []
+        return self
+
+    def active(self):
+        import contextlib
+
+        from gantrack_tpu_torch.models import stylegan2
+
+        @contextlib.contextmanager
+        def patched():
+            saved = stylegan2.bias_act
+            stylegan2.bias_act = self
+            try:
+                yield self
+            finally:
+                stylegan2.bias_act = saved
+            if self.row0 is not None and self.k != len(self.calls):
+                raise AssertionError(f"replayed {self.k} of {len(self.calls)} recorded calls")
+
+        return patched()
+
+    def __call__(self, x, b=None, dim=1, act="linear", alpha=None, gain=None, clamp=None):
+        import torch
+        import torch.nn.functional as F
+
+        from gantrack_tpu_torch.ops.bias_act import activation_funcs, bias_act
+
+        if act not in ("linear", "lrelu"):
+            raise ValueError(f"KinkPins knows no activation {act!r}")
+        spec = activation_funcs[act]
+        alpha = float(alpha if alpha is not None else spec.def_alpha)
+        gain = float(gain if gain is not None else spec.def_gain)
+        if self.row0 is None:
+            with torch.no_grad():
+                pre = x
+                if b is not None:
+                    shape = [1] * x.ndim
+                    shape[dim % x.ndim] = -1
+                    pre = x + b.reshape(shape).to(x.dtype)
+                flat = pre.reshape(pre.shape[0], -1)
+                rec = {"shape": tuple(pre.shape)}
+                if act == "lrelu":
+                    rms = flat.float().square().mean().sqrt()
+                    n, j = torch.nonzero(flat.abs() <= self.band * rms, as_tuple=True)
+                    rec["kink"] = (n, j, flat[n, j] > 0)
+                if clamp is not None:
+                    y = F.leaky_relu(flat, alpha) if act == "lrelu" else flat
+                    y = y * gain if gain != 1 else y
+                    n, j = torch.nonzero((y.abs() - clamp).abs() <= self.band * clamp,
+                                         as_tuple=True)
+                    rec["clamp"] = (n, j, y[n, j].abs() <= clamp)
+                self.calls.append(rec)
+                if self.keep:
+                    self.kept.append(pre.detach().clone())
+            return bias_act(x, b, dim=dim, act=act, alpha=alpha, gain=gain, clamp=clamp)
+        rec = self.calls[self.k]
+        if tuple(x.shape[1:]) != rec["shape"][1:]:
+            raise AssertionError(f"call {self.k}: shape {tuple(x.shape)} against {rec['shape']}")
+        if self.only is not None and self.k not in self.only:
+            self.flips.append((rec["shape"], 0))
+            self.k += 1
+            return bias_act(x, b, dim=dim, act=act, alpha=alpha, gain=gain, clamp=clamp)
+        if b is not None:
+            shape = [1] * x.ndim
+            shape[dim % x.ndim] = -1
+            x = x + b.reshape(shape).to(x.dtype)
+        rows = x.shape[0]
+        flat = x.reshape(rows, -1)
+        if self.keep:
+            ref = self.kept[self.k][self.row0:self.row0 + rows].reshape(rows, -1)
+            rms = ref.float().square().mean().sqrt().clamp(min=1e-30)
+            self.drift.append(float((flat.detach() - ref).abs().max() / rms))
+        flipped = 0
+
+        def pinned(own, key):
+            nonlocal flipped
+            n, j, took = (t.to(x.device) for t in rec[key])
+            keep = (n >= self.row0) & (n < self.row0 + rows)
+            n, j, took = n[keep] - self.row0, j[keep], took[keep]
+            flipped += int((own[n, j] != took).sum())
+            own = own.clone()
+            own[n, j] = took
+            return own
+
+        y = flat
+        if act == "lrelu":
+            with torch.no_grad():
+                slope = torch.where(pinned(flat > 0, "kink"), 1.0, alpha).to(x.dtype)
+            y = y * slope
+        if gain != 1:
+            y = y * gain
+        if clamp is not None:
+            with torch.no_grad():
+                inside = pinned(y.abs() <= clamp, "clamp")
+                edge = torch.sign(y) * clamp
+            y = torch.where(inside, y, edge)
+        self.flips.append((rec["shape"], flipped))
+        self.k += 1
+        return y.reshape(x.shape)
+
+    def state(self) -> list:
+        """The records on the host, for ``torch.save``."""
+        return [{k: v if k == "shape" else tuple(t.cpu() for t in v) for k, v in rec.items()}
+                for rec in self.calls]
+
+    @classmethod
+    def from_state(cls, calls: list, band: float = 1e-3) -> "KinkPins":
+        pins = cls(band)
+        pins.calls = calls
+        return pins
+
+
+def _phase_grads(stepper, state, reals, pins=None) -> list:
+    """Each phase's gradient (averaged over the ranks, flattened, on the
+    host) of one +Greg+Dreg step, with ``pins`` in place of ``bias_act``."""
+    import contextlib
+
+    import torch
+
+    from gantrack_tpu_torch.training import step as tstep
+
+    grads = []
+    apply = tstep._apply
+    tstep._apply = lambda opt, p, g: grads.append(torch.cat(
+        [x.flatten() for x in g]).cpu()) or apply(opt, p, g)
+    try:
+        with pins.active() if pins is not None else contextlib.nullcontext():
+            stepper.run(state, reals, None, True, True)
+    finally:
+        tstep._apply = apply
+    return grads
+
+
+def gs_worker(out_path: str, pins_path: str, device_type: str = "cuda",
+              small: bool = False) -> int:
+    """One rank of the 2-rank ``global_sample`` check, or the one-rank run
+    without a group.  Alone: one +Greg+Dreg step of ``claro_float32`` on a
+    batch of 8, recording its kinks to ``pins_path``.  In a group: the same
+    step on the rank's half, once as it is and once replaying the one-rank
+    run's kinks (``KinkPins``); rank 0 saves each phase's gradient of both
+    and the flips summed over the ranks.  ``small`` (16², narrow) and
+    ``device_type="cpu"`` (gloo) make the rehearsal on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from gantrack_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    size = dict(res=16, cbase=256, cmax=32) if small else {}
+    started = pm.initialize_distributed(device_type)
+    try:
+        mesh = pm.create_mesh(None if dist.is_initialized() else 1, device_type)
+        device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+                  else torch.device("cpu"))
+        res = size.get("res", 256)
+        reals = torch.randn((8, 1, res, res), generator=torch.Generator().manual_seed(2))
+        reals = pm.shard_batch(mesh, reals).to(device)
+
+        def step(pins=None):
+            _, _, state, _, stepper = claro_float32(device, 8, rng_mode="global_sample",
+                                                    mesh=mesh, **size)
+            return _phase_grads(stepper, state, reals, pins)
+
+        if mesh.world == 1:
+            pins = KinkPins()
+            grads = step(pins)
+            torch.save(pins.state(), pins_path)
+            torch.save({"grads": grads, "world": 1}, out_path)
+            return 0
+        unpinned = step()
+        pins = KinkPins.from_state(torch.load(pins_path, weights_only=True))
+        pinned = step(pins.replay(mesh.rank * reals.shape[0]))
+        flips = torch.tensor([float(sum(f for _, f in pins.flips))], device=device)
+        dist.all_reduce(flips)
+        if mesh.is_main:
+            held = sum(len(rec[k][0]) for rec in pins.calls for k in ("kink", "clamp")
+                       if k in rec)
+            torch.save({"grads": pinned, "unpinned": unpinned, "world": mesh.world,
+                        "flips": float(flips), "pinned": held}, out_path)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(nproc: int, args: list, timeout: int = 600) -> None:
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", *args]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} failed ({out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-5000:]}")
+
+
+def run_data_parallel(card: str, tmp: str, data: str) -> dict:
+    """Phase 9: the claro recipe in an NCCL group of one rank under
+    torchrun, against the same run without a group: the four phase
+    variants of the step from the CLI's build and the CLI's own 32 steps
+    (three variants: its schedule never takes D-reg alone), both bit-equal
+    (an all-reduce over one rank and a division by 1 change no bit).
+    Returns the kernels' counts of the group's run.  With two cards,
+    also two ranks in ``global_sample`` against one."""
+    import torch
+
+    runs = {}
+    for label, nproc in (("nccl", 1), ("none", 0)):
+        out = os.path.join(tmp, f"dp_{label}.json")
+        argv = [f"--outdir={os.path.join(tmp, 'runs_dp_' + label)}", f"--data={data}", *DP_ARGS]
+        t0 = time.perf_counter()
+        if nproc:
+            print(f"phase 9: python -m torch.distributed.run --standalone --nproc_per_node=1 "
+                  f"-m gantrack_tpu_torch.tools.train {' '.join(argv)}")
+            _torchrun(1, [__file__, "--dp-worker", out, *argv])
+        else:
+            print("phase 9: the same without a process group")
+            res = subprocess.run([sys.executable, __file__, "--dp-worker", out, *argv], cwd=ROOT,
+                                 capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"the run without a group failed:\n{res.stderr[-5000:]}")
+        with open(out) as f:
+            runs[label] = json.load(f)
+        print(f"  {label}: {time.perf_counter() - t0:.1f} s wall (a process, the build, four "
+              f"steps and the CLI's {runs[label]['step']} steps); world {runs[label]['world']}, "
+              f"backend {runs[label]['backend']}")
+    nccl, none = runs["nccl"], runs["none"]
+    if nccl["backend"] != "nccl" or nccl["world"] != 1 or none["backend"] is not None:
+        raise AssertionError(f"phase 9 ran {nccl['backend']}/{nccl['world']} against "
+                             f"{none['backend']}")
+    for what in ("variants", "checkpoint"):
+        differ = [k for k in none[what] if nccl[what].get(k) != none[what][k]]
+        if differ or set(nccl[what]) != set(none[what]):
+            raise AssertionError(f"phase 9: the NCCL group changed the bits of the {what}: "
+                                 f"{differ[:5]}")
+        print(f"  the {what} ({len(none[what])} tensors) bit-equal with and without the group")
+    print(f"  kernel launches of the group's run {nccl['launches']}")
+
+    if torch.cuda.device_count() > 1:
+        check_global_sample(tmp)
+    else:
+        print(f"  the 2-rank NCCL global_sample check was not run: this machine shows "
+              f"{torch.cuda.device_count()} CUDA device (it needs 2)")
+    return {k: nccl["launches"].get(k, 0) for k in KERNELS}
+
+
+def check_global_sample(tmp: str, device_type: str = "cuda", small: bool = False) -> None:
+    """Two ranks in ``rng_mode="global_sample"`` (NCCL on the card, gloo
+    for the rehearsal on the CPU) against one rank without a group: each
+    phase's gradient of one +Greg+Dreg step (``gs_worker``), the two
+    ranks replaying the one rank's kinks, at ``GLOBAL_SAMPLE_GRAD_BOUND``;
+    prints the unpinned errors and the flips beside it."""
+    import torch
+
+    outs = {n: os.path.join(tmp, f"gs_{n}.pt") for n in (1, 2)}
+    pins = os.path.join(tmp, "gs_pins.pt")
+    extra = [device_type] + (["small"] if small else [])
+    res = subprocess.run([sys.executable, __file__, "--gs-worker", outs[1], pins, *extra],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"the one-rank global_sample run failed:\n{res.stderr[-5000:]}")
+    _torchrun(2, [__file__, "--gs-worker", outs[2], pins, *extra])
+    one, two = (torch.load(outs[n], weights_only=True) for n in (1, 2))
+    if (one["world"], two["world"]) != (1, 2) or len(one["grads"]) != 4:
+        raise AssertionError(f"global_sample ran on {one['world']} and {two['world']} ranks, "
+                             f"{len(one['grads'])} phases")
+    print(f"  global_sample, 2 ranks against 1: {two['flips']:.0f} of {two['pinned']} pinned "
+          f"elements took the other branch unpinned")
+    for phase, a, b, u in zip(("G-main", "G-reg", "D-main", "D-reg"), one["grads"],
+                              two["grads"], two["unpinned"]):
+        norm = a.double().norm().clamp(min=1e-30)
+        unpinned = float((a.double() - u.double()).norm() / norm)
+        print(f"  global_sample, {phase}: unpinned relative norm error {unpinned:.3e}")
+        _check(f"global_sample 2 ranks against 1, {phase} gradient, kinks pinned "
+               f"(relative norm)", float((a.double() - b.double()).norm() / norm),
+               GLOBAL_SAMPLE_GRAD_BOUND)
+
+
+# Phase 10: CycleGAN and pix2pix at the JAX defaults' full width.
+I2I_MODELS = (("cycle_gan", "resnet_9blocks", "unaligned"), ("pix2pix", "unet_256", "aligned"))
+I2I_ITERS = 30
+# One generator forward (batch 1, 256^2, TF32 off) on the card against the
+# port on the CPU with the same weights: max |difference| of the tanh
+# output.  Fixed before its first run.
+I2I_FORWARD_BOUND = 2e-4
+
+
+def _i2i_datasets(root: str) -> dict:
+    """Synthetic 256² RGB PNGs (smooth colour blobs): unaligned
+    ``trainA/B`` (8 each), ``testA/B`` (2); aligned AB pairs ``train``
+    (8), ``test`` (2), B a colour transform of A."""
+    import numpy as np
+
+    from gantrack_tpu_torch.utils.checkpoint import save_png
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32)
+
+    def blob():
+        cx, cy, r = rng.uniform(64, 192), rng.uniform(64, 192), rng.uniform(20, 60)
+        g = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * r * r))
+        col = rng.uniform(40, 255, 3)
+        return np.clip(g[:, :, None] * col + rng.normal(0, 6, (256, 256, 3)), 0, 255)
+
+    roots = {"unaligned": os.path.join(root, "unaligned"), "aligned": os.path.join(root, "aligned")}
+    for phase, n in (("train", 8), ("test", 2)):
+        for side in "AB":
+            d = os.path.join(roots["unaligned"], phase + side)
+            os.makedirs(d)
+            for i in range(n):
+                save_png(os.path.join(d, f"{i}.png"), blob().astype(np.uint8))
+        d = os.path.join(roots["aligned"], phase)
+        os.makedirs(d)
+        for i in range(n):
+            a = blob()
+            b = 255 - a[:, :, ::-1]
+            save_png(os.path.join(d, f"{i}.png"), np.concatenate([a, b], axis=1).astype(np.uint8))
+    return roots
+
+
+def run_i2i(card: str, tmp: str) -> None:
+    """Phase 10: CycleGAN ``resnet_9blocks`` and pix2pix ``unet_256`` (ngf
+    64, 256², batch 1, the JAX defaults) through ``train_i2i`` for
+    ``I2I_ITERS`` iterations on a synthetic set, then ``test_i2i`` on each
+    checkpoint (the HTML sheet and its PNGs); ms per iteration (host
+    clock, synchronised, and device time from the profiler) and peak
+    memory of the trainer; one generator forward on the card against the
+    port on the CPU."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gantrack_tpu_torch.models.image2image import define_G
+    from gantrack_tpu_torch.tools import test_i2i, train_i2i
+    from gantrack_tpu_torch.utils.checkpoint import decode_png
+
+    roots = _i2i_datasets(os.path.join(tmp, "i2i_data"))
+    for model, netg, kind in I2I_MODELS:
+        ckpts = os.path.join(tmp, "i2i_ckpt")
+        argv = [f"--dataroot={roots[kind]}", f"--name={model}", f"--model={model}",
+                f"--checkpoints-dir={ckpts}", f"--max-iters={I2I_ITERS}", "--print-freq=10",
+                "--save-epoch-freq=1000"]
+        print(f"phase 10: python -m gantrack_tpu_torch.tools.train_i2i {' '.join(argv)}")
+        t0 = time.perf_counter()
+        run_dir = train_i2i.main(argv)
+        torch.cuda.synchronize()
+        print(f"  train_i2i: {time.perf_counter() - t0:.1f} s wall for {I2I_ITERS} iterations "
+              f"(with the build and the data)")
+
+        # The trainer alone on one fixed batch.
+        opts = train_i2i.build_parser().parse_args(argv)
+        train_i2i.resolve(opts)
+        device = torch.device("cuda", torch.cuda.current_device())
+        trainer = train_i2i.build_trainer(opts, 8, device)
+        gen = torch.Generator().manual_seed(1)
+        real_a = torch.rand((1, 3, 256, 256), generator=gen).mul(2).sub(1).to(device)
+        real_b = torch.rand((1, 3, 256, 256), generator=gen).mul(2).sub(1).to(device)
+        for _ in range(3):
+            trainer.optimize_parameters(real_a, real_b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            trainer.optimize_parameters(real_a, real_b)  # ends in a host read of the losses
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                trainer.optimize_parameters(real_a, real_b)
+            torch.cuda.synchronize()
+        rows = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                rows[ev.name[:80]] = rows.get(ev.name[:80], 0.0) + ev.device_time / 1e3 / 3
+        device_ms = sum(rows.values())
+        times.sort()
+        print(f"  {model} ({netg}, ngf 64, 256^2, batch 1): {times[len(times) // 2]:.2f} ms per "
+              f"iteration, median of 10 (host clock; {times[0]:.2f}-{times[-1]:.2f}), "
+              f"{device_ms:.2f} ms of device time an iteration (profiler, 3 iterations), peak "
+              f"{peak:.2f} GiB, on {card}")
+        for name, ms in sorted(rows.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"    {ms:8.2f} ms {100 * ms / device_ms:5.1f} %  {name}")
+
+        web = test_i2i.main([f"--dataroot={roots[kind]}", f"--name={model}",
+                             f"--model={model}", f"--checkpoints-dir={ckpts}",
+                             f"--results-dir={os.path.join(tmp, 'i2i_results')}",
+                             "--num-test=2"])
+        pngs = sorted(os.listdir(os.path.join(web, "images")))
+        with open(os.path.join(web, "index.html")) as f:
+            html = f.read()
+        want = 2 * 3  # real_A, fake_B and rec_A (CycleGAN) or real_B (pix2pix)
+        if len(pngs) != want or not all(f'src="images/{p}"' in html for p in pngs):
+            raise AssertionError(f"test_i2i wrote {pngs} and a sheet that does not show them")
+        for p in pngs:
+            with open(os.path.join(web, "images", p), "rb") as f:
+                img = decode_png(f.read())
+            if img.shape != (256, 256, 3):
+                raise AssertionError(f"{p}: shape {img.shape}")
+        print(f"  test_i2i: {len(pngs)} PNGs and index.html in {web}")
+
+        # One generator forward on the card against the CPU, the run's weights.
+        sd = torch.load(test_i2i.latest_checkpoint(os.path.join(run_dir, "checkpoints")),
+                        map_location="cpu", weights_only=True)["trainer"]["nets"]
+        sd = sd["g_a"] if "g_a" in sd else sd["g"]
+        g = define_G(3, 3, 64, netg, use_dropout=model == "pix2pix")
+        g.load_state_dict(sd)
+        g.eval()
+        x = torch.rand((1, 3, 256, 256), generator=torch.Generator().manual_seed(3)) * 2 - 1
+        with torch.no_grad():
+            want_cpu = g(x)
+            got = g.to(device)(x.to(device)).cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{model}: non-finite generator output on the card")
+        _check(f"{model} {netg} forward, card against the CPU (max abs)",
+               float((got - want_cpu).abs().max()), I2I_FORWARD_BOUND)
+        del trainer, g
+        torch.cuda.empty_cache()
+    print(f"  phase 10 on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2334,13 +2935,16 @@ def main() -> int:
         routed = timed("phase 6 (conv route)", run_kernel_route, card, tmp, data)
         asynced = timed("phase 7", run_metric_async, card, tmp, data)
         generated = timed("phase 8", run_generation, card, tmp, data, run_dir, sg3_dir)
+        parallel = timed("phase 9", run_data_parallel, card, tmp, data)
+        timed("phase 10", run_i2i, card, tmp)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall since the build began")
     # Launches on the main paths: the claro run, the StyleGAN3 run with its
     # metrics, the unfused augment steps, the probes' run, the kernel-route
-    # steps, the metric-async run and the generation leg, each counted from 0.
+    # steps, the metric-async run, the generation leg and the data-parallel
+    # run, each counted from 0.
     paths = {"claro": claro, "stylegan3-t": sg3, "unfused augment": unfused, "probes": probed,
              "kernel conv route": routed, "claro, metric-async": asynced,
-             "generation": generated}
+             "generation": generated, "claro, NCCL world 1": parallel}
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     print("kernel launches by main path: "
           + "; ".join(f"{name} { {k: n for k, n in counts.items() if n} }"
@@ -2364,4 +2968,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--gs-worker"]:
+        sys.exit(gs_worker(sys.argv[2], sys.argv[3], *sys.argv[4:5],
+                           small="small" in sys.argv[5:]))
     sys.exit(main())

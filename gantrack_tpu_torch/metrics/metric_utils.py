@@ -1,9 +1,18 @@
 """Feature passes shared by the quality metrics (PyTorch).
 
-Port of ``gantrack_tpu/metrics/metric_utils.py`` on one device:
-``MetricOptions``, detectors, the dataset pass (with the per-batch
-uint8 shim and the md5-keyed feature cache) and the generator pass.
-Data parallelism of the passes is ROADMAP A7.
+Port of ``gantrack_tpu/metrics/metric_utils.py``: ``MetricOptions``,
+detectors, the dataset pass (with the per-batch uint8 shim and the
+md5-keyed feature cache) and the generator pass.
+
+With ``opts.mesh`` of a process group, each batch of both passes is
+split over the ranks (padded to a multiple of the world by repeating
+its last row, as JAX's ``Detector.sharded`` pads), each rank runs its
+rows and the features are all-gathered in order before the statistics,
+so N ranks give one rank's features.  JAX rounds the generator pass's
+batch up to a multiple of the mesh instead; the port keeps the batch,
+so the z stream does not depend on the number of ranks.  The uint8
+shim decides on the maximum of the whole batch (reduced over ranks).
+Only rank 0 writes the feature cache.
 
 * A :class:`Detector` takes images ``[N, 3, H, W]`` (float, 0..255) on
   its device and returns ``[N, D]`` float32 features there.
@@ -26,8 +35,10 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.inception import bilinear_resize
+from ..parallel.mesh import Mesh
 from .feature_stats import FeatureStats, cache_path
 
 # Names the dataset pass's uint8 shim (``dataset_uint8_shim``) in the
@@ -59,6 +70,27 @@ class MetricOptions:
     seed: int = 0
     progress: Optional[Callable[[int, int], None]] = None
     device: torch.device = torch.device("cpu")
+    mesh: Optional[Mesh] = None  # split the feature passes over a process group
+
+
+def _split(opts: MetricOptions) -> Optional[Mesh]:
+    return opts.mesh if opts.mesh is not None and opts.mesh.distributed else None
+
+
+def rank_rows(mesh: Mesh, n: int) -> List[int]:
+    """The rows of an ``n``-row batch that ``mesh.rank`` runs: an equal
+    contiguous share of ``n`` padded up to a multiple of the world with
+    copies of the last row."""
+    per = -(-n // mesh.world)
+    return [min(i, n - 1) for i in range(mesh.rank * per, (mesh.rank + 1) * per)]
+
+
+def gather_rows(mesh: Mesh, feats: torch.Tensor, n: int) -> torch.Tensor:
+    """Every rank's ``feats`` (of :func:`rank_rows`) in rank order, the
+    padding dropped: the features of the whole ``n``-row batch."""
+    parts = [torch.empty_like(feats) for _ in range(mesh.world)]
+    dist.all_gather(parts, feats.contiguous())
+    return torch.cat(parts)[:n]
 
 
 def auto_metric_batch(resolution: int, floor: int = 32, cap: int = 256) -> int:
@@ -160,13 +192,14 @@ def to_detector_input(images: torch.Tensor, mode_idx: Optional[int]) -> torch.Te
 _warned_unshimmed: list = []  # once-per-process flag for the shim warning
 
 
-def dataset_uint8_shim(batch: np.ndarray) -> np.ndarray:
+def dataset_uint8_shim(batch: np.ndarray, bmax: Optional[float] = None) -> np.ndarray:
     """The per-batch uint8 shim of the dataset pass (JAX
     ``metric_utils.py:239-264``): a batch of [0, 1] floats is scaled by
     255 and truncated to uint8, as the reference does; a batch with an
     exact 255 passes through; a [0, 255] float batch without one passes
-    through too (the reference would saturate it), with a warning once."""
-    bmax = float(batch.max())
+    through too (the reference would saturate it), with a warning once.
+    ``bmax`` is the whole batch's maximum where ``batch`` is a part."""
+    bmax = float(batch.max()) if bmax is None else bmax
     if bmax != 255 and bmax <= 1.001:
         return np.clip(batch * 255, 0, 255).astype(np.uint8).astype(np.float32)
     if bmax != 255 and not _warned_unshimmed:
@@ -196,23 +229,31 @@ def compute_feature_stats_for_dataset(opts: MetricOptions, capture_all: bool = F
             return FeatureStats.load(cache_file)
 
     stats = FeatureStats(capture_all=capture_all, capture_mean_cov=capture_mean_cov, max_items=n)
+    mesh = _split(opts)
     idx = 0
     while not stats.is_full():
-        imgs = []
-        for _ in range(min(opts.batch_size, n - idx)):
-            img, _label, _fname = dataset[idx % len(dataset)]
-            imgs.append(img)
-            idx += 1
-        if not imgs:
+        k = min(opts.batch_size, n - idx)
+        if k <= 0:
             break
-        batch = dataset_uint8_shim(np.stack(imgs))  # NHWC
+        rows = range(k) if mesh is None else rank_rows(mesh, k)
+        batch = np.stack([dataset[(idx + j) % len(dataset)][0] for j in rows])  # NHWC
+        idx += k
+        bmax = None
+        if mesh is not None:
+            top = torch.tensor(float(batch.max()), device=opts.detector.device)
+            dist.all_reduce(top, op=dist.ReduceOp.MAX)
+            bmax = float(top)
+        batch = dataset_uint8_shim(batch, bmax)
         x = torch.from_numpy(np.ascontiguousarray(batch.transpose(0, 3, 1, 2)))
         x = to_detector_input(x.to(opts.detector.device, non_blocking=True), opts.mode_idx)
-        stats.append(opts.detector(x).cpu().numpy())
+        feats = opts.detector(x)
+        if mesh is not None:
+            feats = gather_rows(mesh, feats, k)
+        stats.append(feats.cpu().numpy())
         if opts.progress:
             opts.progress(stats.num_items, n)
 
-    if cache_file is not None:
+    if cache_file is not None and (mesh is None or mesh.is_main):
         stats.save(cache_file)
     return stats
 
@@ -236,6 +277,8 @@ def compute_feature_stats_for_generator(opts: MetricOptions, capture_all: bool =
     gen = torch.Generator(device=device).manual_seed(opts.seed)
     label_rng = np.random.default_rng(opts.seed)
     bs = opts.batch_size
+    mesh = _split(opts)
+    rows = None if mesh is None else torch.tensor(rank_rows(mesh, bs), device=device)
     with torch.inference_mode():
         while not stats.is_full():
             c = None
@@ -247,9 +290,15 @@ def compute_feature_stats_for_generator(opts: MetricOptions, capture_all: bool =
                     labels = np.eye(opts.c_dim, dtype=np.float32)[
                         label_rng.integers(0, opts.c_dim, bs)]
                 c = torch.from_numpy(labels.astype(np.float32)).to(device)
-            img = opts.generator(sample_z(gen, bs, opts.z_dim, device), c)
+            z = sample_z(gen, bs, opts.z_dim, device)
+            if rows is not None:
+                z, c = z[rows], (None if c is None else c[rows])
+            img = opts.generator(z, c)
             img = torch.floor(torch.clamp(img.float() * 127.5 + 128, 0, 255))
-            stats.append(opts.detector(to_detector_input(img, opts.mode_idx)).cpu().numpy())
+            feats = opts.detector(to_detector_input(img, opts.mode_idx))
+            if mesh is not None:
+                feats = gather_rows(mesh, feats, bs)
+            stats.append(feats.cpu().numpy())
             if opts.progress and stats.max_items:
                 opts.progress(stats.num_items, stats.max_items)
     return stats

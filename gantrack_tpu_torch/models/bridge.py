@@ -16,6 +16,14 @@
   ``[in, out]`` → ``[out, in]`` dense layers, by the same flat rule.
 * The random-projection detector's matrices, which both packages apply
   to images flattened in HWC order, carry over as they are.
+* CycleGAN / pix2pix (``gantrack_tpu/models/image2image.py``): the
+  inverse of ``torch_compat``'s ``*_params_from_torch`` for the i2i
+  networks, from the Flax scopes (``Conv_k``, ``ConvTranspose_k``,
+  ``BatchNorm_k``, ``ResnetBlock_b``, the sibling ``UnetSkipBlock_k``) to
+  the reference's ``nn.Sequential`` indices.  Convs HWIO → OIHW;
+  transposed convs are Flax's unflipped correlation kernels ``[kh, kw,
+  in, out]``, flipped in space and laid out as torch's ``[in, out, kh,
+  kw]``; batch-norm ``scale`` / ``bias`` → ``weight`` / ``bias``.
 
 Takes nested dicts of arrays (``jax.device_get`` of the flax variables);
 imports no JAX.
@@ -171,3 +179,95 @@ def random_projection_from_jax(matrices) -> list:
     """The JAX random-projection detector's matrices (its ``params``) →
     the port's, as float32 tensors."""
     return [_t(m) for m in matrices]
+
+
+# ------------------------------------------------------------- image-to-image
+
+def _i2i_conv(sd, prefix: str, p: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _conv_w(p["kernel"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _i2i_convt(sd, prefix: str, p: Mapping[str, Any]) -> None:
+    """Flax ``ConvTranspose`` ``[kh, kw, in, out]`` (a correlation) → torch
+    ``ConvTranspose2d`` ``[in, out, kh, kw]`` (its adjoint scatter)."""
+    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"])[::-1, ::-1], (2, 3, 0, 1)))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _i2i_norm(sd, prefix: str, p: Mapping[str, Any], name: str) -> None:
+    if name in p:  # batch norm only: instance norm has no parameters
+        sd[f"{prefix}.weight"] = _t(p[name]["scale"])
+        sd[f"{prefix}.bias"] = _t(p[name]["bias"])
+
+
+def resnet_state_dict_from_jax(params: Mapping[str, Any], n_blocks: int
+                               ) -> Dict[str, torch.Tensor]:
+    """``ResnetGenerator`` params of the JAX package (without dropout) →
+    the port's."""
+    sd: Dict[str, torch.Tensor] = {}
+    for j, idx in enumerate((1, 4, 7)):
+        _i2i_conv(sd, f"model.{idx}", params[f"Conv_{j}"])
+        _i2i_norm(sd, f"model.{idx + 1}", params, f"BatchNorm_{j}")
+    for b in range(n_blocks):
+        p, base = params[f"ResnetBlock_{b}"], f"model.{10 + b}.conv_block"
+        _i2i_conv(sd, f"{base}.1", p["Conv_0"])
+        _i2i_norm(sd, f"{base}.2", p, "BatchNorm_0")
+        _i2i_conv(sd, f"{base}.5", p["Conv_1"])
+        _i2i_norm(sd, f"{base}.6", p, "BatchNorm_1")
+    for j, idx in enumerate((10 + n_blocks, 13 + n_blocks)):
+        _i2i_convt(sd, f"model.{idx}", params[f"ConvTranspose_{j}"])
+        _i2i_norm(sd, f"model.{idx + 1}", params, f"BatchNorm_{3 + j}")
+    _i2i_conv(sd, f"model.{17 + n_blocks}", params["Conv_3"])
+    return sd
+
+
+def unet_state_dict_from_jax(params: Mapping[str, Any], num_downs: int) -> Dict[str, torch.Tensor]:
+    """``UnetGenerator`` params of the JAX package → the port's.  Flax
+    builds the blocks innermost first, as siblings (``UnetSkipBlock_0`` is
+    the innermost); torch nests them, outermost first."""
+    sd: Dict[str, torch.Tensor] = {}
+    prefix = "model."
+    for level in range(num_downs):
+        p = params[f"UnetSkipBlock_{num_downs - 1 - level}"]
+        outermost, innermost = level == 0, level == num_downs - 1
+        _i2i_conv(sd, f"{prefix}model.{0 if outermost else 1}", p["Conv_0"])
+        _i2i_convt(sd, f"{prefix}model.{3 if (outermost or innermost) else 5}",
+                   p["ConvTranspose_0"])
+        if innermost:
+            _i2i_norm(sd, f"{prefix}model.4", p, "BatchNorm_0")
+        elif not outermost:
+            _i2i_norm(sd, f"{prefix}model.2", p, "BatchNorm_0")
+            _i2i_norm(sd, f"{prefix}model.6", p, "BatchNorm_1")
+        prefix += f"model.{1 if outermost else 3}."
+    return sd
+
+
+def i2i_generator_state_dict_from_jax(params: Mapping[str, Any], netG: str
+                                      ) -> Dict[str, torch.Tensor]:
+    """``define_G(..., netG)`` params of the JAX package → the port's (a
+    resnet without dropout; the U-Net's dropout holds no parameter)."""
+    if netG in ("resnet_9blocks", "resnet_6blocks"):
+        return resnet_state_dict_from_jax(params, 9 if netG == "resnet_9blocks" else 6)
+    if netG in ("unet_256", "unet_128"):
+        return unet_state_dict_from_jax(params, 8 if netG == "unet_256" else 7)
+    raise ValueError(f"unknown netG {netG}")
+
+
+def i2i_discriminator_state_dict_from_jax(params: Mapping[str, Any], netD: str = "basic",
+                                          n_layers_D: int = 3) -> Dict[str, torch.Tensor]:
+    """``define_D`` params of the JAX package → the port's discriminator."""
+    sd: Dict[str, torch.Tensor] = {}
+    if netD == "pixel":
+        for j, idx in enumerate((0, 2, 5)):
+            _i2i_conv(sd, f"net.{idx}", params[f"Conv_{j}"])
+        _i2i_norm(sd, "net.3", params, "BatchNorm_0")
+        return sd
+    n_layers = 3 if netD == "basic" else n_layers_D
+    idxs = [0] + [2 + 3 * i for i in range(n_layers)] + [2 + 3 * n_layers]
+    for j, idx in enumerate(idxs):
+        _i2i_conv(sd, f"model.{idx}", params[f"Conv_{j}"])
+        if 0 < j <= n_layers:
+            _i2i_norm(sd, f"model.{idx + 1}", params, f"BatchNorm_{j - 1}")
+    return sd

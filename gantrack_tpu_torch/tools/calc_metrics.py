@@ -33,12 +33,15 @@ from .train import _bool, make_generator, metric_batch
 def evaluate_metrics(G_ema, metrics: Sequence[str], dataset, detector, device: torch.device,
                      batch_size: int, modalities: Optional[Sequence[str]] = None,
                      cache_dir: Optional[str] = None, run_dir: Optional[str] = None,
-                     kimg: Optional[int] = None, snapshot_path: Optional[str] = None) -> dict:
+                     kimg: Optional[int] = None, snapshot_path: Optional[str] = None,
+                     mesh=None) -> dict:
     """Run and report ``metrics`` of ``G_ema`` for each modality (one pass
     for 1- or 3-channel data, one per channel of 2-channel data); returns
     ``{name: value}``, names prefixed with the modality.  The metrics get
     G_ema's mapping and synthesis apart (w-space PPL), as the JAX training
-    loop hands them."""
+    loop hands them.  ``mesh`` (``parallel.mesh``) splits the feature
+    passes over its ranks; every rank must call, and only rank 0 writes
+    the rows."""
     from ..metrics import MetricOptions, calc_metric, report_metric
 
     def generator(z, c):
@@ -73,10 +76,12 @@ def evaluate_metrics(G_ema, metrics: Sequence[str], dataset, detector, device: t
                              mapping=mapping, synthesis=synthesis,
                              z_dim=G_ema.z_dim, c_dim=G_ema.c_dim,
                              dataset=dataset, detector=detector, mode_idx=mode_idx,
-                             batch_size=batch_size, cache_dir=cache_dir, device=device)
+                             batch_size=batch_size, cache_dir=cache_dir, device=device,
+                             mesh=mesh)
         for m in metrics:
             rd = calc_metric(m, opts, mode_name=mode_name)
-            report_metric(rd, run_dir=run_dir, snapshot_path=snapshot_path, kimg=kimg)
+            if mesh is None or mesh.is_main:
+                report_metric(rd, run_dir=run_dir, snapshot_path=snapshot_path, kimg=kimg)
             results.update({f"{mode_name or ''}{k}": v for k, v in rd["results"].items()})
     return results
 

@@ -9,7 +9,7 @@ Same flag names as ``gantrack_tpu/tools/train.py`` (``argparse`` here).
 Trains StyleGAN2-ADA (``--cfg=stylegan2``) or StyleGAN3
 (``--cfg=stylegan3-t`` / ``stylegan3-r``: no path length, no style
 mixing, mapping depth 2; ``-r`` doubles the channels, takes 1×1 convs and
-radial filters, and fades a discriminator blur) on one CUDA device
+radial filters, and fades a discriminator blur) on the CUDA devices
 (``--device=cpu`` trains on the CPU instead, for rehearsals at a tiny
 size) and evaluates ``--metrics`` of G_ema (the ``eq*`` equivariance
 metrics for StyleGAN3 only) at every ``--metric-snap``-th snapshot, with
@@ -20,6 +20,16 @@ freezes D's first ``N`` layers (they get no Adam update and no Adam
 state), and ``--metric-async`` runs the metrics of a snapshot that is not
 the last on a background thread.  The JAX CLI's ``--dtype`` (read by
 nothing) and ``--rng-impl`` (a TPU generator) are not taken.
+
+``--devices N`` trains data-parallel on N devices, one process each
+(default: every visible GPU; one with ``--device=cpu``).  Under torchrun
+(``python -m torch.distributed.run --nproc_per_node=N -m
+gantrack_tpu_torch.tools.train ...``) each process joins the launch's
+group; otherwise, with N > 1, the CLI spawns N workers on localhost.
+NCCL runs the collectives on the card, gloo on the CPU.  ``--batch`` is
+the global batch and ``--batch-gpu`` a device's chunk.  Rank 0 writes
+the run directory; ``--resume`` is read on rank 0 and broadcast; rank
+``r`` draws from a generator seeded ``seed * N + r``.
 """
 
 from __future__ import annotations
@@ -117,23 +127,40 @@ def check_slice(opts) -> None:
             raise SystemExit(f"--metrics: {m} needs a StyleGAN3 generator (--cfg=stylegan3-t|-r)")
     if opts.metric_snap < 1:
         raise SystemExit("--metric-snap: must be at least 1")
-    if opts.num_devices not in (None, 1):
-        raise SystemExit("--devices: one device in this slice (data parallelism: ROADMAP A7)")
-    if opts.batch_gpu is not None and (opts.batch_gpu < 1 or opts.batch % opts.batch_gpu):
+    devices = num_devices(opts)
+    if opts.batch % devices:
+        raise SystemExit(f"--batch {opts.batch} is not divisible by {devices} devices")
+    local_b = opts.batch // devices
+    if opts.batch_gpu is not None and (opts.batch_gpu < 1 or local_b % opts.batch_gpu):
         raise SystemExit(f"--batch-gpu {opts.batch_gpu} must divide the per-device batch "
-                         f"{opts.batch} (batch {opts.batch} / 1 devices)")
+                         f"{local_b} (batch {opts.batch} / {devices} devices)")
     # D sees a chunk of the batch at a time (its fakes and its reals apart);
     # the JAX minibatch_stddev asserts that its group divides what it sees.
-    chunk = opts.batch_gpu or opts.batch
+    chunk = opts.batch_gpu or local_b
     group = min(opts.mbstd_group, chunk)
     if group < 1 or chunk % group:
         raise SystemExit(f"--mbstd-group {opts.mbstd_group}: D's batch of {chunk} is not "
                          f"divisible by its minibatch-std group {group}")
 
 
+def num_devices(opts) -> int:
+    """Devices of the run: ``--devices``, the launch's world size under
+    torchrun, else every visible GPU (one CPU with ``--device=cpu``)."""
+    from ..parallel.mesh import default_devices, launched
+
+    if launched():
+        world = int(os.environ["WORLD_SIZE"])
+        if opts.num_devices not in (None, world):
+            raise SystemExit(f"--devices {opts.num_devices} in a launch of {world} processes")
+        return world
+    if opts.num_devices is not None and opts.num_devices < 1:
+        raise SystemExit("--devices: must be at least 1")
+    return opts.num_devices or default_devices(opts.device)
+
+
 def micro_batches(opts) -> int:
-    """Chunks of the batch a phase accumulates over (``--batch-gpu``)."""
-    return opts.batch // opts.batch_gpu if opts.batch_gpu else 1
+    """Chunks of a device's batch a phase accumulates over (``--batch-gpu``)."""
+    return opts.batch // num_devices(opts) // opts.batch_gpu if opts.batch_gpu else 1
 
 
 def resolve_config(opts) -> dict:
@@ -149,8 +176,8 @@ def resolve_config(opts) -> dict:
                mbstd_group=opts.mbstd_group),
         glr=opts.glr if opts.glr is not None else (0.002 if opts.cfg == "stylegan2" else 0.0025),
         dlr=opts.dlr, gamma=opts.gamma, ema_kimg=opts.batch * 10 / 32,
-        aug=opts.aug, target=opts.target, batch_gpu=opts.batch // micro_batches(opts),
-        freezed=opts.freezed,
+        aug=opts.aug, target=opts.target, num_devices=num_devices(opts),
+        batch_gpu=opts.batch // num_devices(opts) // micro_batches(opts), freezed=opts.freezed,
     )
 
 
@@ -166,14 +193,66 @@ def main(argv: Optional[List[str]] = None) -> Optional[str]:
         print(json.dumps(c, indent=2))
         print("Dry run; exiting.")
         return None
+    import torch.distributed as dist
+
+    from ..parallel.mesh import create_mesh, initialize_distributed, launched
+
+    if c["num_devices"] > 1 and not launched() and not dist.is_initialized():
+        run_dir = _new_run_dir(opts, c, desc)
+        _spawn(opts, c, run_dir)
+        return run_dir
+    started = initialize_distributed(opts.device)
+    try:
+        mesh = create_mesh(c["num_devices"], opts.device)
+        run_dir = [_new_run_dir(opts, c, desc) if mesh.is_main else None]
+        if mesh.distributed:
+            dist.broadcast_object_list(run_dir, src=0)
+        train(c, opts, run_dir[0], mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    return run_dir[0]
+
+
+def _new_run_dir(opts, c: dict, desc: str) -> str:
     from ..utils.checkpoint import allocate_run_dir
 
     run_dir = allocate_run_dir(opts.outdir, desc)
     with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
         json.dump(c, f, indent=2)
     print(f"Run dir: {run_dir}")
-    train(c, opts, run_dir)
     return run_dir
+
+
+def _spawn(opts, c: dict, run_dir: str) -> None:
+    """Train on ``c["num_devices"]`` worker processes on localhost (the
+    reference's ``torch.multiprocessing.spawn``); raises if one fails."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:  # a free port for the group's rendezvous
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_worker, args=(opts, c, run_dir, port), nprocs=c["num_devices"],
+                       join=True, start_method="spawn")
+
+
+def _worker(rank: int, opts, c: dict, run_dir: str, port: int) -> None:
+    import torch.distributed as dist
+
+    from ..parallel.mesh import create_mesh, initialize_distributed
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(c["num_devices"]),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    if opts.device == "cpu":  # the ranks share the host's cores (at most OMP_NUM_THREADS each)
+        torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                         (os.cpu_count() or 1) // c["num_devices"])))
+    initialize_distributed(opts.device)
+    try:
+        train(c, opts, run_dir, create_mesh(c["num_devices"], opts.device))
+    finally:
+        dist.destroy_process_group()
 
 
 def make_generator(cfg: str, *, resolution: int, channels: int, c_dim: int, cbase: int,
@@ -221,14 +300,17 @@ def metric_batch(cfg: str, resolution: int) -> int:
 
 
 def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fused",
-                   conv_impl: str = "library"):
+                   conv_impl: str = "library", mesh=None):
     """Dataset, loader, networks, state, loss and stepper of a run.
     ``augment_impl`` is the ``impl`` of the augment pipe and ``conv_impl``
     who runs the dense 3×3 stride-1 convolutions of G and D (``"library"``:
     cuDNN; ``"kernel"``: ``ops.conv3x3``); neither has a CLI flag, as in
-    the JAX CLI."""
+    the JAX CLI.  ``mesh`` (``parallel.mesh``; default one process) is the
+    rank's place in a data-parallel run: the loader reads the rank's
+    stride of the dataset, and the state is rank 0's."""
     from ..data import InfiniteLoader, open_dataset
     from ..models.stylegan2 import Discriminator, discriminator_freeze_mask
+    from ..parallel.mesh import Mesh, replicate
     from ..training.augment import AugmentConfig, AugmentPipe
     from ..training.loss import StyleGAN2Loss, StyleGAN2LossConfig
     from ..training.step import TrainStepConfig, TrainStepper
@@ -262,15 +344,13 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
     d_trainable = discriminator_freeze_mask(D, opts.freezed) if opts.freezed > 0 else None
     state = create_train_state(G, D, c["glr"], c["dlr"], g_reg_interval=g_reg_interval,
                                d_reg_interval=16, d_trainable=d_trainable)
-    generator = torch.Generator(device=device).manual_seed(opts.seed)
+    mesh = mesh or Mesh()
+    generator = torch.Generator(device=device).manual_seed(opts.seed * mesh.world + mesh.rank)
     if opts.resume:
-        from ..utils.checkpoint import load_checkpoint, resolve_checkpoint_path
-
-        path = resolve_checkpoint_path(opts.resume)
-        if path is None:
-            raise SystemExit(f"--resume: no checkpoint found under {opts.resume}")
-        print(f"Resuming from {path}")
-        load_checkpoint(path, state, generator)
+        _resume(opts.resume, state, generator, mesh)
+    replicate(mesh, [*G.parameters(), *G.buffers(), *D.parameters(), *D.buffers(),
+                     *state.G_ema.parameters(), *state.G_ema.buffers(),
+                     state.pl_mean, state.ada_p, state.ada_signs])
 
     augment_fn = None
     ada_target = None
@@ -302,24 +382,57 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
         ema_rampup=None if opts.resume else 0.05, g_reg_interval=g_reg_interval,
         d_reg_interval=16,
         ada_target=ada_target, ada_kimg=100 if opts.resume else opts.ada_kimg)
-    stepper = TrainStepper(loss, step_cfg, generator, label_bank=label_bank)
-    loader = InfiniteLoader(dataset, batch_size=opts.batch, seed=opts.seed,
-                            num_workers=opts.workers)
+    stepper = TrainStepper(loss, step_cfg, generator, label_bank=label_bank, mesh=mesh)
+    loader = InfiniteLoader(dataset, batch_size=opts.batch // mesh.world, rank=mesh.rank,
+                            num_replicas=mesh.world, seed=opts.seed, num_workers=opts.workers)
     return dataset, loader, state, stepper
 
 
-def train(c: dict, opts, run_dir: str):
+def _resume(resume: str, state, generator: torch.Generator, mesh) -> None:
+    """Restore ``state`` from the checkpoint of ``resume``, read on rank 0
+    and handed to every rank.  Rank 0 takes the saved generator state;
+    another rank a fresh stream keyed by its rank and the step."""
+    import torch.distributed as dist
+
+    from ..utils.checkpoint import apply_checkpoint, resolve_checkpoint_path
+
+    payload = [None]
+    if mesh.is_main:
+        path = resolve_checkpoint_path(resume)
+        if path is None:
+            raise SystemExit(f"--resume: no checkpoint found under {resume}")
+        print(f"Resuming from {path}")
+        payload[0] = torch.load(path, map_location="cpu", weights_only=True)
+    if mesh.distributed:
+        dist.broadcast_object_list(payload, src=0)
+    if not mesh.is_main:
+        payload[0]["generator"] = None
+        key = [generator.initial_seed(), mesh.rank, int(payload[0]["step"])]
+        generator.manual_seed(int(np.random.SeedSequence(key).generate_state(1)[0]))
+    apply_checkpoint(payload[0], state, generator)
+
+
+def train(c: dict, opts, run_dir: str, mesh=None):
+    """Train rank ``mesh.rank`` of the run (default: one process)."""
+    from ..parallel.mesh import Mesh
     from ..training.loop import training_loop
 
     # The reference trains without TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh or Mesh()
     device = torch.device(c["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device=cuda: no CUDA device is available "
-                         "(--device=cpu trains on the CPU)")
-    dataset, loader, state, stepper = build_training(c, opts, device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device=cuda: no CUDA device is available "
+                             "(--device=cpu trains on the CPU)")
+        if mesh.distributed:
+            device = torch.device("cuda", torch.cuda.current_device())
+    dataset, loader, state, stepper = build_training(c, opts, device, mesh=mesh)
     c_dim = stepper.cfg.c_dim
+    # The metrics split over the ranks; with --metric-async rank 0 runs
+    # them alone on its device, beside the training collectives.
+    metric_mesh = None if opts.metric_async else mesh
 
     metric_fn = None
     if c["metrics"]:
@@ -334,7 +447,7 @@ def train(c: dict, opts, run_dir: str):
                 state.G_ema, c["metrics"], dataset, detector, device,
                 batch_size=metric_batch(c["cfg"], dataset.resolution),
                 modalities=opts.modalities.split(","), cache_dir=cache_dir, run_dir=run_dir,
-                kimg=kimg)
+                kimg=kimg, mesh=metric_mesh)
 
     def sample_fn(state, grid_z, grid_c):
         outs = []
@@ -352,7 +465,7 @@ def train(c: dict, opts, run_dir: str):
             total_kimg=c["total_kimg"], kimg_per_tick=c["kimg_per_tick"],
             snapshot_ticks=c["snapshot_ticks"], image_snapshot_ticks=c["snapshot_ticks"],
             sample_fn=sample_fn, metrics=c["metrics"], metric_fn=metric_fn,
-            metric_snapshot_every=opts.metric_snap, metric_async=opts.metric_async)
+            metric_snapshot_every=opts.metric_snap, metric_async=opts.metric_async, mesh=mesh)
     finally:
         loader.close()
 

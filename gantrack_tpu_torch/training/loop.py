@@ -6,6 +6,13 @@ every ``metric_snapshot_every``-th snapshot (a metric failure is logged
 and training goes on), in the loop's thread or, with ``metric_async``,
 on a background thread as the JAX loop runs them.  The loop keeps the
 step's moments on the device and fetches them once per tick.
+
+Data parallel (``mesh`` of a process group): every rank steps on its
+share of the batch, and only rank 0 writes ``stats.jsonl``, the image
+grids and the checkpoints.  Every rank takes part in a metric that
+splits its feature passes over the ranks; with ``metric_async`` the
+metrics run on rank 0 alone, on its device, and the other ranks skip
+them.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..utils.checkpoint import save_checkpoint, save_image_grid
 from . import stats as stats_lib
 from .step import TrainStepper
@@ -89,6 +97,7 @@ def training_loop(
     metric_snapshot_every: int = 1,
     metric_async: bool = False,
     verbose: bool = True,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """Run until ``total_kimg``; returns the final state.
 
@@ -105,13 +114,21 @@ def training_loop(
     snapshot joins it and runs in the loop's thread, and the loop joins
     any thread before it returns.  On a CUDA device the thread queues its
     work on a stream of its own, which waits for the copy.
+
+    ``mesh`` (default: one process) says which rank this is; see the
+    module's docstring for what each rank does.
     """
+    main = mesh is None or mesh.is_main
     start_time = time.time()
     collector = stats_lib.Collector()
-    jsonl = stats_lib.JsonlLogger(os.path.join(run_dir, "stats.jsonl"))
-    batch_size = stepper.cfg.batch_size
+    jsonl = stats_lib.JsonlLogger(os.path.join(run_dir, "stats.jsonl")) if main else None
+    verbose = verbose and main
+    if metric_async and not main:
+        metric_fn = None
 
     grid_z = grid_c = None
+    if not main:
+        sample_fn = None
     if image_snapshot_ticks is not None and sample_fn is not None:
         (gw, gh), reals, grid_labels = setup_snapshot_image_grid(loader.dataset)
         save_image_grid(reals / 127.5 - 1, os.path.join(run_dir, "reals.png"), grid_size=(gw, gh))
@@ -181,7 +198,8 @@ def training_loop(
                 f"G_loss {collector.mean('Loss/G/loss'):.3f}",
                 f"D_loss {collector.mean('Loss/D/loss'):.3f}",
             ]), flush=True)
-        jsonl.write({**fields, **{k: v["mean"] for k, v in collector.as_dict().items()}})
+        if jsonl is not None:
+            jsonl.write({**fields, **{k: v["mean"] for k, v in collector.as_dict().items()}})
         collector.clear()
 
         maintenance_start = time.time()
@@ -191,7 +209,8 @@ def training_loop(
                             os.path.join(run_dir, f"fakes{state.cur_nimg // 1000:06d}.png"),
                             grid_size=(gw, gh))
         if snapshot_ticks is not None and cur_tick > 0 and (done or cur_tick % snapshot_ticks == 0):
-            save_checkpoint(os.path.join(run_dir, "checkpoints"), state, stepper.generator)
+            if main:
+                save_checkpoint(os.path.join(run_dir, "checkpoints"), state, stepper.generator)
             snapshot_idx += 1
             if (metric_fn is not None and metrics
                     and (done or (snapshot_idx - 1) % max(metric_snapshot_every, 1) == 0)):
@@ -216,5 +235,6 @@ def training_loop(
 
     if metric_thread is not None:
         metric_thread.join()
-    jsonl.close()
+    if jsonl is not None:
+        jsonl.close()
     return state

@@ -20,6 +20,12 @@ Each phase returns its loss and a moments dict (``stats.report``); the
 stepper takes the gradients.  Random draws come from the explicit
 ``torch.Generator`` a phase is given; the path-length noise can be
 handed in instead (``pl_noise``), which the parity tests do.
+
+Data parallelism (``training.step``, ``rng_mode="global_sample"``):
+``global_rows = (rank, world)`` makes every per-sample draw (the style
+mixing's second z, the path-length noise) one draw of the global batch,
+of which this rank takes its rows, so the draws do not depend on how the
+batch is split; ``gpl``'s ``batch_mean`` is then the global mean.
 """
 
 from __future__ import annotations
@@ -58,8 +64,19 @@ class StyleGAN2Loss:
         self.D = D
         self.cfg = cfg
         self.augment_fn = augment_fn
+        self.global_rows: Optional[Tuple[int, int]] = None  # (rank, world)
 
     # ------------------------------------------------------------- helpers
+
+    def _randn(self, shape, gen, device) -> torch.Tensor:
+        """A standard normal per sample (rows of ``shape``): with
+        ``global_rows``, this rank's rows of one draw for the global batch."""
+        if self.global_rows is None:
+            return torch.randn(shape, generator=gen, device=device)
+        rank, world = self.global_rows
+        n = shape[0]
+        rows = torch.randn((n * world, *shape[1:]), generator=gen, device=device)
+        return rows[rank * n:(rank + 1) * n]
 
     def _mix(self, ws, z, c, gen):
         """Style mixing: from a random cutoff on, the layers take the ws of
@@ -71,7 +88,7 @@ class StyleGAN2Loss:
         cutoff = torch.randint(1, num_ws, (), generator=gen, device=dev)
         mix = torch.rand((), generator=gen, device=dev) < self.cfg.style_mixing_prob
         cutoff = torch.where(mix, cutoff, torch.full_like(cutoff, num_ws))
-        z2 = torch.randn(z.shape, generator=gen, device=dev)
+        z2 = self._randn(z.shape, gen, dev)
         ws2 = self.G.mapping(z2, c)
         mask = torch.arange(num_ws, device=dev)[None, :, None] >= cutoff
         return torch.where(mask, ws2, ws)
@@ -125,11 +142,14 @@ class StyleGAN2Loss:
         m = stats.report(m, "Loss/G/loss", loss)
         return loss.mean(), m
 
-    def gpl(self, z, c, gen, pl_mean, pl_noise=None):
+    def gpl(self, z, c, gen, pl_mean, pl_noise=None,
+            batch_mean: Callable[[torch.Tensor], torch.Tensor] = torch.mean):
         """Path-length regularisation.  Returns
         ``(loss, new_pl_mean (detached), moments)``; the caller applies the
         lazy-reg gain.  ``pl_noise`` (NCHW standard normal) replaces the
-        draw from ``gen``."""
+        draw from ``gen``; ``batch_mean`` is the mean that ``pl_mean``
+        moves toward (over all ranks in a data-parallel step, as JAX's
+        ``batch_mean_fn``)."""
         bsz = z.shape[0] // self.cfg.pl_batch_shrink
         z = z[:bsz]
         c = c[:bsz] if c is not None else None
@@ -137,12 +157,12 @@ class StyleGAN2Loss:
         ws = self._mix(ws, z, c, gen)
         img = self.G.synthesis(ws, noise_mode=self.cfg.noise_mode, generator=gen)
         if pl_noise is None:
-            pl_noise = torch.randn(img.shape, generator=gen, device=img.device)
+            pl_noise = self._randn(img.shape, gen, img.device)
         pl_noise = pl_noise / np.sqrt(img.shape[2] * img.shape[3])
         (pl_grads,) = torch.autograd.grad((img * pl_noise).sum(), ws, create_graph=True)
         pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
         # The lerped mean stays in the graph for the penalty.
-        new_pl_mean = pl_mean + self.cfg.pl_decay * (pl_lengths.mean() - pl_mean)
+        new_pl_mean = pl_mean + self.cfg.pl_decay * (batch_mean(pl_lengths) - pl_mean)
         pl_penalty = (pl_lengths - new_pl_mean).square()
         loss = pl_penalty * self.cfg.pl_weight
         m: stats.Moments = {}

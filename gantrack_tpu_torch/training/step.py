@@ -4,10 +4,30 @@ Port of ``TrainStepper._device_step`` (``gantrack_tpu/training/step.py``):
 G-main, then G-reg (path length) every ``g_reg_interval`` steps, D-main,
 then D-reg (R1) every ``d_reg_interval`` steps; each phase's gradients
 are NaN/Inf-scrubbed before its Adam update; then the G-EMA with rampup
-and the ADA controller.  One process, one device: the JAX package's
-``shard_map`` split, jit fast path and host syncs are not carried, and
-the mesh-size invariance mode (``rng_mode="global_sample"``) waits for
-the data-parallel slice (ROADMAP A7b).
+and the ADA controller.  The JAX package's jit fast path and host syncs
+are not carried.
+
+Data parallelism (``parallel.mesh``): one process per device, each with
+its share of the batch (``cfg.batch_size`` is the global batch).  The
+collectives sit where the JAX step has them: each phase's accumulated
+gradients are averaged over ranks before the scrub, in one
+``all_reduce`` per phase (flattened; the port differentiates with
+``torch.autograd.grad``, so no DDP hook would fire); ``pl_mean`` moves
+toward the global batch mean; G's EMA buffers (``w_avg``,
+``magnitude_ema``) are averaged after D-main; the moments are summed, so
+the ADA signs and ``p`` are the same on every rank.  Without a process
+group no collective runs and the step's bits are those of one device.
+
+RNG modes: ``"device"`` gives each rank its own stream (the caller seeds
+its generator ``seed * world + rank``, the reference's
+``seed*num_gpus+rank``).  ``"global_sample"`` takes one stream, seeded
+alike on every rank, and draws every per-sample value (z, labels, the
+style mixing's second z, the path-length noise) for the global batch, of
+which each rank keeps its rows: one rank and N ranks of the same global
+batch then give the same update.  As in JAX it needs const synthesis
+noise, no augment and ``pl_batch_shrink=1``, and the runs compared must
+take equal ``micro_batches`` (a chunk's style-mixing cutoff and
+``pl_mean`` carry depend on which samples the chunk holds).
 
 Gradient accumulation (``micro_batches = M > 1``, the CLI's
 ``--batch-gpu``): every phase splits its batch into ``M`` chunks in
@@ -28,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import Mesh, all_mean, all_sum, batch_mean, create_mesh
 from . import stats
 from .loss import StyleGAN2Loss
 from .train_state import TrainState
@@ -47,6 +68,10 @@ class TrainStepConfig:
     ada_kimg: float = 500.0
     micro_batches: int = 1
     rng_mode: str = "device"
+
+
+# G's buffers that the D-main fake pass moves (the JAX state's ``emas_g``).
+EMA_BUFFERS = ("w_avg", "magnitude_ema")
 
 
 def _scrub(grads):
@@ -101,19 +126,34 @@ def update_ema(G_ema, G, batch_size: int, cur_nimg: int, ema_kimg: float,
 
 
 class TrainStepper:
-    """Runs one batch on ``state`` in place and returns its moments."""
+    """Runs one batch on ``state`` in place and returns its moments.
+    ``mesh`` is the process group's (:func:`parallel.mesh.create_mesh`
+    when not given); the step runs on this rank's share of the batch."""
 
     def __init__(self, loss: StyleGAN2Loss, cfg: TrainStepConfig,
-                 generator: torch.Generator, label_bank: Optional[torch.Tensor] = None):
+                 generator: torch.Generator, label_bank: Optional[torch.Tensor] = None,
+                 mesh: Optional[Mesh] = None):
         if cfg.micro_batches < 1:
             raise ValueError(f"micro_batches must be at least 1, not {cfg.micro_batches}")
-        if cfg.rng_mode != "device":
-            raise NotImplementedError("rng_mode='global_sample' waits for the data-parallel "
-                                      "slice (ROADMAP A7b)")
+        if mesh is None:
+            mesh = create_mesh() if torch.distributed.is_initialized() else Mesh()
+        if mesh.world > 1 and not mesh.distributed:
+            raise ValueError(f"a mesh of {mesh.world} ranks needs a process group")
+        if cfg.batch_size % mesh.world:
+            raise ValueError(f"batch {cfg.batch_size} is not divisible by {mesh.world} ranks")
+        if cfg.rng_mode == "global_sample":
+            lc = loss.cfg
+            if lc.noise_mode != "const" or loss.augment_fn is not None or lc.pl_batch_shrink != 1:
+                raise ValueError("rng_mode='global_sample' needs noise_mode='const', no augment "
+                                 "and pl_batch_shrink=1")
+            loss.global_rows = (mesh.rank, mesh.world)
+        elif cfg.rng_mode != "device":
+            raise ValueError(f"unknown rng_mode {cfg.rng_mode!r}")
         self.loss = loss
         self.cfg = cfg
         self.generator = generator
         self.label_bank = label_bank
+        self.mesh = mesh
 
     def phase_flags(self, step: int) -> Tuple[bool, bool]:
         """Lazy-regularisation cadence for batch index ``step``."""
@@ -124,18 +164,26 @@ class TrainStepper:
         return do_gpl, do_dr1
 
     def _sample_zc(self, n: int, device):
-        z = torch.randn((n, self.cfg.z_dim), generator=self.generator, device=device)
+        """z and labels of ``n`` samples; in ``global_sample`` mode this
+        rank's rows of a draw for the global batch."""
+        world = self.mesh.world if self.cfg.rng_mode == "global_sample" else 1
+        rows = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n) if world > 1 else slice(None)
+        z = torch.randn((n * world, self.cfg.z_dim), generator=self.generator,
+                        device=device)[rows]
         c = None
         if self.cfg.c_dim > 0:
+            high = self.label_bank.shape[0] if self.label_bank is not None else self.cfg.c_dim
+            idx = torch.randint(0, high, (n * world,), generator=self.generator,
+                                device=device)[rows]
             if self.label_bank is not None:
-                idx = torch.randint(0, self.label_bank.shape[0], (n,), generator=self.generator,
-                                    device=device)
                 c = self.label_bank[idx]
             else:
-                idx = torch.randint(0, self.cfg.c_dim, (n,), generator=self.generator,
-                                    device=device)
                 c = torch.nn.functional.one_hot(idx, self.cfg.c_dim).float()
         return z, c
+
+    def _apply(self, opt: torch.optim.Optimizer, params, grads) -> None:
+        """Gradients averaged over ranks, then scrubbed and applied."""
+        _apply(opt, params, all_mean(self.mesh, grads))
 
     def __call__(self, state: TrainState, real_img, real_c=None) -> stats.Moments:
         return self.run(state, real_img, real_c, *self.phase_flags(state.step))
@@ -143,12 +191,12 @@ class TrainStepper:
     def run(self, state: TrainState, real_img: torch.Tensor, real_c: Optional[torch.Tensor],
             do_gpl: bool, do_dr1: bool,
             draws: Optional[Dict[str, object]] = None) -> stats.Moments:
-        """One batch with the given regularisation phases.  ``draws`` may
-        hand in what the step would otherwise draw: ``z_gmain``,
-        ``z_gpl``, ``z_dmain`` (and ``c_*``), each for the whole batch
-        (split into the chunks in order), and ``pl_noise``: the NCHW
-        standard normal of the path-length pass, or with
-        ``micro_batches > 1`` a sequence of one per chunk."""
+        """One batch with the given regularisation phases; ``real_img`` is
+        this rank's share.  ``draws`` may hand in what the step would
+        otherwise draw: ``z_gmain``, ``z_gpl``, ``z_dmain`` (and ``c_*``),
+        each for this rank's share (split into the chunks in order), and
+        ``pl_noise``: the NCHW standard normal of the path-length pass, or
+        with ``micro_batches > 1`` a sequence of one per chunk."""
         cfg, loss, gen = self.cfg, self.loss, self.generator
         draws = draws or {}
         b = real_img.shape[0]
@@ -175,7 +223,7 @@ class TrainStepper:
         z, c = zc("gmain")
         grads, moments = _accumulate(g_params, M, lambda j: loss.gmain(
             chunk(z, j), chunk(c, j), gen, state.ada_p, cur_nimg))
-        _apply(state.opt_g, g_params, grads)
+        self._apply(state.opt_g, g_params, grads)
 
         # G-reg (path length); pl_mean goes from chunk to chunk.
         if do_gpl:
@@ -185,12 +233,13 @@ class TrainStepper:
 
             def gpl_chunk(j):
                 noise = pl_noise if M == 1 or pl_noise is None else pl_noise[j]
-                loss_pl, state.pl_mean, m = loss.gpl(chunk(z, j), chunk(c, j), gen,
-                                                     state.pl_mean, noise)
+                loss_pl, state.pl_mean, m = loss.gpl(
+                    chunk(z, j), chunk(c, j), gen, state.pl_mean, noise,
+                    batch_mean=lambda x: batch_mean(self.mesh, x))
                 return loss_pl * gain, m
 
             grads, m = _accumulate(g_params, M, gpl_chunk)
-            _apply(state.opt_g, g_params, grads)
+            self._apply(state.opt_g, g_params, grads)
             moments = stats.merge(moments, m)
 
         # D-main (updates w_avg and StyleGAN3's magnitude_ema from each
@@ -199,8 +248,14 @@ class TrainStepper:
         grads, m = _accumulate(d_params, M, lambda j: loss.dmain(
             chunk(z, j), chunk(c, j), chunk(real_img, j), chunk(real_c, j), gen, state.ada_p,
             cur_nimg))
-        _apply(state.opt_d, d_params, grads)
+        self._apply(state.opt_d, d_params, grads)
         moments = stats.merge(moments, m)
+        if self.mesh.distributed:
+            emas = [b for name, b in state.G.named_buffers()
+                    if name.rsplit(".", 1)[-1] in EMA_BUFFERS]
+            with torch.no_grad():
+                for b, mean in zip(emas, all_mean(self.mesh, emas)):
+                    b.copy_(mean)
 
         # D-reg (R1).
         if do_dr1:
@@ -212,13 +267,16 @@ class TrainStepper:
                 return loss_r1 * gain, m
 
             grads, m = _accumulate(d_params, M, dr1_chunk)
-            _apply(state.opt_d, d_params, grads)
+            self._apply(state.opt_d, d_params, grads)
             moments = stats.merge(moments, m)
 
         update_ema(state.G_ema, state.G, cfg.batch_size, state.cur_nimg, cfg.ema_kimg,
                    cfg.ema_rampup)
 
-        # ADA controller: sign feedback every ada_interval batches.
+        # ADA controller: sign feedback every ada_interval batches, from
+        # the moments of the global batch.
+        names = list(moments)
+        moments = dict(zip(names, all_sum(self.mesh, [moments[k] for k in names])))
         if cfg.ada_target is not None:
             sr = moments["Loss/signs/real"]
             state.ada_signs = state.ada_signs + sr[:2]

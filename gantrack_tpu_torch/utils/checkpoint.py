@@ -44,8 +44,15 @@ def save_checkpoint(ckpt_dir: str, state, generator: Optional[torch.Generator] =
 
 def load_checkpoint(path: str, state, generator: Optional[torch.Generator] = None):
     """Restore ``state`` (and ``generator``) in place from ``path``."""
+    payload = torch.load(path, map_location=state.pl_mean.device, weights_only=True)
+    return apply_checkpoint(payload, state, generator)
+
+
+def apply_checkpoint(payload: dict, state, generator: Optional[torch.Generator] = None):
+    """Restore ``state`` (and ``generator``) in place from a loaded
+    checkpoint (the data-parallel CLI loads it on rank 0 and hands it to
+    every rank)."""
     device = state.pl_mean.device
-    payload = torch.load(path, map_location=device, weights_only=True)
     state.G.load_state_dict(payload["G"])
     state.D.load_state_dict(payload["D"])
     state.G_ema.load_state_dict(payload["G_ema"])

@@ -49,6 +49,14 @@ LAZY = ("matplotlib", "imageio")
     "gantrack_tpu_torch.tools.capture_layers",
     "gantrack_tpu_torch.tools.projector",
     "gantrack_tpu_torch.tools.visualizer",
+    "gantrack_tpu_torch.parallel.mesh",
+    "gantrack_tpu_torch.training.step",
+    "gantrack_tpu_torch.data.i2i_transforms",
+    "gantrack_tpu_torch.utils.colorspace",
+    "gantrack_tpu_torch.models.image2image",
+    "gantrack_tpu_torch.training.image2image",
+    "gantrack_tpu_torch.tools.train_i2i",
+    "gantrack_tpu_torch.tools.test_i2i",
 ])
 def test_port_imports_no_jax(module):
     env = {k: v for k, v in os.environ.items()

@@ -210,7 +210,7 @@ def test_cli_dry_run_prints_config(capsys, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", ["--metrics=eqr1k", "--devices=2", "--batch-gpu=3",
+@pytest.mark.parametrize("flag", ["--metrics=eqr1k", "--devices=3", "--batch-gpu=3",
                                   "--mbstd-group=3"])
 def test_cli_refuses_what_the_slice_does_not_run(flag, tmp_path):
     opts = cli.build_parser().parse_args(
