@@ -81,7 +81,8 @@ per source, all started together), then:
    ``gen_video``, ``capture_layers``, ``avg_spectra`` (256 reals, 256
    fakes), ``project`` on 2 slices for 200 steps with a random-weight
    VGG16 as the LPIPS network, w-space PPL on 2000 samples and the
-   visualizer's routes on localhost, which launch K5, K6 and K7;
+   visualizer's routes on localhost, which launch K5, K6 and K7; PPL
+   also with ``force_fp32=True`` from the same seed (ROADMAP C12);
 9. runs the claro recipe data-parallel: the CLI under ``python -m
    torch.distributed.run --nproc_per_node=1`` (an NCCL group of one rank,
    32 steps) after the four phase variants of its step, against the same
@@ -94,7 +95,16 @@ per source, all started together), then:
    ``test_i2i`` on each checkpoint, times the trainer's iteration (host
    clock and device time) with its peak memory, and holds one generator
    forward on the card against the CPU;
-11. prints the kernel report and, last, the device line.
+11. writes 4 synthetic CT volumes (256 × 256 × 40, HU; one as an
+   uncompressed DICOM series), runs ``python -m
+   gantrack_tpu_torch.tools.dataset_tool`` through DICOM → NIfTI →
+   normalised → body mask → slice pickles → split zip → packed shards,
+   writes a ``network-snapshot-*.pkl`` of phase 2's checkpoint (NVIDIA-named
+   stand-ins with ``init_kwargs``), checks that the state resumed from it
+   holds its G_ema bit for bit, trains the claro recipe from it on the
+   packed set for 1 kimg with fid1k (K1, K2, K5–K7), and runs
+   ``calc_metrics`` and ``gen_images`` on the pickle;
+12. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
 device the script exits with code 2 and prints no result.
@@ -105,6 +115,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -221,6 +232,50 @@ UPWARP_PLANES = (64, 32)
 # A 12-tap StyleGAN3 low-pass of the ×2 layers (Kaiser, as the generator
 # designs it: numtaps, cutoff, transition width, sampling rate).
 SG3_FILTER = (12, 32.0, 16.0, 128.0)
+
+
+def reference_stand_in(net, init_kwargs=None):
+    """A copy of the port's network ``net`` (on the CPU) as a NVIDIA pickle
+    holds its network: the resample filters in the state dict (the
+    reference persists them), the ``in_channels`` / ``out_channels`` its
+    conv layers carry, D's minibatch-std settings on a ``b4.mbstd`` layer
+    (``group_size``, ``num_channels``; None without one) in place of the
+    port's epilogue attributes and, when given, the ``init_kwargs`` that
+    NVIDIA's ``persistence`` keeps.  It unpickles without the NVIDIA tree
+    (and is not meant to run)."""
+    import copy
+
+    import torch
+
+    net = copy.deepcopy(net).cpu()
+    for module in list(net.modules()):
+        for name in ("resample_filter", "up_filter", "down_filter"):
+            if module._buffers.get(name) is not None:
+                module._non_persistent_buffers_set.discard(name)
+        weight = getattr(module, "weight", None)
+        if isinstance(weight, torch.nn.Parameter) and weight.ndim == 4:
+            module.out_channels, module.in_channels = int(weight.shape[0]), int(weight.shape[1])
+        if hasattr(module, "mbstd_group_size"):  # D's epilogue
+            layer = torch.nn.Module()
+            layer.group_size, layer.num_channels = module.mbstd_group_size, module.mbstd_num_channels
+            del module.mbstd_group_size, module.mbstd_num_channels
+            module.mbstd = layer if layer.num_channels > 0 else None
+    if init_kwargs is not None:
+        net.init_args, net.init_kwargs = (), dict(init_kwargs)
+    return net
+
+
+def write_reference_pickle(path: str, G, D, G_ema, g_kwargs=None, d_kwargs=None) -> str:
+    """A ``network-snapshot-*.pkl`` of stand-ins (``reference_stand_in``)
+    for G, D and G_ema, with the keys of the reference's snapshot."""
+    import pickle
+
+    data = {"G": reference_stand_in(G, g_kwargs), "D": reference_stand_in(D, d_kwargs),
+            "G_ema": reference_stand_in(G_ema, g_kwargs), "augment_pipe": None,
+            "training_set_kwargs": None}
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    return path
 
 
 def card_line() -> str:
@@ -1325,7 +1380,7 @@ def train_claro(card: str, tmp: str, data: str, args=CLARO_ARGS, res: int = 256,
     print(f"  stats: kimg {last['Progress/kimg']}, ada_p {last['Progress/augment']:.6f}, "
           f"G_loss {last['Loss/G/loss']:.4f}, D_loss {last['Loss/D/loss']:.4f}, "
           f"pl_penalty {last['Loss/pl_penalty']:.4f}, r1_penalty {last['Loss/r1_penalty']:.4f}, "
-          f"peak GPU mem {last.get('Resources/peak_gpu_mem_gb', float('nan')):.2f} GB")
+          f"peak GPU mem {last.get('Resources/peak_gb_in_use', float('nan')):.2f} GB")
     metric_rows = _metric_rows(run_dir, "fid1k")
     print(f"  fid1k at the snapshot: {metric_rows[-1]['results']['fid1k']:.4f}, metric tick "
           f"{metric_rows[-1]['total_time']:.2f} s on {card}")
@@ -1688,7 +1743,7 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     print(f"  stats: kimg {last['Progress/kimg']}, ada_p {last['Progress/augment']:.6f}, "
           f"G_loss {last['Loss/G/loss']:.4f}, D_loss {last['Loss/D/loss']:.4f}, "
           f"r1_penalty {last['Loss/r1_penalty']:.4f}, "
-          f"peak GPU mem {last.get('Resources/peak_gpu_mem_gb', float('nan')):.2f} GB")
+          f"peak GPU mem {last.get('Resources/peak_gb_in_use', float('nan')):.2f} GB")
     for metric in ("eqt1k_int", "eqr1k"):
         row = _metric_rows(run_dir, metric)[-1]
         print(f"  {metric} at the snapshot: {row['results'][metric]:.4f} dB, metric tick "
@@ -2007,7 +2062,7 @@ def run_metric_async(card: str, tmp: str, data: str) -> dict:
         raise AssertionError(f"fid1k rows at kimg {[row['kimg'] for row in rows]}, "
                              f"{len(copies)} copies of G_ema for the thread: expected 1, 2 and 1")
     with open(os.path.join(run_dir, "stats.jsonl")) as f:
-        peaks = [json.loads(line).get("Resources/peak_gpu_mem_gb") for line in f]
+        peaks = [json.loads(line).get("Resources/peak_gb_in_use") for line in f]
     a, b, host_ms, nbytes = copies[0]
     print(f"  CLI run: {seconds:.1f} s wall on {card}; fid1k at kimg 1 (thread) "
           f"{rows[0]['results']['fid1k']:.4f} in {rows[0]['total_time']:.2f} s, at kimg 2 (loop) "
@@ -2290,6 +2345,16 @@ def run_generation(card: str, tmp: str, data: str, claro_dir: str, sg3_dir: str)
     if not np.isfinite(value) or value <= 0:
         raise AssertionError(f"PPL {value}")
     print(f"  ppl (w, end, 2000 samples, random-weight VGG16): {value:.4f}")
+    # ROADMAP C12: the same seed with the pairs synthesised in float32 (as
+    # NVIDIA's PPLSampler does), beside the bf16 layers both packages use.
+    mopts32 = dataclasses.replace(
+        mopts, synthesis=lambda ws: G.synthesis(ws, noise_mode="const", force_fp32=True))
+    value32, _ = timed_call("compute_ppl as above, synthesis with force_fp32=True",
+                            compute_ppl, mopts32, 2000, 1e-4, "w", "end")
+    if not np.isfinite(value32) or value32 <= 0:
+        raise AssertionError(f"PPL (force_fp32) {value32}")
+    print(f"  C12: ppl of the claro checkpoint, seed {mopts.seed}, 2000 samples: {value:.6f} as "
+          f"is (top 4 resolutions in bf16), {value32:.6f} with force_fp32=True, on {card}")
     launches = _read_launches(("fir_same", "fir_down2", "fir_up2"), SG3_T_PLAIN_ROUTE)
     stop_recording()
     print(f"  kernel launches of the generation leg: "
@@ -2891,6 +2956,273 @@ def run_i2i(card: str, tmp: str) -> None:
     print(f"  phase 10 on {card}")
 
 
+# Phase 11: volumes → dataset_tool → a NVIDIA-style pickle of the claro
+# checkpoint → the claro recipe resumed from it → calc_metrics / gen_images
+# on the pickle.
+P11_PATIENTS, P11_DEPTH, P11_RES = 4, 40, 256
+# The dataset tool's steps of phase 11, in order: step, source, dest, flags.
+P11_STEPS = (
+    ("process_dicom_2_nifti", "dicom", "raw/CT", []),
+    ("process_nifti_normalized", "raw", "normalized", ["--hu-min=-1000", "--hu-max=1000"]),
+    ("mask_nifti", "normalized", "mask", []),
+    ("snap_pickle", "normalized", "pickles", []),
+    ("snap_zip", "pickles", "zipped", []),
+    ("pack", "zip", "packed", ["--modalities=CT"]),
+)
+
+
+def _dicom_element(group: int, elem: int, vr: bytes, value: bytes) -> bytes:
+    """One explicit-VR little-endian data element."""
+    import struct
+
+    if len(value) % 2:
+        value += b" " if vr != b"OW" else b"\x00"
+    head = struct.pack("<HH", group, elem) + vr
+    if vr in (b"OB", b"OW", b"OF", b"SQ", b"UT", b"UN"):
+        return head + b"\x00\x00" + struct.pack("<I", len(value)) + value
+    return head + struct.pack("<H", len(value)) + value
+
+
+def write_dicom_series(directory: str, volume, spacing=(0.8, 0.8, 2.5)) -> None:
+    """An uncompressed (explicit VR little endian) DICOM series of an int16
+    ``[H, W, D]`` volume in HU: one file a slice, slope 1, intercept 0."""
+    import struct
+
+    os.makedirs(directory, exist_ok=True)
+    rows, cols, depth = volume.shape
+    meta = _dicom_element(0x0002, 0x0010, b"UI", b"1.2.840.10008.1.2.1")
+    for k in range(depth):
+        body = b"".join([
+            _dicom_element(0x0018, 0x0050, b"DS", f"{spacing[2]}".encode()),
+            _dicom_element(0x0020, 0x0013, b"IS", str(k + 1).encode()),
+            _dicom_element(0x0020, 0x0032, b"DS", f"0\\0\\{spacing[2] * k}".encode()),
+            _dicom_element(0x0020, 0x0037, b"DS", b"1\\0\\0\\0\\1\\0"),
+            _dicom_element(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+            _dicom_element(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+            _dicom_element(0x0028, 0x0030, b"DS", f"{spacing[0]}\\{spacing[1]}".encode()),
+            _dicom_element(0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+            _dicom_element(0x0028, 0x0103, b"US", struct.pack("<H", 1)),
+            _dicom_element(0x0028, 0x1052, b"DS", b"0"),
+            _dicom_element(0x0028, 0x1053, b"DS", b"1"),
+            _dicom_element(0x7FE0, 0x0010, b"OW", volume[:, :, k].astype("<i2").tobytes()),
+        ])
+        with open(os.path.join(directory, f"{k:04d}.dcm"), "wb") as f:
+            f.write(b"\x00" * 128 + b"DICM" + meta + body)
+
+
+def _ct_volume(rng, res: int = P11_RES, depth: int = P11_DEPTH):
+    """A synthetic CT volume in HU (int16): air, an elliptic body of soft
+    tissue with two lungs and a spine, and noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:res, 0:res].astype(np.float32) / res - 0.5
+    a, b = rng.uniform(0.34, 0.42), rng.uniform(0.26, 0.32)
+    vol = np.empty((res, res, depth), np.float32)
+    for k in range(depth):
+        t = k / depth
+        body = (xx / a) ** 2 + (yy / b) ** 2 <= 1
+        sl = np.where(body, 40.0, -1000.0)
+        for cx in (-0.15, 0.15):
+            lung = ((xx - cx) / (0.11 + 0.03 * t)) ** 2 + (yy / 0.17) ** 2 <= 1
+            sl[lung] = -850.0
+        sl[(xx ** 2 + (yy - 0.2) ** 2) <= 0.035 ** 2] = 700.0
+        vol[:, :, k] = sl + rng.normal(0, 20, (res, res))
+    return np.clip(vol, -1024, 3071).astype(np.int16)
+
+
+def reference_pickle_of_checkpoint(path: str, ckpt: str, cbase: int = 16384, cmax: int = 512,
+                                   map_depth: int = 2, res: int = 256) -> dict:
+    """A ``network-snapshot-*.pkl`` of a claro checkpoint of the port: its
+    G, D and G_ema as stand-ins for NVIDIA's networks
+    (``write_reference_pickle``) with the ``init_kwargs`` NVIDIA's train
+    script gives them; returns the G_ema state dict it holds."""
+    import torch
+
+    from gantrack_tpu_torch.models.stylegan2 import Discriminator
+    from gantrack_tpu_torch.tools.train import make_generator
+
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    common = dict(c_dim=0, img_resolution=res, img_channels=1)
+    nets = {}
+    for name in ("G", "G_ema"):
+        nets[name] = make_generator("stylegan2", resolution=res, channels=1, c_dim=0,
+                                    cbase=cbase, cmax=cmax, map_depth=map_depth)
+        nets[name].load_state_dict(payload[name])
+    nets["D"] = Discriminator(**common, channel_base=cbase, channel_max=cmax)
+    nets["D"].load_state_dict(payload["D"])
+    g_kwargs = dict(z_dim=512, w_dim=512, mapping_kwargs={"num_layers": map_depth},
+                    synthesis_kwargs=dict(channel_base=cbase, channel_max=cmax, num_fp16_res=4,
+                                          conv_clamp=256), **common)
+    d_kwargs = dict(channel_base=cbase, channel_max=cmax, num_fp16_res=4, conv_clamp=256,
+                    epilogue_kwargs={"mbstd_group_size": 4}, **common)
+    write_reference_pickle(path, nets["G"], nets["D"], nets["G_ema"], g_kwargs, d_kwargs)
+    return payload["G_ema"]
+
+
+def run_volume_route(card: str, tmp: str, claro_dir: str) -> dict:
+    """Phase 11: the front of the main path and the pickle route.  Writes
+    4 synthetic CT volumes (256 × 256 × 40, int16 HU; the first as an
+    uncompressed DICOM series), runs ``python -m
+    gantrack_tpu_torch.tools.dataset_tool`` through DICOM → NIfTI →
+    normalised → masked → slice pickles → split zip → packed shards, builds
+    a ``network-snapshot-*.pkl`` of phase 2's claro checkpoint, checks
+    that the CLI's state resumed from it holds the pickle's G_ema bit for
+    bit before any step, trains the claro recipe (full width, batch 32,
+    fid1k) from it on the packed set for 1 kimg, then runs
+    ``calc_metrics`` and ``gen_images`` on the pickle.  K1, K2 and K5–K7
+    must launch.  Returns the launch counts of the resumed run and the two
+    tools."""
+    import numpy as np
+    import torch
+
+    from gantrack_tpu_torch.data import open_dataset
+    from gantrack_tpu_torch.data.preprocess.nifti import read_nifti, write_nifti
+    from gantrack_tpu_torch.tools import calc_metrics, gen_images
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.utils.checkpoint import decode_png, latest_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "volumes")
+    rng = np.random.default_rng(11)
+    volumes = [_ct_volume(rng, P11_RES, P11_DEPTH) for _ in range(P11_PATIENTS)]
+    write_dicom_series(os.path.join(root, "dicom", "P000"), volumes[0])
+    os.makedirs(os.path.join(root, "raw", "CT"))
+    for p in range(1, P11_PATIENTS):
+        write_nifti(os.path.join(root, "raw", "CT", f"P{p:03d}.nii.gz"), volumes[p],
+                    zooms=(0.8, 0.8, 2.5))
+    print(f"phase 11: {P11_PATIENTS} CT volumes {P11_RES}x{P11_RES}x{P11_DEPTH} int16 (HU), "
+          f"P000 as a DICOM series of {P11_DEPTH} files: "
+          f"{time.perf_counter() - t_phase:.1f} s to write")
+
+    paths = {"dicom": os.path.join(root, "dicom"), "raw": os.path.join(root, "raw")}
+    step_seconds = {}
+    for step, source, dest, flags in P11_STEPS:
+        src = paths[source]
+        paths[dest.split("/")[0]] = os.path.join(root, dest.split("/")[0])
+        argv = [f"--processing_step={step}", f"--source={src}",
+                f"--dest={os.path.join(root, dest)}", *flags]
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "gantrack_tpu_torch.tools.dataset_tool",
+                              *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if out.returncode != 0:
+            raise AssertionError(f"dataset_tool {step} failed:\n{out.stdout[-2000:]}"
+                                 f"\n{out.stderr[-4000:]}")
+        # The tool's last line gives the stage's own seconds; the rest of
+        # the wall is the process starting (interpreter and imports).
+        work = float(re.findall(r"done -> .* in ([0-9.]+) s", out.stdout)[-1])
+        n_vol = 1 if step == "process_dicom_2_nifti" else P11_PATIENTS
+        step_seconds[step] = (wall, wall - work, work / n_vol)
+        print(f"  python -m gantrack_tpu_torch.tools.dataset_tool {' '.join(argv)}: "
+              f"{wall:.3f} s wall = {wall - work:.3f} s start-up + {work:.3f} s in the step, "
+              f"{work / n_vol:.3f} s a volume ({n_vol} of {P11_RES}x{P11_RES}x{P11_DEPTH})")
+        if step == "process_dicom_2_nifti":
+            vol, zooms = read_nifti(os.path.join(root, "raw", "CT", "P000.nii.gz"))
+            if not np.array_equal(vol, volumes[0].astype(np.float32)) or \
+                    not np.allclose(zooms, (0.8, 0.8, 2.5), rtol=1e-5):
+                raise AssertionError(f"the DICOM series read back as {vol.shape} {vol.dtype}, "
+                                     f"zooms {zooms}, not the volume written")
+        elif step == "mask_nifti":
+            mask, _ = read_nifti(os.path.join(root, "mask", "CT", "P000.nii.gz"))
+            share = float(mask.mean())
+            if mask.shape != (P11_RES, P11_RES, P11_DEPTH) or not 0.1 < share < 0.6:
+                raise AssertionError(f"body mask {mask.shape}, body share {share:.3f}")
+            print(f"    body mask of P000: {share:.3f} of the voxels")
+        elif step == "snap_zip":
+            (paths["zip"],) = [os.path.join(root, "zipped", f)
+                               for f in os.listdir(os.path.join(root, "zipped"))
+                               if f.endswith(".zip")]
+    data = paths["packed"]
+    dataset = open_dataset(data)
+    kept = P11_DEPTH - 2 * 10  # the default --pop-range drops 10 slices at each end
+    with open(os.path.join(root, "zipped", "train_val_test_ids",
+                           os.path.basename(paths["zip"])[:-4] + ".json")) as f:
+        # The tool lists every directory of its source as a patient, the run
+        # dir of the step before included (as the JAX tool does).
+        n_train = sum(p.startswith("P") for p in json.load(f)["train"])
+    if (len(dataset), dataset.resolution, dataset.num_channels) != (n_train * kept, P11_RES, 1):
+        raise AssertionError(f"packed train split: {len(dataset)} items at "
+                             f"{dataset.resolution}^2 x {dataset.num_channels}; want "
+                             f"{n_train * kept} at {P11_RES}^2 x 1")
+    print(f"  packed train split: {len(dataset)} slices of {n_train} patients, "
+          f"{dataset.resolution}^2 x {dataset.num_channels}")
+
+    pkl = os.path.join(root, "network-snapshot-000001.pkl")
+    t = time.perf_counter()
+    g_ema = reference_pickle_of_checkpoint(pkl, latest_checkpoint(os.path.join(claro_dir,
+                                                                              "checkpoints")),
+                                           res=P11_RES)
+    print(f"  {os.path.basename(pkl)} of phase 2's checkpoint (G, D, G_ema as NVIDIA-named "
+          f"stand-ins with init_kwargs): {os.path.getsize(pkl) / 2**20:.1f} MiB, "
+          f"{time.perf_counter() - t:.1f} s")
+
+    args = [a for a in CLARO_ARGS]
+    argv = [f"--outdir={os.path.join(root, 'runs')}", f"--data={data}", *args,
+            f"--resume={pkl}"]
+    device = _cli_device(cli, args)
+    opts = cli.build_parser().parse_args(argv)
+    _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
+    loader.close()
+    resumed = state.G_ema.state_dict()
+    for k, v in g_ema.items():
+        if not torch.equal(resumed[k].cpu(), v):
+            raise AssertionError(f"the resumed G_ema's {k} differs from the pickle's")
+    if state.step != 0 or state.opt_g.state or stepper.cfg.ema_rampup is not None:
+        raise AssertionError("a pickle resume must start a fresh optimizer and counters")
+    print(f"  --resume={os.path.basename(pkl)}: the state's G_ema equals the pickle's bit for bit "
+          f"({len(g_ema)} tensors) before any step; step 0, Adam fresh")
+    del state, stepper
+    torch.cuda.empty_cache()
+
+    print(f"phase 11: python -m gantrack_tpu_torch.tools.train {' '.join(argv)}")
+    _reset_launches()
+    t = time.perf_counter()
+    run_dir = cli.main(argv)
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    for rec in records:
+        if not all(np.isfinite(v) for k, v in rec.items() if k.startswith("Loss/")):
+            raise AssertionError(f"non-finite losses in the resumed run: {rec}")
+    last = records[-1]
+    for key in ("Resources/cpu_mem_gb", "Resources/gb_in_use", "Resources/peak_gb_in_use",
+                "Resources/gb_limit"):
+        if key not in last:
+            raise AssertionError(f"{key} missing from the tick record")
+    fid = _metric_rows(run_dir, "fid1k")[-1]
+    print(f"  resumed run: {train_seconds:.1f} s wall; tick {last['Progress/tick']}: "
+          f"{last['Timing/sec_per_kimg']:.2f} sec/kimg, Resources/peak_gb_in_use "
+          f"{last['Resources/peak_gb_in_use']:.2f} GiB of {last['Resources/gb_limit']:.2f}, "
+          f"cpu_mem_gb {last['Resources/cpu_mem_gb']:.2f}, ada_p {last['Progress/augment']:.4f}; "
+          f"fid1k {fid['results']['fid1k']:.4f} on {card}")
+
+    argv = [f"--network={pkl}", f"--data={data}", "--metrics=fid1k", *NET_ARGS]
+    print(f"phase 11: python -m gantrack_tpu_torch.tools.calc_metrics {' '.join(argv)}")
+    t = time.perf_counter()
+    results = calc_metrics.main(argv)
+    print(f"  {results} in {time.perf_counter() - t:.1f} s")
+    argv = [f"--network={pkl}", "--seeds=0-7", "--trunc=0.7",
+            f"--outdir={os.path.join(root, 'images')}"]
+    print(f"phase 11: python -m gantrack_tpu_torch.tools.gen_images {' '.join(argv)}")
+    t = time.perf_counter()
+    written = gen_images.main(argv)
+    torch.cuda.synchronize()
+    for p in written:
+        with open(p, "rb") as f:
+            if decode_png(f.read()).shape != (P11_RES, P11_RES):
+                raise AssertionError(f"{p}: not a {P11_RES}^2 image")
+    print(f"  {len(written)} images in {time.perf_counter() - t:.1f} s")
+    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2"))
+    print(f"  kernel launches of the resumed run and the two tools: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s wall; dataset_tool steps "
+          "(wall / start-up / host seconds a volume) "
+          + ", ".join(f"{k} {w:.3f} / {s:.3f} / {v:.3f}"
+                      for k, (w, s, v) in step_seconds.items()) + f"; on {card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2937,14 +3269,17 @@ def main() -> int:
         generated = timed("phase 8", run_generation, card, tmp, data, run_dir, sg3_dir)
         parallel = timed("phase 9", run_data_parallel, card, tmp, data)
         timed("phase 10", run_i2i, card, tmp)
+        resumed = timed("phase 11", run_volume_route, card, tmp, run_dir)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall since the build began")
     # Launches on the main paths: the claro run, the StyleGAN3 run with its
     # metrics, the unfused augment steps, the probes' run, the kernel-route
-    # steps, the metric-async run, the generation leg and the data-parallel
-    # run, each counted from 0.
+    # steps, the metric-async run, the generation leg, the data-parallel
+    # run and the run resumed from a pickle with its tools, each counted
+    # from 0.
     paths = {"claro": claro, "stylegan3-t": sg3, "unfused augment": unfused, "probes": probed,
              "kernel conv route": routed, "claro, metric-async": asynced,
-             "generation": generated, "claro, NCCL world 1": parallel}
+             "generation": generated, "claro, NCCL world 1": parallel,
+             "claro, resumed from a NVIDIA pickle": resumed}
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     print("kernel launches by main path: "
           + "; ".join(f"{name} { {k: n for k, n in counts.items() if n} }"
@@ -2959,6 +3294,11 @@ def main() -> int:
                    if m.split(".")[0] in ("gantrack_tpu", "jax", "flax", "optax", "orbax")]
     if jax_modules:
         raise AssertionError(f"the port imported JAX or the JAX package: {sorted(jax_modules)[:5]}")
+    # Nor what the card machine lacks (a function may import PIL or PyYAML
+    # where they are installed; no path of this run needs them).
+    missing = [m for m in sys.modules if m.split(".")[0] in ("click", "PIL", "yaml")]
+    if missing:
+        raise AssertionError(f"the run imported {sorted(missing)[:5]}")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

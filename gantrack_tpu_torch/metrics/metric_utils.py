@@ -142,11 +142,25 @@ def make_random_projection_detector(seed: int = 0, dim: int = 512,
     return Detector(fn, f"randproj-torch-{dim}-seed{seed}", device)
 
 
+def _resolve_weights(weights_path: Optional[str]) -> Optional[str]:
+    """A local path, a ``file://`` URL or an http(s) URL of detector weights
+    → a local path, through ``utils.url`` (its cache and
+    ``GANTRACK_URL_MIRROR`` first), as ``gantrack_tpu/metrics/metric_utils.py``
+    resolves them (reference ``metric_utils.py:47-58``)."""
+    if weights_path:
+        from ..utils.url import is_url, open_url
+
+        if is_url(weights_path, allow_file_urls=True):
+            return open_url(weights_path, return_filename=True, verbose=False)
+    return weights_path
+
+
 def make_inception_detector(weights_path: Optional[str] = None, seed: int = 0,
                             device: torch.device = torch.device("cpu")) -> Detector:
-    """InceptionV3 from converted weights (a local ``.npz`` of
-    ``tools/convert_detector.py``); with no weights given, the random
-    projection detector."""
+    """InceptionV3 from converted weights (an ``.npz`` of
+    ``tools/convert_detector.py``: a path or URL); with no weights given,
+    the random projection detector."""
+    weights_path = _resolve_weights(weights_path)
     if not weights_path:
         return make_random_projection_detector(seed=seed, device=device)
     if not os.path.isfile(weights_path):
@@ -162,10 +176,11 @@ def make_vgg_detector(weights_path: Optional[str] = None, seed: int = 0,
                       device: torch.device = torch.device("cpu"),
                       resize_to: int = 224) -> Detector:
     """VGG16's 4096-d ``fc2`` embedding (precision/recall, PPL) from
-    converted weights (a local ``.npz``), or from seeded random weights
-    without them."""
+    converted weights (an ``.npz``: a path or URL), or from seeded random
+    weights without them."""
     from ..models import vgg
 
+    weights_path = _resolve_weights(weights_path)
     if weights_path:
         if not os.path.isfile(weights_path):
             raise FileNotFoundError(f"VGG16 weights {weights_path!r} not found")

@@ -7,7 +7,8 @@ names follow the NVIDIA reference state dicts (``mapping.fc0.weight``,
 variables unchanged, and ``bridge`` converts back.
 
 As in the JAX package, the ``num_fp16_res`` highest resolutions run in
-**bfloat16** (parameters stay float32), ``w_avg`` is updated only when
+**bfloat16** and the rest in ``precision.high()`` (float32, or float64
+under ``pinned_float64``; parameters are created in it), ``w_avg`` is updated only when
 ``update_emas=True``, and the discriminator epilogue flattens NCHW (the
 reference order; ``torch_compat`` re-orders for the NHWC JAX model).
 """
@@ -24,6 +25,7 @@ from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.modulated_conv2d import modulated_conv2d
 from ..ops.upfirdn2d import downsample2d, filter_taps, setup_filter, upsample2d
+from ..precision import high
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> torch.Tensor:
@@ -50,10 +52,11 @@ class FullyConnected(nn.Module):
                  bias_init=0.0, weight_init: float = 1.0):
         super().__init__()
         self.activation = activation
-        self.weight = nn.Parameter(torch.randn([out_features, in_features])
+        self.weight = nn.Parameter(torch.randn([out_features, in_features], dtype=high())
                                    * (weight_init / lr_multiplier))
         bias_init = np.broadcast_to(np.asarray(bias_init, dtype=np.float32), [out_features])
-        self.bias = nn.Parameter(torch.from_numpy(bias_init / lr_multiplier)) if bias else None
+        self.bias = (nn.Parameter(torch.from_numpy(bias_init / lr_multiplier).to(high()))
+                     if bias else None)
         self.weight_gain = lr_multiplier / np.sqrt(in_features)
         self.bias_gain = lr_multiplier
 
@@ -80,8 +83,9 @@ class Conv2dLayer(nn.Module):
         self.padding = kernel_size // 2
         self.weight_gain = 1 / np.sqrt(in_channels * kernel_size ** 2)
         self.act_gain = activation_funcs[activation].def_gain
-        self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size]))
-        self.bias = nn.Parameter(torch.zeros([out_channels])) if bias else None
+        self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size],
+                                               dtype=high()))
+        self.bias = nn.Parameter(torch.zeros([out_channels], dtype=high())) if bias else None
         _filter_buffer(self, resample_filter)
 
     def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
@@ -120,15 +124,15 @@ class MappingNetwork(nn.Module):
                 features[idx], features[idx + 1], activation=activation,
                 lr_multiplier=lr_multiplier))
         if num_ws is not None and w_avg_beta is not None:
-            self.register_buffer("w_avg", torch.zeros([w_dim]))
+            self.register_buffer("w_avg", torch.zeros([w_dim], dtype=high()))
 
     def forward(self, z, c, truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None,
                 update_emas: bool = False) -> torch.Tensor:
         x = None
         if self.z_dim > 0:
-            x = normalize_2nd_moment(z.float())
+            x = normalize_2nd_moment(z.to(high()))
         if self.c_dim > 0:
-            y = normalize_2nd_moment(self.embed(c.float()))
+            y = normalize_2nd_moment(self.embed(c.to(high())))
             x = torch.cat([x, y], dim=1) if x is not None else y
         for idx in range(self.num_layers):
             x = getattr(self, f"fc{idx}")(x)
@@ -164,16 +168,17 @@ class SynthesisLayer(nn.Module):
         self.act_gain = activation_funcs[activation].def_gain
         _filter_buffer(self, resample_filter)
         self.affine = FullyConnected(w_dim, in_channels, bias_init=1)
-        self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size]))
+        self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size],
+                                               dtype=high()))
         if use_noise:
-            self.register_buffer("noise_const", torch.randn([resolution, resolution]))
-            self.noise_strength = nn.Parameter(torch.zeros([]))
-        self.bias = nn.Parameter(torch.zeros([out_channels]))
+            self.register_buffer("noise_const", torch.randn([resolution, resolution], dtype=high()))
+            self.noise_strength = nn.Parameter(torch.zeros([], dtype=high()))
+        self.bias = nn.Parameter(torch.zeros([out_channels], dtype=high()))
 
     def forward(self, x, w, noise_mode: str = "random", gain: float = 1.0,
                 fused_modconv: bool = False, generator: Optional[torch.Generator] = None):
         assert noise_mode in ("random", "const", "none")
-        styles = self.affine(w)
+        styles = self.affine(w.to(high()))
         noise = None
         if self.use_noise and noise_mode == "random":
             noise = torch.randn([x.shape[0], 1, self.resolution, self.resolution],
@@ -198,12 +203,13 @@ class ToRGBLayer(nn.Module):
         super().__init__()
         self.conv_clamp = conv_clamp
         self.affine = FullyConnected(w_dim, in_channels, bias_init=1)
-        self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size]))
-        self.bias = nn.Parameter(torch.zeros([out_channels]))
+        self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size],
+                                               dtype=high()))
+        self.bias = nn.Parameter(torch.zeros([out_channels], dtype=high()))
         self.weight_gain = 1 / np.sqrt(in_channels * kernel_size ** 2)
 
     def forward(self, x, w, fused_modconv: bool = False):
-        styles = self.affine(w) * self.weight_gain
+        styles = self.affine(w.to(high())) * self.weight_gain
         x = modulated_conv2d(x, self.weight.to(x.dtype), styles, demodulate=False,
                              fused_modconv=fused_modconv)
         return bias_act(x, self.bias, clamp=self.conv_clamp)
@@ -230,7 +236,8 @@ class SynthesisBlock(nn.Module):
         common = dict(w_dim=w_dim, resolution=resolution, resample_filter=resample_filter,
                       conv_clamp=conv_clamp, conv_impl=conv_impl, **layer_kwargs)
         if in_channels == 0:
-            self.const = nn.Parameter(torch.randn([out_channels, resolution, resolution]))
+            self.const = nn.Parameter(torch.randn([out_channels, resolution, resolution],
+                                                  dtype=high()))
         else:
             self.conv0 = SynthesisLayer(in_channels, out_channels, up=2, **common)
             self.num_conv += 1
@@ -246,7 +253,7 @@ class SynthesisBlock(nn.Module):
     def forward(self, x, img, ws, force_fp32: bool = False, fused_modconv: bool = False,
                 noise_mode: str = "random", generator: Optional[torch.Generator] = None):
         assert ws.shape[1] == self.num_conv + self.num_torgb
-        dtype = torch.bfloat16 if (self.use_bf16 and not force_fp32) else torch.float32
+        dtype = torch.bfloat16 if (self.use_bf16 and not force_fp32) else high()
         w_iter = iter(ws.unbind(dim=1))
         kw = dict(noise_mode=noise_mode, fused_modconv=fused_modconv, generator=generator)
         if self.in_channels == 0:
@@ -265,7 +272,7 @@ class SynthesisBlock(nn.Module):
         if img is not None:
             img = upsample2d(img, self.resample_filter, taps=self.resample_taps)
         if self.is_last or self.architecture == "skip":
-            y = self.torgb(x, next(w_iter), fused_modconv=fused_modconv).float()
+            y = self.torgb(x, next(w_iter), fused_modconv=fused_modconv).to(high())
             img = img + y if img is not None else y
         assert x.dtype == dtype
         return x, img
@@ -310,7 +317,7 @@ class SynthesisNetwork(nn.Module):
         # ``update_emas`` is StyleGAN3's (its layers keep a magnitude EMA);
         # nothing here reads it.
         assert ws.shape[1] == self.num_ws and ws.shape[2] == self.w_dim
-        ws = ws.float()
+        ws = ws.to(high())
         x = img = None
         w_idx = 0
         for res in self.block_resolutions:
@@ -374,7 +381,7 @@ class DiscriminatorBlock(nn.Module):
                                     down=2, resample_filter=resample_filter)
 
     def forward(self, x, img, force_fp32: bool = False):
-        dtype = torch.bfloat16 if (self.use_bf16 and not force_fp32) else torch.float32
+        dtype = torch.bfloat16 if (self.use_bf16 and not force_fp32) else high()
         if x is not None:
             x = x.to(dtype)
         if self.in_channels == 0 or self.architecture == "skip":
@@ -401,7 +408,7 @@ def minibatch_stddev(x: torch.Tensor, group_size: Optional[int], num_channels: i
     g = min(group_size, n) if group_size is not None else n
     assert n % g == 0, f"batch {n} not divisible by mbstd group {g}"
     f = num_channels
-    y = x.reshape(g, -1, f, c // f, h, w).float()
+    y = x.reshape(g, -1, f, c // f, h, w).to(high())
     y = y - y.mean(dim=0)
     y = y.square().mean(dim=0)
     y = (y + 1e-8).sqrt()
@@ -432,9 +439,9 @@ class DiscriminatorEpilogue(nn.Module):
         self.out = FullyConnected(in_channels, 1 if cmap_dim == 0 else cmap_dim)
 
     def forward(self, x, img, cmap):
-        x = x.float()
+        x = x.to(high())
         if self.architecture == "skip":
-            x = x + self.fromrgb(img.float())
+            x = x + self.fromrgb(img.to(high()))
         if self.mbstd_num_channels > 0:
             x = minibatch_stddev(x, self.mbstd_group_size, self.mbstd_num_channels)
         x = self.conv(x)

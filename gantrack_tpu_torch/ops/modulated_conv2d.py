@@ -1,7 +1,8 @@
 """Style-modulated convolution (NCHW / OIHW).
 
 Port of ``gantrack_tpu/ops/modulated_conv2d.py``: modulation,
-demodulation ``rsqrt(sum(w^2) + 1e-8)`` with float32 statistics, the
+demodulation ``rsqrt(sum(w^2) + 1e-8)`` with float32 statistics (float64
+when the styles are float64, as in JAX), the
 unfused default ("scale activations, one shared-weight conv") and the
 fused grouped path.  The reduced-precision blocks run in bfloat16, so
 NVIDIA's fp16 overflow pre-normalisation is not needed.
@@ -39,7 +40,8 @@ def modulated_conv2d(
 
     dcoefs = None
     if demodulate or fused_modconv:
-        w = weight[None].float() * styles[:, None, :, None, None].float()  # [N,O,I,kh,kw]
+        hi = torch.float64 if styles.dtype == torch.float64 else torch.float32
+        w = weight[None].to(hi) * styles[:, None, :, None, None].to(hi)  # [N,O,I,kh,kw]
     if demodulate:
         dcoefs = torch.rsqrt(w.square().sum(dim=[2, 3, 4]) + 1e-8)  # [N, O]
 

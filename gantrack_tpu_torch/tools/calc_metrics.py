@@ -1,18 +1,21 @@
 """Quality metrics of a trained generator (FID, KID, precision/recall, IS).
 
-    python -m gantrack_tpu_torch.tools.calc_metrics --network=<run dir or state-*.pt> \\
+    python -m gantrack_tpu_torch.tools.calc_metrics --network=<run dir, state-*.pt or *.pkl> \\
         --metrics=fid10k,kid10k --data=<dataset dir> --cbase=16384 --cmax=512 --map-depth=2
 
 Same flag names as ``gantrack_tpu/tools/calc_metrics.py`` (``argparse``
 here), without its ``--resolution`` and ``--channels``, which nothing
 reads: the dataset gives both.  Loads G_ema (the generator of ``--cfg``:
 stylegan2, stylegan3-t or stylegan3-r) from a checkpoint of the port (a
-``state-*.pt`` file, or the latest one of a run directory),
-evaluates every metric for every modality of 2-channel data, and appends
-``metric-<mode>-<metric>.jsonl`` rows to the run directory.  Runs on the CUDA device; ``--device=cpu``
+``state-*.pt`` file, or the latest one of a run directory) or from a
+NVIDIA ``network-snapshot-*.pkl``, whose architecture comes from the
+pickle (the flags given are checked against it), evaluates every metric
+for every modality of 2-channel data, and appends
+``metric-<mode>-<metric>.jsonl`` rows to the run directory (beside a
+pickle: its directory).  Runs on the CUDA device; ``--device=cpu``
 runs on the CPU instead.  Without ``--detector-weights`` (a converted
-InceptionV3 ``.npz``) the detector is the random projection, whose FID
-is only comparable with itself.  NVIDIA pickles are ROADMAP A11b.
+InceptionV3 ``.npz``, a URL or ``file://`` path) the detector is the
+random projection, whose FID is only comparable with itself.
 ``ppl2_wend`` is refused here, as the JAX CLI fails on it (it hands the
 metrics no mapping); ``tools.train`` evaluates it.
 """
@@ -90,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m gantrack_tpu_torch.tools.calc_metrics",
                                 description="Evaluate quality metrics of a trained checkpoint.")
     p.add_argument("--network", dest="checkpoint", required=True,
-                   help="Checkpoint (state-*.pt) or run dir")
+                   help="Checkpoint (state-*.pt), run dir or NVIDIA network-snapshot-*.pkl")
     p.add_argument("--metrics", default="fid10k", help="Comma-separated metric names")
     p.add_argument("--data", required=True, help="Dataset path (zip or shard dir)")
     p.add_argument("--split", default="train")
@@ -99,10 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--detector-weights", dest="detector_weights", default=None,
                    help="Converted InceptionV3 weights .npz (tools/convert_detector.py)")
     p.add_argument("--cache-dir", dest="cache_dir", default=None)
-    p.add_argument("--cfg", choices=["stylegan2", "stylegan3-t", "stylegan3-r"],
-                   default="stylegan2")
-    p.add_argument("--cbase", type=int, default=32768)
-    p.add_argument("--cmax", type=int, default=512)
+    p.add_argument("--cfg", choices=["stylegan2", "stylegan3-t", "stylegan3-r"], default=None,
+                   help="Default stylegan2 (a pickle says it itself)")
+    p.add_argument("--cbase", type=int, default=None, help="Default 32768")
+    p.add_argument("--cmax", type=int, default=None, help="Default 512")
     p.add_argument("--map-depth", dest="map_depth", type=int, default=None)
     p.add_argument("--batch", type=int, default=None,
                    help="Extraction batch (default: resolution-scaled, 256 at <=256^2; "
@@ -114,35 +117,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
-    """Parse ``argv`` and evaluate; returns ``{name: value}``."""
-    from ..data import open_dataset
-    from ..metrics import check_metric, make_inception_detector
-    from ..utils.checkpoint import resolve_checkpoint_path
+def _check_metrics(metric_list: Sequence[str], cfg: str) -> None:
+    from ..metrics import check_metric
 
-    opts = build_parser().parse_args(argv)
-    metric_list = [m for m in opts.metrics.split(",") if m]
     for m in metric_list:
         try:
             check_metric(m)
         except ValueError as e:
             raise SystemExit(f"--metrics: {e}") from None
-        if m.startswith("eq") and opts.cfg == "stylegan2":
+        if m.startswith("eq") and cfg == "stylegan2":
             raise SystemExit(f"--metrics: {m} needs a StyleGAN3 generator (--cfg=stylegan3-t|-r)")
         if m == "ppl2_wend":
             raise SystemExit("--metrics: ppl2_wend needs G's mapping and synthesis apart, which "
                              "calc_metrics does not hand over, as the JAX calc_metrics does not "
                              "(ROADMAP C9); the training loop evaluates it")
-    if opts.checkpoint.endswith((".pkl", ".pickle")):
-        raise SystemExit("--network: NVIDIA pickles are not read yet (ROADMAP A11)")
-    device = torch.device(opts.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device=cuda: no CUDA device is available "
-                         "(--device=cpu evaluates on the CPU)")
-    # The reference evaluates without TF32; so do the detector convs here.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Parse ``argv`` and evaluate; returns ``{name: value}``."""
+    from ..data import open_dataset
+    from ..metrics import make_inception_detector
+    from ..models.torch_compat import check_architecture, load_weights
+    from ..precision import configure_device_numerics
+    from ..utils.checkpoint import resolve_network
+
+    opts = build_parser().parse_args(argv)
+    device = configure_device_numerics(opts.device)
+    metric_list = [m for m in opts.metrics.split(",") if m]
+    pickled = opts.checkpoint.endswith((".pkl", ".pickle"))
+    if not pickled:  # a pickle names its --cfg itself: checked once it is read
+        _check_metrics(metric_list, opts.cfg or "stylegan2")
     modalities = opts.modalities.split(",") if opts.modalities else None
     kwargs = dict(split=opts.split, xflip=opts.mirror)
     if opts.data.endswith(".zip") and modalities:
@@ -154,16 +158,34 @@ def main(argv: Optional[List[str]] = None) -> dict:
             raise SystemExit("--cond requires a labelled dataset")
         c_dim = dataset.label_dim
 
-    path = resolve_checkpoint_path(opts.checkpoint)
-    if path is None:
+    payload, path = resolve_network(opts.checkpoint)
+    if payload is None:
         raise SystemExit(f"--network: no checkpoint found under {opts.checkpoint}")
+    build = {}
+    arch = payload.get("architecture")
+    if arch is not None:  # a NVIDIA pickle: its architecture, checked against the flags
+        try:
+            check_architecture(arch, cfg=opts.cfg, cbase=opts.cbase, cmax=opts.cmax,
+                               map_depth=opts.map_depth, resolution=dataset.resolution,
+                               channels=dataset.num_channels, c_dim=c_dim if opts.cond else None)
+        except ValueError as e:
+            raise SystemExit(f"--network: {e}") from None
+        opts.cfg, opts.cbase, opts.cmax, opts.map_depth = (
+            arch["cfg"], arch["cbase"], arch["cmax"], arch["map_depth"])
+        c_dim = arch["c_dim"]
+        build = dict(z_dim=arch["z_dim"], w_dim=arch["w_dim"],
+                     num_fp16_res=arch["num_fp16_res"], conv_clamp=arch["conv_clamp"],
+                     num_layers=arch["num_layers"])
+    opts.cfg = opts.cfg or "stylegan2"
+    if pickled:
+        _check_metrics(metric_list, opts.cfg)
+
     print(f"Loading {path}")
     G_ema = make_generator(
         opts.cfg, resolution=dataset.resolution, channels=dataset.num_channels, c_dim=c_dim,
-        cbase=opts.cbase, cmax=opts.cmax,
-        map_depth=opts.map_depth or (8 if opts.cfg == "stylegan2" else 2))
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    G_ema.load_state_dict(payload["G_ema"])
+        cbase=opts.cbase or 32768, cmax=opts.cmax or 512,
+        map_depth=opts.map_depth or (8 if opts.cfg == "stylegan2" else 2), **build)
+    load_weights(G_ema, payload["G_ema"], "G_ema")
     G_ema = G_ema.to(device).eval().requires_grad_(False)
 
     ckpt_dir = os.path.dirname(os.path.abspath(path))

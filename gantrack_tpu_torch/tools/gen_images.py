@@ -1,6 +1,6 @@
 """Generate images from a checkpoint of the port.
 
-    python -m gantrack_tpu_torch.tools.gen_images --network=<run dir or state-*.pt> \\
+    python -m gantrack_tpu_torch.tools.gen_images --network=<run dir, state-*.pt or *.pkl> \\
         --seeds=0-31 --trunc=0.7 --outdir=out --cbase=16384 --cmax=512 --map-depth=2
 
 Port of ``gantrack_tpu/tools/gen_images.py`` (``argparse`` here):
@@ -18,7 +18,9 @@ two packages.
 
 This module also holds what the other generation tools share: the
 ``--network`` / architecture flags (:func:`add_network_args`), loading
-G_ema (:func:`load_generator`) and the uint8 conversion.
+G_ema (:func:`load_generator`) from a checkpoint of the port or from a
+NVIDIA ``network-snapshot-*.pkl`` (whose architecture comes from the
+pickle) and the uint8 conversion.
 """
 
 from __future__ import annotations
@@ -94,51 +96,82 @@ def save_modalities(img: np.ndarray, stem: str) -> List[str]:
     return [f"{stem}.png"]
 
 
+# The architecture flags' values where neither the flags nor a pickle say.
+NETWORK_DEFAULTS = dict(resolution=256, channels=1, cfg="stylegan2", cbase=32768, cmax=512,
+                        z_dim=512, w_dim=512)
+
+
 def add_network_args(p: argparse.ArgumentParser) -> None:
-    """The flags that say which generator a checkpoint holds."""
+    """The flags that say which generator a checkpoint holds (a NVIDIA
+    pickle says it itself: the flags given are checked against it)."""
     p.add_argument("--network", dest="checkpoint", required=True,
-                   help="Checkpoint (state-*.pt) or run dir")
-    p.add_argument("--resolution", type=int, default=256)
-    p.add_argument("--channels", type=int, default=1)
-    p.add_argument("--cfg", choices=["stylegan2", "stylegan3-t", "stylegan3-r"],
-                   default="stylegan2")
-    p.add_argument("--cbase", type=int, default=32768)
-    p.add_argument("--cmax", type=int, default=512)
-    p.add_argument("--map-depth", dest="map_depth", type=int, default=None)
-    p.add_argument("--z-dim", dest="z_dim", type=int, default=512)
-    p.add_argument("--w-dim", dest="w_dim", type=int, default=512)
+                   help="Checkpoint (state-*.pt), run dir or NVIDIA network-snapshot-*.pkl")
+    p.add_argument("--resolution", type=int, default=None, help="Default 256")
+    p.add_argument("--channels", type=int, default=None, help="Default 1")
+    p.add_argument("--cfg", choices=["stylegan2", "stylegan3-t", "stylegan3-r"], default=None,
+                   help="Default stylegan2")
+    p.add_argument("--cbase", type=int, default=None, help="Default 32768")
+    p.add_argument("--cmax", type=int, default=None, help="Default 512")
+    p.add_argument("--map-depth", dest="map_depth", type=int, default=None,
+                   help="Default 8 for stylegan2, 2 for StyleGAN3")
+    p.add_argument("--z-dim", dest="z_dim", type=int, default=None, help="Default 512")
+    p.add_argument("--w-dim", dest="w_dim", type=int, default=None, help="Default 512")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Run on the CUDA device (default) or on the CPU")
 
 
 def pick_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device=cuda: no CUDA device is available "
-                         "(--device=cpu runs on the CPU)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return device
+    """The device of ``--device``, with the port's numerics set on it."""
+    from ..precision import configure_device_numerics
+
+    return configure_device_numerics(name)
+
+
+def resolve_architecture(opts, payload: dict) -> dict:
+    """Fill ``opts``' architecture flags: from the pickle's architecture
+    where ``payload`` holds one (the flags given must agree with it), else
+    from the defaults; returns the generator's build arguments."""
+    from ..models.torch_compat import check_architecture
+
+    names = ("cfg", "cbase", "cmax", "map_depth", "resolution", "channels", "z_dim", "w_dim")
+    arch = payload.get("architecture")
+    if arch is not None:
+        try:
+            check_architecture(arch, **{k: getattr(opts, k) for k in names})
+        except ValueError as e:
+            raise SystemExit(f"--network: {e}") from None
+        for k in names:
+            setattr(opts, k, arch[k])
+        return dict(c_dim=arch["c_dim"], num_fp16_res=arch["num_fp16_res"],
+                    conv_clamp=arch["conv_clamp"], num_layers=arch["num_layers"])
+    for k, v in NETWORK_DEFAULTS.items():
+        if getattr(opts, k) is None:
+            setattr(opts, k, v)
+    if opts.map_depth is None:
+        opts.map_depth = 8 if opts.cfg == "stylegan2" else 2
+    sd = payload["G_ema"]
+    return dict(c_dim=sd["mapping.embed.weight"].shape[1] if "mapping.embed.weight" in sd else 0)
 
 
 def load_generator(opts, device: torch.device):
-    """G_ema of the checkpoint ``opts.checkpoint`` names, built from the
-    architecture flags (the label size read from the checkpoint), on
-    ``device``, in eval mode without gradients."""
-    from ..utils.checkpoint import resolve_checkpoint_path
+    """G_ema of the checkpoint or NVIDIA pickle ``opts.checkpoint`` names
+    (``utils.checkpoint.resolve_network``), on ``device``, in eval mode
+    without gradients.  A checkpoint's generator is built from the
+    architecture flags (the label size read from the checkpoint), a
+    pickle's from the pickle (:func:`resolve_architecture`)."""
+    from ..models.torch_compat import load_weights
+    from ..utils.checkpoint import resolve_network
     from .train import make_generator
 
-    path = resolve_checkpoint_path(opts.checkpoint)
-    if path is None:
+    payload, path = resolve_network(opts.checkpoint)
+    if payload is None:
         raise SystemExit(f"--network: no checkpoint found under {opts.checkpoint}")
     print(f"Loading {path}")
-    sd = torch.load(path, map_location="cpu", weights_only=True)["G_ema"]
-    c_dim = sd["mapping.embed.weight"].shape[1] if "mapping.embed.weight" in sd else 0
-    G = make_generator(opts.cfg, resolution=opts.resolution, channels=opts.channels, c_dim=c_dim,
-                       cbase=opts.cbase, cmax=opts.cmax,
-                       map_depth=opts.map_depth or (8 if opts.cfg == "stylegan2" else 2),
-                       z_dim=opts.z_dim, w_dim=opts.w_dim)
-    G.load_state_dict(sd)
+    build = resolve_architecture(opts, payload)
+    G = make_generator(opts.cfg, resolution=opts.resolution, channels=opts.channels,
+                       cbase=opts.cbase, cmax=opts.cmax, map_depth=opts.map_depth,
+                       z_dim=opts.z_dim, w_dim=opts.w_dim, **build)
+    load_weights(G, payload["G_ema"], "G_ema")
     return G.to(device).eval().requires_grad_(False)
 
 

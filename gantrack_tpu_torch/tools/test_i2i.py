@@ -125,15 +125,11 @@ def load_generators(opts) -> Dict[str, Dict[str, torch.Tensor]]:
 def main(argv: Optional[List[str]] = None) -> str:
     """Parse ``argv`` and translate; returns the results directory."""
     from ..models.image2image import define_G
+    from ..precision import configure_device_numerics
     from .train_i2i import AlignedDataset, UnalignedDataset, _list_images, load_image
 
     opts = build_parser().parse_args(argv)
-    device = torch.device(opts.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device=cuda: no CUDA device is available (--device=cpu runs on "
-                         "the CPU)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = configure_device_numerics(opts.device)
     dataset_mode = opts.dataset_mode or (
         "single" if opts.model_kind == "test"
         else ("unaligned" if opts.model_kind == "cycle_gan" else "aligned"))

@@ -30,6 +30,14 @@ NCCL runs the collectives on the card, gloo on the CPU.  ``--batch`` is
 the global batch and ``--batch-gpu`` a device's chunk.  Rank 0 writes
 the run directory; ``--resume`` is read on rank 0 and broadcast; rank
 ``r`` draws from a generator seeded ``seed * N + r``.
+
+``--resume`` takes a run directory or ``state-*.pt`` of the port (the
+whole state) or a NVIDIA ``network-snapshot-*.pkl`` (its weights and
+buffers, into a fresh state; its architecture must match the flags).
+Every entry point runs ``precision.configure_device_numerics``: on the
+card no TF32 and cuDNN's deterministic algorithms.  Rank 0 prints the
+networks' summary tables at start-up and calls ``utils.notify`` when the
+run completes or fails.
 """
 
 from __future__ import annotations
@@ -215,7 +223,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[str]:
 
 
 def _new_run_dir(opts, c: dict, desc: str) -> str:
-    from ..utils.checkpoint import allocate_run_dir
+    from ..utils.config import allocate_run_dir
 
     run_dir = allocate_run_dir(opts.outdir, desc)
     with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
@@ -257,17 +265,20 @@ def _worker(rank: int, opts, c: dict, run_dir: str, port: int) -> None:
 
 def make_generator(cfg: str, *, resolution: int, channels: int, c_dim: int, cbase: int,
                    cmax: int, map_depth: int, num_fp16_res: int = 4, z_dim: int = 512,
-                   w_dim: int = 512, conv_impl: str = "library"):
+                   w_dim: int = 512, conv_impl: str = "library",
+                   conv_clamp: Optional[float] = 256.0, num_layers: Optional[int] = None):
     """The generator of ``--cfg``: stylegan2, stylegan3-t or stylegan3-r
     (channels ×2, 1×1 convs, radial filters).  ``conv_impl`` is the
-    StyleGAN2 layers' (StyleGAN3's keep the library convolution)."""
+    StyleGAN2 layers' (StyleGAN3's keep the library convolution);
+    ``conv_clamp`` that of every layer (a NVIDIA pickle may carry None);
+    ``num_layers`` StyleGAN3's synthesis layers (None: its 14)."""
     if cfg == "stylegan2":
         from ..models.stylegan2 import Generator
 
         return Generator(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=resolution,
                          img_channels=channels, mapping_kwargs=dict(num_layers=map_depth),
                          synthesis_kwargs=dict(channel_base=cbase, channel_max=cmax,
-                                               num_fp16_res=num_fp16_res),
+                                               num_fp16_res=num_fp16_res, conv_clamp=conv_clamp),
                          conv_impl=conv_impl)
     if conv_impl != "library":
         raise ValueError(f"conv_impl={conv_impl!r}: the StyleGAN3 layers have no kernel route")
@@ -278,7 +289,9 @@ def make_generator(cfg: str, *, resolution: int, channels: int, c_dim: int, cbas
                         img_channels=channels, channel_base=cbase * mult,
                         channel_max=cmax * mult, conv_kernel=1 if cfg == "stylegan3-r" else 3,
                         use_radial_filters=(cfg == "stylegan3-r"), num_fp16_res=num_fp16_res,
-                        mapping_kwargs=dict(num_layers=map_depth))
+                        mapping_kwargs=dict(num_layers=map_depth),
+                        synthesis_kwargs=dict(conv_clamp=conv_clamp,
+                                              num_layers=num_layers or 14))
 
 
 # By how much the metrics' generator-pass batch of each ``--cfg`` is cut
@@ -339,15 +352,26 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
                       num_fp16_res=c["D"]["num_fp16_res"],
                       epilogue_kwargs=dict(mbstd_group_size=c["D"]["mbstd_group"]),
                       conv_impl=conv_impl).to(device)
+    mesh = mesh or Mesh()
+    if mesh.is_main:  # start-up tables (reference misc.print_module_summary)
+        from ..utils.summary import print_module_summary
+
+        z0 = torch.zeros((1, c["G"]["z_dim"]), device=device)
+        c0 = torch.zeros((1, c_dim), device=device) if c_dim else None
+        print_module_summary(G, z0, c0, noise_mode="const", depth=2)
+        print_module_summary(D, torch.zeros((1, channels, res, res), device=device), c0, depth=2)
     g_reg_interval = 4 if sg2 else None  # StyleGAN3 has no path-length phase
     # Freeze-D: the first --freezed layers of D (top resolution inward).
     d_trainable = discriminator_freeze_mask(D, opts.freezed) if opts.freezed > 0 else None
     state = create_train_state(G, D, c["glr"], c["dlr"], g_reg_interval=g_reg_interval,
                                d_reg_interval=16, d_trainable=d_trainable)
-    mesh = mesh or Mesh()
     generator = torch.Generator(device=device).manual_seed(opts.seed * mesh.world + mesh.rank)
     if opts.resume:
-        _resume(opts.resume, state, generator, mesh)
+        _resume(opts.resume, state, generator, mesh, expect=dict(
+            cfg=c["cfg"], cbase=c["G"]["channel_base"], cmax=c["G"]["channel_max"],
+            map_depth=c["G"]["map_depth"], resolution=res, channels=channels, c_dim=c_dim,
+            z_dim=c["G"]["z_dim"], w_dim=c["G"]["w_dim"], num_fp16_res=c["G"]["num_fp16_res"],
+            conv_clamp=256.0, mbstd_group=c["D"]["mbstd_group"], mbstd_channels=1))
     replicate(mesh, [*G.parameters(), *G.buffers(), *D.parameters(), *D.buffers(),
                      *state.G_ema.parameters(), *state.G_ema.buffers(),
                      state.pl_mean, state.ada_p, state.ada_signs])
@@ -388,23 +412,38 @@ def build_training(c: dict, opts, device: torch.device, augment_impl: str = "fus
     return dataset, loader, state, stepper
 
 
-def _resume(resume: str, state, generator: torch.Generator, mesh) -> None:
-    """Restore ``state`` from the checkpoint of ``resume``, read on rank 0
-    and handed to every rank.  Rank 0 takes the saved generator state;
-    another rank a fresh stream keyed by its rank and the step."""
+def _resume(resume: str, state, generator: torch.Generator, mesh, expect: dict) -> None:
+    """Restore ``state`` from ``resume``, read on rank 0 and handed to every
+    rank.  A checkpoint of the port restores everything: rank 0 takes the
+    saved generator state, another rank a fresh stream keyed by its rank
+    and the step.  A NVIDIA ``*.pkl`` / ``*.pickle`` transplants its
+    weights and buffers into the fresh state (reference resume semantics,
+    as in the JAX CLI); its architecture must match ``expect`` (the flags,
+    the dataset and what the CLI builds: bf16 resolutions, conv clamp and
+    minibatch-std settings included)."""
     import torch.distributed as dist
 
-    from ..utils.checkpoint import apply_checkpoint, resolve_checkpoint_path
+    from ..models import torch_compat
+    from ..utils.checkpoint import apply_checkpoint, resolve_network
 
+    pickled = resume.endswith((".pkl", ".pickle"))
     payload = [None]
     if mesh.is_main:
-        path = resolve_checkpoint_path(resume)
-        if path is None:
+        payload[0], path = resolve_network(resume)
+        if payload[0] is None:
             raise SystemExit(f"--resume: no checkpoint found under {resume}")
-        print(f"Resuming from {path}")
-        payload[0] = torch.load(path, map_location="cpu", weights_only=True)
+        if pickled:
+            try:
+                torch_compat.check_architecture(payload[0].pop("architecture"), **expect)
+            except ValueError as e:
+                raise SystemExit(f"--resume: {e}") from None
+        print(f"Resuming from {'NVIDIA pickle ' if pickled else ''}{path}")
     if mesh.distributed:
         dist.broadcast_object_list(payload, src=0)
+    if pickled:
+        torch_compat.transplant_into_state(state, payload[0]["G"], payload[0]["D"],
+                                           payload[0]["G_ema"])
+        return
     if not mesh.is_main:
         payload[0]["generator"] = None
         key = [generator.initial_seed(), mesh.rank, int(payload[0]["step"])]
@@ -415,19 +454,14 @@ def _resume(resume: str, state, generator: torch.Generator, mesh) -> None:
 def train(c: dict, opts, run_dir: str, mesh=None):
     """Train rank ``mesh.rank`` of the run (default: one process)."""
     from ..parallel.mesh import Mesh
+    from ..precision import configure_device_numerics
     from ..training.loop import training_loop
+    from ..utils.notify import notify
 
-    # The reference trains without TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     mesh = mesh or Mesh()
-    device = torch.device(c["device"])
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device=cuda: no CUDA device is available "
-                             "(--device=cpu trains on the CPU)")
-        if mesh.distributed:
-            device = torch.device("cuda", torch.cuda.current_device())
+    device = configure_device_numerics(c["device"])
+    if device.type == "cuda" and mesh.distributed:
+        device = torch.device("cuda", torch.cuda.current_device())
     dataset, loader, state, stepper = build_training(c, opts, device, mesh=mesh)
     c_dim = stepper.cfg.c_dim
     # The metrics split over the ranks; with --metric-async rank 0 runs
@@ -460,14 +494,23 @@ def train(c: dict, opts, run_dir: str, mesh=None):
         return np.concatenate(outs)
 
     try:
-        return training_loop(
+        state = training_loop(
             run_dir=run_dir, stepper=stepper, state=state, loader=loader, device=device,
             total_kimg=c["total_kimg"], kimg_per_tick=c["kimg_per_tick"],
             snapshot_ticks=c["snapshot_ticks"], image_snapshot_ticks=c["snapshot_ticks"],
             sample_fn=sample_fn, metrics=c["metrics"], metric_fn=metric_fn,
             metric_snapshot_every=opts.metric_snap, metric_async=opts.metric_async, mesh=mesh)
+    except BaseException as e:
+        # Best effort (reference notification_ifttt, util_general.py:76-79): a
+        # no-op without GANTRACK_NOTIFY_URL; the error goes on up.
+        if mesh.is_main:
+            notify(f"Training FAILED in {run_dir}: {type(e).__name__}: {e}")
+        raise
     finally:
         loader.close()
+    if mesh.is_main:
+        notify(f"Training complete: {run_dir}")
+    return state
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ import torch
 from ..data.i2i_transforms import (
     PREPROCESS_CHOICES, apply_transform, get_params, output_size, resize_bicubic,
 )
+from ..precision import configure_device_numerics
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp")
 
@@ -54,9 +55,10 @@ def read_image(path: str, channels: int) -> np.ndarray:
         data = f.read()
     try:
         img = decode_png(data)
+        if img.dtype != np.uint8:
+            raise ValueError(f"a {img.dtype} PNG")
     except ValueError as e:
-        raise ValueError(f"{path}: {e} (the port reads the 8-bit grayscale or RGB PNGs, "
-                         f"filter 0, that utils.checkpoint.save_png writes)") from None
+        raise ValueError(f"{path}: {e} (the port reads 8-bit grayscale or RGB PNGs)") from None
     if channels == 1 and img.ndim == 3:  # ITU-R 601-2 luma, PIL's fixed point
         rgb = img.astype(np.uint32)
         return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
@@ -276,13 +278,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     """Parse ``argv`` and train; returns the run directory."""
     opts = build_parser().parse_args(argv)
     resolve(opts)
-    device = torch.device(opts.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device=cuda: no CUDA device is available "
-                         "(--device=cpu trains on the CPU)")
-    # The reference trains without TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = configure_device_numerics(opts.device)
     size = output_size(opts.preprocess, opts.load_size, opts.crop_size)
     ds_cls = {"unaligned": UnalignedDataset, "aligned": AlignedDataset,
               "colorization": ColorizationDataset}[opts.dataset_mode]

@@ -20,7 +20,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
-import resource
 import threading
 import time
 import traceback
@@ -31,6 +30,7 @@ import torch
 
 from ..parallel.mesh import Mesh
 from ..utils.checkpoint import save_checkpoint, save_image_grid
+from ..utils.profiling import cpu_mem_gb, device_memory_stats
 from . import stats as stats_lib
 from .step import TrainStepper
 from .train_state import TrainState
@@ -183,11 +183,14 @@ def training_loop(
             "Timing/sec_per_kimg": (tick_end_time - tick_start_time)
             / max(state.cur_nimg - tick_start_nimg, 1) * 1000,
             "Timing/maintenance_sec": maintenance_time,
-            "Resources/peak_cpu_mem_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+            "Resources/cpu_mem_gb": cpu_mem_gb(),
             "Progress/augment": collector.mean("Progress/augment"),
         }
-        if device.type == "cuda":
-            fields["Resources/peak_gpu_mem_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
+        # Device memory as the JAX loop reports it (the reference reports its
+        # peak GPU memory a tick, training_loop_mi_multimodal.py:392-395); the
+        # peak runs from the loop's start.
+        for k, v in device_memory_stats(device).items():
+            fields[f"Resources/{k}"] = v
         if verbose:
             print(" ".join([
                 f"tick {cur_tick:<5d}",

@@ -1,4 +1,4 @@
-"""Full-state checkpoints, PNG image grids and run directories.
+"""Full-state checkpoints and PNG image grids.
 
 A checkpoint holds everything a step mutates: G, D and G_ema state
 dicts, both optimizers, ``pl_mean``, the ADA state, the step counters
@@ -19,8 +19,10 @@ import numpy as np
 import torch
 
 
-def save_checkpoint(ckpt_dir: str, state, generator: Optional[torch.Generator] = None) -> str:
-    """Write ``<ckpt_dir>/state-<step>.pt`` atomically; returns its path."""
+def save_checkpoint(ckpt_dir: str, state, generator: Optional[torch.Generator] = None,
+                    extra: Optional[dict] = None) -> str:
+    """Write ``<ckpt_dir>/state-<step>.pt`` atomically, with the entries of
+    ``extra`` beside the state's; returns its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"state-{state.step:08d}.pt")
     payload = {
@@ -35,6 +37,7 @@ def save_checkpoint(ckpt_dir: str, state, generator: Optional[torch.Generator] =
         "step": state.step,
         "cur_nimg": state.cur_nimg,
         "generator": generator.get_state() if generator is not None else None,
+        **(extra or {}),
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -43,8 +46,11 @@ def save_checkpoint(ckpt_dir: str, state, generator: Optional[torch.Generator] =
 
 
 def load_checkpoint(path: str, state, generator: Optional[torch.Generator] = None):
-    """Restore ``state`` (and ``generator``) in place from ``path``."""
-    payload = torch.load(path, map_location=state.pl_mean.device, weights_only=True)
+    """Restore ``state`` (and ``generator``) in place from ``path``.  Read on
+    the CPU, as the CLI's ``--resume`` reads it: the networks and the
+    optimizers' moments go to their parameters' device, and Adam's step
+    counters stay on the CPU, where an uninterrupted run keeps them."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
     return apply_checkpoint(payload, state, generator)
 
 
@@ -86,6 +92,28 @@ def resolve_checkpoint_path(checkpoint: str) -> Optional[str]:
     return None
 
 
+def resolve_network(network: str):
+    """A ``--network`` / ``--resume`` argument → ``(payload, path)``.
+
+    ``network`` is a run dir, a ``state-*.pt`` (its payload: ``G``, ``D``,
+    ``G_ema`` state dicts and the rest of the state) or a NVIDIA
+    ``*.pkl`` / ``*.pickle`` (``models.torch_compat.state_dict_from_pickle``:
+    the three state dicts and the pickle's ``architecture``).  The
+    counterpart of ``gantrack_tpu/utils/checkpoint.py``'s
+    ``resolve_network``; ``(None, None)`` when nothing is found.
+    """
+    if network.endswith((".pkl", ".pickle")):
+        from ..models.torch_compat import state_dict_from_pickle
+
+        if not os.path.isfile(network):
+            return None, None
+        return state_dict_from_pickle(network), network
+    path = resolve_checkpoint_path(network)
+    if path is None:
+        return None, None
+    return torch.load(path, map_location="cpu", weights_only=True), path
+
+
 def encode_png(pixels: np.ndarray) -> bytes:
     """8-bit grayscale ``[H, W]`` or RGB ``[H, W, 3]`` → PNG bytes."""
     assert pixels.dtype == np.uint8 and pixels.ndim in (2, 3)
@@ -109,10 +137,45 @@ def save_png(path: str, pixels: np.ndarray) -> None:
         f.write(encode_png(np.ascontiguousarray(pixels)))
 
 
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of
+    ``rows`` ``[H, 1 + stride]`` uint8; returns ``[H, stride]`` uint8."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        kind, raw = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
+        if kind == 0:
+            cur = raw
+        elif kind == 1:  # Sub: a running sum along each byte lane
+            lanes = np.zeros(-(-stride // bpp) * bpp, np.int32)
+            lanes[:stride] = raw
+            cur = (np.cumsum(lanes.reshape(-1, bpp), axis=0).reshape(-1)[:stride]) & 0xFF
+        elif kind == 2:  # Up
+            cur = (raw + prior) & 0xFF
+        elif kind in (3, 4):  # Average, Paeth: byte by byte
+            cur = np.zeros(stride, np.int32)
+            for i in range(stride):
+                a = int(cur[i - bpp]) if i >= bpp else 0
+                b = int(prior[i])
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = int(prior[i - bpp]) if i >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                cur[i] = (int(raw[i]) + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG row filter {kind}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """What :func:`encode_png` writes (8-bit grayscale or RGB, one IDAT
-    stream, row filter 0) → ``[H, W]`` or ``[H, W, 3]`` uint8; raises on
-    anything else or on a chunk whose CRC does not match."""
+    """A non-interlaced grayscale (8 or 16 bit) or 8-bit RGB PNG, with any
+    row filters, → ``[H, W]`` uint8 / uint16 or ``[H, W, 3]`` uint8; raises
+    ``ValueError`` on anything else or on a chunk whose CRC does not match."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("not a PNG")
     pos, idat, header = 8, b"", None
@@ -128,13 +191,15 @@ def decode_png(data: bytes) -> np.ndarray:
             idat += body
         pos += 12 + length
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in (0, 2) or interlace:
+    if interlace or (color, depth) not in ((0, 8), (0, 16), (2, 8)):
         raise ValueError(f"PNG of depth {depth}, colour type {color}, interlace {interlace}")
     ch = 1 if color == 0 else 3
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
-    if rows[:, 0].any():
-        raise ValueError("PNG rows with a filter other than 0")
-    return rows[:, 1:].reshape(h, w) if ch == 1 else rows[:, 1:].reshape(h, w, 3)
+    bpp = ch * depth // 8
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * bpp)
+    pixels = rows[:, 1:] if not rows[:, 0].any() else _unfilter(rows, bpp)
+    if depth == 16:
+        return np.ascontiguousarray(pixels).view(">u2").astype(np.uint16).reshape(h, w)
+    return pixels.reshape(h, w) if ch == 1 else pixels.reshape(h, w, 3)
 
 
 def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1),
@@ -161,16 +226,3 @@ def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1),
     else:
         pixels = grid
     save_png(path, pixels)
-
-
-def allocate_run_dir(outdir: str, desc: str) -> str:
-    """Create the next ``NNNNN-<desc>`` run dir under ``outdir``.
-
-    The port's own copy of ``allocate_run_dir`` in
-    ``gantrack_tpu/utils/config.py``.
-    """
-    os.makedirs(outdir, exist_ok=True)
-    ids = [int(m.group(1)) for name in os.listdir(outdir) if (m := re.match(r"^(\d+)-", name))]
-    run_dir = os.path.join(outdir, f"{max(ids, default=-1) + 1:05d}-{desc}")
-    os.makedirs(run_dir, exist_ok=False)
-    return run_dir

@@ -4,6 +4,8 @@ for this checkout or another one of the repository.
     python3 step_profile.py            # claro, StyleGAN3-T, unfused claro
     python3 step_profile.py --ab=DIR   # DIR's tree and this one in turns:
                                        # DIR, this, this, DIR
+    python3 step_profile.py --numerics-ab  # this tree with cuDNN's default and
+                                           # deterministic algorithms in turns
 
 Each configuration is built as the training CLI builds it, from a fixed
 seed, on a synthetic 256² dataset: the claro StyleGAN2-ADA recipe at
@@ -23,7 +25,14 @@ each turn is a process of its own that imports the ``gantrack_tpu_torch``
 of its tree (so each tree builds and launches its own kernels), and the
 last lines compare the turns: times, the FIR rows by form, tap count and
 dtype, the K1–K4 rows, and whether the two trees' kernels give the same
-bits.  Needs a CUDA card; exits 2 without one.
+bits.  ``--numerics-ab`` profiles the claro and StyleGAN3-T plain steps
+of this tree in turns with cuDNN's default algorithms (``benchmark``
+off) and with its deterministic ones, the setting of every entry point
+(``precision.configure_device_numerics``): default, deterministic,
+deterministic, default, a process each; it prints each setting's device
+time, the cost of the deterministic one, and the kernel rows that only
+one setting launches (the convolutions whose algorithm changed).  TF32 is
+off in every turn.  Needs a CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -41,10 +50,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIGS = ("claro", "stylegan3-t", "claro-unfused")
 
 
-def profile_tree(tree: str) -> dict:
+def profile_tree(tree: str, cudnn: str = "default", configs=CONFIGS) -> dict:
     """Profile one plain step of each configuration with the package of
-    ``tree``.  Returns {cfg: {"total_ms", "rows", "step_ms"}, "digests":
-    {kernel: sha256 of its output}}."""
+    ``tree``, cuDNN's ``cudnn`` ("default" or "deterministic") algorithms.
+    Returns {cfg: {"total_ms", "rows", "step_ms"}, "digests": {kernel:
+    sha256 of its output}}."""
     import chip_smoke as cs  # this tree's script; the package comes from ``tree``
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -54,13 +64,16 @@ def profile_tree(tree: str) -> dict:
     from gantrack_tpu_torch.training.loop import to_device_batch
 
     card = cs.card_line()
-    print(f"tree {os.path.abspath(tree)}: package {os.path.dirname(cli.__file__)}; card {card}")
+    print(f"tree {os.path.abspath(tree)}: package {os.path.dirname(cli.__file__)}; card {card}; "
+          f"cuDNN {cudnn} algorithms")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = cudnn == "deterministic"
+    torch.backends.cudnn.benchmark = False
     out = {}
     with tempfile.TemporaryDirectory(prefix="step_profile_") as tmp:
         data = cs._synthetic_dataset(tmp, count=64)
-        for cfg in CONFIGS:
+        for cfg in configs:
             args = cs.CLARO_ARGS if cfg.startswith("claro") else [*cs.SG3_ARGS, "--batch=16"]
             opts = cli.build_parser().parse_args([f"--outdir={tmp}", f"--data={data}", *args])
             device = cs._cli_device(cli, args)
@@ -177,23 +190,111 @@ def _rows_ms(rows: dict, prefix: str) -> float:
 
 def run_ab(other: str) -> int:
     """Turns other, this, this, other, each in a process of its own."""
-    turns = [("other", other), ("this", HERE), ("this", HERE), ("other", other)]
+    return run_turns([("other", other, "default"), ("this", HERE, "default"),
+                      ("this", HERE, "default"), ("other", other, "default")], CONFIGS)
+
+
+def run_numerics_ab() -> int:
+    """This tree with cuDNN's default and deterministic algorithms in turns
+    (default, deterministic, deterministic, default), claro and StyleGAN3-T."""
+    configs = ("claro", "stylegan3-t")
+    turns = [("default", HERE, "default"), ("determ.", HERE, "deterministic"),
+             ("determ.", HERE, "deterministic"), ("default", HERE, "default")]
     results = []
-    for label, tree in turns:
+    code = run_turns(turns, configs, results)
+    if code:
+        return code
+    cost = {}
+    for cfg in configs:
+        ms = {label: [res[cfg]["total_ms"] for lab, res in results if lab == label]
+              for label in ("default", "determ.")}
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        cost[cfg] = mean["determ."] / mean["default"] - 1
+        rows = {label: {k for lab, res in results if lab == label for k in res[cfg]["rows"]}
+                for label in ("default", "determ.")}
+        per = {label: {} for label in rows}
+        for lab, res in results:
+            for k, t in res[cfg]["rows"].items():
+                per[lab][k] = per[lab].get(k, 0.0) + t / 2
+        print(f"{cfg}: device ms default {ms['default']}, deterministic {ms['determ.']}: "
+              f"deterministic costs {100 * cost[cfg]:+.2f} % of the default's device time")
+        for label, other in (("default", "determ."), ("determ.", "default")):
+            only = sorted(rows[label] - rows[other], key=lambda k: -per[label][k])
+            print(f"  kernels only with the {label} algorithms ({len(only)}): " + "; ".join(
+                f"{k} {per[label][k]:.2f} ms" for k in only[:10]))
+    print(json.dumps({"numerics_cost": cost}))
+    deterministic_warnings()
+    return 0
+
+
+def deterministic_warnings() -> list:
+    """What ``torch.use_deterministic_algorithms(True, warn_only=True)``
+    warns about in the claro step's four variants (built as the CLI builds
+    it, under ``precision.configure_device_numerics``): the ops that have
+    no deterministic CUDA kernel.  Prints and returns the distinct
+    messages."""
+    import warnings
+
+    import torch
+
+    import chip_smoke as cs
+    from gantrack_tpu_torch.precision import configure_device_numerics
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.training.loop import to_device_batch
+
+    device = configure_device_numerics("cuda")
+    seen = []
+    with tempfile.TemporaryDirectory(prefix="step_profile_") as tmp:
+        data = cs._synthetic_dataset(tmp, count=64)
+        opts = cli.build_parser().parse_args([f"--outdir={tmp}", f"--data={data}",
+                                              *cs.CLARO_ARGS])
+        torch.manual_seed(0)
+        _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
+        try:
+            real_img, real_c = to_device_batch(*next(loader), device)
+        finally:
+            loader.close()
+        state.ada_p = torch.tensor(0.3, device=device)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for flags in ((False, False), (True, False), (False, True), (True, True)):
+                    stepper.run(state, real_img, real_c, *flags)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for w in caught:
+        msg = str(w.message).split(". ")[0]
+        if msg not in seen:
+            seen.append(msg)
+    print(f"use_deterministic_algorithms(True, warn_only=True), claro step, four variants: "
+          f"{len(seen)} distinct warnings")
+    for msg in seen:
+        print(f"  warns: {msg[:300]}")
+    return seen
+
+
+def run_turns(turns, configs, results=None) -> int:
+    """Each turn (label, tree, cudnn) in a process of its own; prints the
+    comparison.  ``results`` (a list) receives (label, result) a turn."""
+    results = [] if results is None else results
+    for label, tree, cudnn in turns:
         with tempfile.NamedTemporaryFile(suffix=".json", delete=False) as f:
             path = f.name
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), f"--tree={tree}",
-                               f"--json={path}"], cwd=HERE)
+                               f"--json={path}", f"--cudnn={cudnn}",
+                               f"--configs={','.join(configs)}"], cwd=HERE)
         if proc.returncode != 0:
             print(f"turn {label} ({tree}) failed with exit code {proc.returncode}", file=sys.stderr)
             return proc.returncode
         with open(path) as f:
             results.append((label, json.load(f)))
         os.remove(path)
-    print("A/B (turns other, this, this, other), ms of one profiled plain step:")
+    print(f"turns {', '.join(t[0] for t in turns)}, ms of one profiled plain step:")
     summary = []
     for label, res in results:
-        for cfg in CONFIGS:
+        for cfg in configs:
             r = res[cfg]
             row = {"turn": label, "cfg": cfg, "device_ms": r["total_ms"], "step_ms": r["step_ms"],
                    **{f"fir_{form}_ms": _rows_ms(r["rows"], f"FIR {form}")
@@ -227,6 +328,11 @@ def main(argv=None) -> int:
     # A turn of --ab: the checkout whose package it profiles, and its result file.
     parser.add_argument("--tree", default=HERE, help=argparse.SUPPRESS)
     parser.add_argument("--json", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--cudnn", choices=["default", "deterministic"], default="default",
+                        help="cuDNN's algorithms in this process")
+    parser.add_argument("--configs", default=",".join(CONFIGS), help=argparse.SUPPRESS)
+    parser.add_argument("--numerics-ab", dest="numerics_ab", action="store_true",
+                        help="cuDNN's default and deterministic algorithms in turns")
     opts = parser.parse_args(argv)
     import torch
 
@@ -235,7 +341,9 @@ def main(argv=None) -> int:
         return 2
     if opts.ab:
         return run_ab(opts.ab)
-    result = profile_tree(opts.tree)
+    if opts.numerics_ab:
+        return run_numerics_ab()
+    result = profile_tree(opts.tree, opts.cudnn, tuple(opts.configs.split(",")))
     if opts.json:
         with open(opts.json, "w") as f:
             json.dump(result, f)

@@ -17,19 +17,19 @@ so it runs on a machine that has none:
   layer that nearly cancels, and moved by up to 27 % on the card (4 × 4,
   float32 at b4) where the weights moved by well under 5 %.  An average
   instead of a sum would be off by 0.5.
-* The same check in float32 (``num_fp16_res=0`` in G and D, TF32 off),
-  the same seeds and shapes: every gradient tensor of G, the scalar noise
-  strengths included, at relative norm error ≤ 1e-3 (bound fixed before
-  the first run on the card).  On the H100 it fails at the scalar noise
-  strengths (1.3e-3 to 4.9e-3 in four runs): cuDNN's default float32
-  algorithms are not deterministic, and two identical ``micro_batches=1``
-  steps move those nearly cancelling sums by up to 3.4e-3 (whole gradient
-  8.9e-5; ``split_numerics.py spread``), while with cuDNN's deterministic
-  algorithms or without cuDNN the relation holds to 3e-6.  So the
-  same check also runs with cuDNN's deterministic algorithms (bound 1e-3,
-  fixed before its first run), and the chunked step's gradient is held,
-  bit for bit, to the sum of the two chunks stepped alone at the same
-  shapes: the accumulation adds nothing of its own.
+* The same check in float32 (``num_fp16_res=0`` in G and D), the same
+  seeds and shapes, under the numerics every entry point of the port runs
+  (the ``cuda_device`` fixture: ``precision.configure_device_numerics``,
+  TF32 off and cuDNN's deterministic algorithms): every gradient tensor of
+  G, the scalar noise strengths included, at relative norm error ≤ 1e-3
+  (bound fixed before the first run on the card).  With cuDNN's default
+  float32 algorithms it failed at the scalar noise strengths (1.3e-3 to
+  4.9e-3 in four runs; ROADMAP C11): those are not deterministic, and two
+  identical ``micro_batches=1`` steps moved those nearly cancelling sums
+  by up to 3.4e-3 (``split_numerics.py spread``).  The chunked step's
+  gradient is also held, bit for bit, to the sum of the two chunks
+  stepped alone at the same shapes: the accumulation adds nothing of its
+  own.
 * One projector step (forward and backward through G's synthesis with the
   noise buffers replaced, and a VGG16 at 224² for LPIPS) on the FIR
   kernels K5–K7 against the same step with every ``upfirdn2d`` call on the
@@ -55,11 +55,14 @@ CLARO = dict(resolution=256, channels=1, c_dim=0, cbase=16384, cmax=512, map_dep
 
 @pytest.fixture
 def cuda_device():
+    """The card under the numerics every entry point of the port runs
+    (``precision.configure_device_numerics``: no TF32, cuDNN's
+    deterministic algorithms)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the FIR kernels have no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    from gantrack_tpu_torch.precision import configure_device_numerics
+
+    return configure_device_numerics("cuda")
 
 
 def _rel(a, b):
@@ -144,16 +147,9 @@ def _assert_twice(grads1, grads2, names, bound):
 
 @pytest.mark.cuda
 def test_accumulated_gmain_gradient_is_twice_the_whole_batch_float32(cuda_device, monkeypatch):
-    z, reals = _float32_inputs(cuda_device)
-    grads1, names = _float32_gmain_grads(cuda_device, monkeypatch, 1, z, reals)
-    grads2, _ = _float32_gmain_grads(cuda_device, monkeypatch, 2, z, reals)
-    _assert_twice(grads1, grads2, names, 1e-3)
-
-
-@pytest.mark.cuda
-def test_accumulated_gmain_gradient_is_twice_the_whole_batch_float32_deterministic_cudnn(
-        cuda_device, monkeypatch):
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    # The fixture's setting, the product's: the former
+    # ``..._float32_deterministic_cudnn`` twin is now this same check.
+    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.allow_tf32
     z, reals = _float32_inputs(cuda_device)
     grads1, names = _float32_gmain_grads(cuda_device, monkeypatch, 1, z, reals)
     grads2, _ = _float32_gmain_grads(cuda_device, monkeypatch, 2, z, reals)

@@ -4,7 +4,9 @@ the card machine lacks.
 Checked in a fresh interpreter with ``JAX_PLATFORMS`` unset: after
 importing a module of the port, no module whose top-level name is
 ``gantrack_tpu`` (or a forbidden package) is in ``sys.modules``; the
-port keeps its own copies of that package's framework-free data modules.
+port keeps its own copies of that package's framework-free modules.  In
+the sources, no import statement names a forbidden package, but for PIL
+and PyYAML inside a function.
 ``chip_smoke.py`` imports only the port, and without a CUDA device it
 fails and prints no result.
 """
@@ -21,6 +23,11 @@ FORBIDDEN = ("gantrack_tpu", "jax", "flax", "optax", "orbax", "click", "PIL", "p
 # Imported only inside the function that needs them (a plot, a GIF), never
 # when a module is imported.
 LAZY = ("matplotlib", "imageio")
+# Of the forbidden packages, those a function may import for a format or a
+# reader that only they give (PIL: JPEG / JPEG 2000 DICOM and TIFF slices;
+# PyYAML: YAML beyond the subset read without it), raising a named error
+# where they are absent; never at the top of a module.
+INSIDE_A_FUNCTION = ("PIL", "yaml")
 
 
 @pytest.mark.parametrize("module", [
@@ -57,6 +64,22 @@ LAZY = ("matplotlib", "imageio")
     "gantrack_tpu_torch.training.image2image",
     "gantrack_tpu_torch.tools.train_i2i",
     "gantrack_tpu_torch.tools.test_i2i",
+    "gantrack_tpu_torch.precision",
+    "gantrack_tpu_torch.utils.config",
+    "gantrack_tpu_torch.utils.url",
+    "gantrack_tpu_torch.utils.notify",
+    "gantrack_tpu_torch.utils.summary",
+    "gantrack_tpu_torch.utils.profiling",
+    "gantrack_tpu_torch.models.torch_compat",
+    "gantrack_tpu_torch.tools.import_torch_pickle",
+    "gantrack_tpu_torch.tools.convert_detector",
+    "gantrack_tpu_torch.tools.dataset_tool",
+    "gantrack_tpu_torch.data.preprocess",
+    "gantrack_tpu_torch.data.preprocess.nifti",
+    "gantrack_tpu_torch.data.preprocess.jpegls",
+    "gantrack_tpu_torch.data.preprocess.dicom",
+    "gantrack_tpu_torch.data.preprocess.medical",
+    "gantrack_tpu_torch.data.preprocess.packaging",
 ])
 def test_port_imports_no_jax(module):
     env = {k: v for k, v in os.environ.items()
@@ -80,7 +103,9 @@ def test_port_sources_name_no_forbidden_package():
                     words = line.strip().split()
                     if words[:1] in (["import"], ["from"]) and len(words) > 1:
                         top = words[1].split(".")[0]
-                        assert top not in FORBIDDEN, (name, line)
+                        inside = line.startswith((" ", "\t"))
+                        assert top not in FORBIDDEN or (inside and top in INSIDE_A_FUNCTION), \
+                            (name, line)
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -286,7 +286,7 @@ def test_calc_metrics_on_the_run_dir_writes_kid(metric_run, tiny_dataset):
 
 @pytest.mark.parametrize("args,match", [
     (["--metrics=eqr50k"], "needs a StyleGAN3"),
-    (["--network=x.pkl"], "A11"),
+    (["--network=x.pkl"], "no checkpoint found under x.pkl"),
     (["--metrics=ppl2_wend", "--cfg=stylegan3-r"], "C9"),
 ])
 def test_calc_metrics_refuses_what_is_not_ported(args, match, tiny_dataset):

@@ -168,8 +168,14 @@ class _StandInD(torch.nn.Module):
 
 def _step(mesh, flags, micro_batches, models="stand-in", style_mixing=0.9):
     """One step of the given phase variant, ``global_sample``, on this
-    rank's share of the global batch: float64 stand-ins, or the float32
-    StyleGAN2 networks (``models="stylegan2"``)."""
+    rank's share of the global batch: float64 stand-ins, the float32
+    StyleGAN2 networks (``models="stylegan2"``) or the StyleGAN2 networks
+    in float64 under ``precision.pinned_float64`` (``"stylegan2-f64"``)."""
+    if models == "stylegan2-f64":
+        from gantrack_tpu_torch.precision import pinned_float64
+
+        with pinned_float64():
+            return _step(mesh, flags, micro_batches, "stylegan2-in-f64", style_mixing)
     from gantrack_tpu_torch.models import stylegan2 as tsg2
     from gantrack_tpu_torch.training import step
     from gantrack_tpu_torch.training.loss import StyleGAN2Loss, StyleGAN2LossConfig
@@ -177,7 +183,7 @@ def _step(mesh, flags, micro_batches, models="stand-in", style_mixing=0.9):
     from gantrack_tpu_torch.training.train_state import create_train_state
 
     default = torch.get_default_dtype()
-    dtype = torch.float64 if models == "stand-in" else torch.float32
+    dtype = torch.float64 if models in ("stand-in", "stylegan2-in-f64") else torch.float32
     torch.set_default_dtype(dtype)
     try:
         torch.manual_seed(0)
