@@ -43,19 +43,18 @@ per source, all started together), then:
    through the port's CLI on a synthetic 256² dataset, with
    ``--metrics=fid1k`` at the snapshot; checks the outcome and that every
    kernel ran, and times each phase variant of the step;
-3. runs ``calc_metrics`` on the run's checkpoint: fid10k and kid10k with
-   the default (random projection) detector, and fid1k with a
+3. runs ``calc_metrics`` on the run's checkpoint: fid10k with the default
+   (random projection) detector (kid10k runs in phase 13), and fid1k with a
    ``tfslim`` InceptionV3 of seeded random weights at 299²; times the
    generator pass of each detector;
 4. trains StyleGAN3-T at its published width, depth and batch (cbase
    32768, cmax 512, 14 layers, mapping depth 2, bf16 in the 4 highest
    rates, batch 32) through the CLI on the same dataset for 1 kimg, its
    gradients accumulated over the largest chunk (``--batch-gpu``) of 32,
-   16, 8 that fits the card, with ``--metrics=eqt1k_int,eqr1k`` at the
-   snapshot, then runs ``calc_metrics --cfg=stylegan3-t
-   --metrics=fid1k,eqr1k`` on the checkpoint; times each phase variant of
-   the accumulated step at 32 beside an unaccumulated step at 16 from the
-   same state, with the peak memory of each,
+   16, 8, 4 that fits the card, with ``--metrics=eqt1k_int,eqr1k`` at the
+   snapshot, then runs ``calc_metrics --cfg=stylegan3-t --metrics=fid1k``
+   on the checkpoint; times each phase variant of the accumulated step at
+   32, with its peak memory,
    profiles one step (FIR rows named by form and tap count), tries the
    metrics' generator pass at batch 128, 64
    and 32 (the batch the CLIs pick must fit in half the card), and prints
@@ -104,7 +103,25 @@ per source, all started together), then:
    holds its G_ema bit for bit, trains the claro recipe from it on the
    packed set for 1 kimg with fid1k (K1, K2, K5–K7), and runs
    ``calc_metrics`` and ``gen_images`` on the pickle;
-12. prints the kernel report and, last, the device line.
+12. builds StyleGAN3-R at its published width (``--cbase=32768
+   --cmax=512``, which the CLI doubles) and batch 32 through the CLI's
+   build, in the largest chunk of 32, 16, 8, 4 that fits; from one state
+   takes one +Dreg and three plain steps with D's input blur at sigma 10
+   (61 taps), with host times, peak memory, the launches (K1, K2, K5–K7)
+   and the plain-route FIR calls (only ``SG3_R_PLAIN_ROUTE``, the blur
+   among them), profiles one step of each variant, and loads a saved
+   checkpoint into a fresh build bit for bit;
+13. drives the research tools on the host: ``generate_jobs`` (a 2 × 2
+   sweep, each script through the training CLI's parser, checks and
+   config), ``analysis`` on phase 2's run (the emitted metric loop's
+   first line through ``calc_metrics``, the trend, the best snapshot, a
+   dry-run clean-up), ``stats_dashboard`` on localhost,
+   ``analyze_dataset`` and ``create_label_files`` on phase 11's volumes
+   and slice pickles, and the claro TIFF stage (``prepare_dataset`` on
+   raw 512² float32 TIFFs in HU → ``dataset_tool process_tiff`` →
+   ``snap_zip`` → ``pack``, opened by the port's dataset), none of it
+   with PIL, OpenCV, pandas, PyYAML or click;
+14. prints the kernel report and, last, the device line.
 
 Any failed check raises, so the exit code is non-zero.  Without a CUDA
 device the script exits with code 2 and prints no result.
@@ -186,6 +203,12 @@ SG3_ARGS = [
 # The only upfirdn2d calls of StyleGAN3-T that no FIR kernel covers (the
 # reason as ``fir.fir_spec`` words it): the x4 up-filters of its layers.
 SG3_T_PLAIN_ROUTE = ("up=4, down=1",)
+# Those of StyleGAN3-R: its radial (2-D) down-filters, D's input blur at its
+# initial sigma of 10 (61 taps; it fades over 200 kimg) and the x4
+# up-filters (``fir.fir_spec``'s words; a step of -r at 256^2 and narrow widths on the CPU
+# takes these three and no other).
+SG3_R_PLAIN_ROUTE = ("2-D filter, not separable", "61 x 61 taps (at most 32 per axis)",
+                     "up=4, down=1")
 # The FIR calls of phase 1: name, [N, C, H, W], dtype of the step, then
 # the upfirdn2d arguments.  The first of each form is the one the kernel
 # report quotes: for K5 the claro step's, for K6 and K7 StyleGAN3-T's
@@ -1457,7 +1480,9 @@ def run_calc_metrics(card: str, tmp: str, data: str, run_dir: str) -> None:
             torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu", generator=gen)
     inception.save_npz(weights, model)
     base = [f"--network={run_dir}", f"--data={data}", *NET_ARGS]
-    for metrics, extra in (("fid10k,kid10k", []), ("fid1k", [f"--detector-weights={weights}"])):
+    # kid10k with the default detector runs in phase 13, through the metric
+    # loop that tools/analysis.py emits for this run.
+    for metrics, extra in (("fid10k", []), ("fid1k", [f"--detector-weights={weights}"])):
         argv = [*base, f"--metrics={metrics}", *extra]
         print(f"phase 3: python -m gantrack_tpu_torch.tools.calc_metrics {' '.join(argv)}")
         _reset_launches()
@@ -1529,7 +1554,7 @@ def _step_times(stepper, state, real_img, real_c, variants, plain_route=(),
 
 
 def _pick_batch_gpu(cli, tmp: str, data: str, args, device, batch: int = 32,
-                    sizes=(32, 16, 8)) -> int:
+                    sizes=(32, 16, 8, 4)) -> int:
     """The largest chunk of ``sizes`` (``--batch-gpu``) at which one +Dreg
     step of ``--batch=batch`` fits the card with room to spare: its peak
     must stay under 80 % of the card's memory, because the CLI run also
@@ -1702,7 +1727,6 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     from gantrack_tpu_torch.tools import calc_metrics
     from gantrack_tpu_torch.tools import train as cli
     from gantrack_tpu_torch.training.loop import to_device_batch
-    from gantrack_tpu_torch.training.step import TrainStepper
     from gantrack_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 
     device = _cli_device(cli, args)
@@ -1789,29 +1813,24 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
           f"ada_p {float(state.ada_p):.6f}; G, D, G_ema changed; magnitude_ema "
           f"{min(emas):.4f} .. {max(emas):.4f}; G_ema output finite")
 
-    # The accumulated step at 32, then one unaccumulated step at 16 from
-    # the same state (its first 16 images), each with its peak memory.
+    # The accumulated step at 32 with its peak memory (the unaccumulated
+    # step at 16, 1.979x faster in PR 10, is no longer timed here).
     variants = (("plain", (False, False)), ("+Dreg", (False, True)))
-    half = TrainStepper(stepper.loss, dataclasses.replace(stepper.cfg, batch_size=batch // 2,
-                                                          micro_batches=1),
-                        stepper.generator, stepper.label_bank)
-    for label, st, n in ((f"batch {batch} in {stepper.cfg.micro_batches} chunks of {batch_gpu}",
-                          stepper, batch), (f"batch {batch // 2}, unaccumulated", half,
-                                            batch // 2)):
-        torch.cuda.reset_peak_memory_stats()
-        times = _step_times(st, state, real_img[:n], None if real_c is None else real_c[:n],
-                            variants, SG3_T_PLAIN_ROUTE)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        for variant, ms in times.items():
-            print(f"  step {variant}, {label}: median {ms:.1f} ms of 3 ({res}^2; "
-                  f"{n / ms * 1e3:.1f} img/s) on {card}")
-        print(f"  peak device memory over those steps ({label}): {peak:.2f} GiB on {card}")
+    label = f"batch {batch} in {stepper.cfg.micro_batches} chunks of {batch_gpu}"
+    torch.cuda.reset_peak_memory_stats()
+    times = _step_times(stepper, state, real_img, real_c, variants, SG3_T_PLAIN_ROUTE)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for variant, ms in times.items():
+        print(f"  step {variant}, {label}: median {ms:.1f} ms of 3 ({res}^2; "
+              f"{batch / ms * 1e3:.1f} img/s) on {card}")
+    print(f"  peak device memory over those steps ({label}): {peak:.2f} GiB on {card}")
     _profile_step(stepper, state, real_img, real_c, (False, False), card, "plain StyleGAN3-T")
     _probe_metric_batch(cli, state.G_ema, card, res)
     del state, stepper, real_img, fakes
     torch.cuda.empty_cache()
 
-    argv = [f"--network={run_dir}", f"--data={data}", "--metrics=fid1k,eqr1k",
+    # fid1k only: the run's snapshot already evaluated eqt1k_int and eqr1k.
+    argv = [f"--network={run_dir}", f"--data={data}", "--metrics=fid1k",
             *(a for a in args if a.startswith(("--cfg=", "--cbase=", "--cmax=")))]
     print(f"phase 4: python -m gantrack_tpu_torch.tools.calc_metrics {' '.join(argv)}")
     trained = dict(launches)
@@ -1819,12 +1838,11 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     t0 = time.perf_counter()
     results = calc_metrics.main(argv)
     torch.cuda.synchronize()
-    launches = _read_launches(("fir_down2", "fir_up2", "warp"), SG3_T_PLAIN_ROUTE)
+    launches = _read_launches(("fir_down2", "fir_up2"), SG3_T_PLAIN_ROUTE)
     print(f"  {results} in {time.perf_counter() - t0:.1f} s on {card}; kernel launches "
           f"{ {k: n for k, n in launches.items() if n} }; plain-route FIR calls "
           f"{dict(fir.PLAIN_ROUTE)}")
-    for metric in ("fid1k", "eqr1k"):
-        _metric_rows(run_dir, metric)
+    _metric_rows(run_dir, "fid1k")
     return run_dir, {k: trained[k] + launches[k] for k in trained}
 
 
@@ -3223,6 +3241,369 @@ def run_volume_route(card: str, tmp: str, claro_dir: str) -> dict:
     return launches
 
 
+# Phase 12: StyleGAN3-R at its published width (the CLI doubles --cbase and
+# --cmax for -r) and batch 32, from the CLI's build: one +Dreg and three
+# plain steps with D's input blur at its initial sigma of 10 (61 taps),
+# where every -r run starts.
+SG3_R_ARGS = [a for a in SG3_ARGS if not a.startswith(("--cfg=", "--metrics="))] + [
+    "--cfg=stylegan3-r", "--metrics=none"]
+SG3_R_BLUR_SIGMA = 10.0
+
+
+def _train_state_tensors(state, generator) -> dict:
+    """Everything a checkpoint restores: the networks, both optimizers'
+    moments and step counters, the loss and ADA state, the step
+    generator's state."""
+    import torch
+
+    out = {k: v.detach().cpu() for k, v in _state_tensors(state).items()}
+    for name in ("opt_g", "opt_d"):
+        for i, s in getattr(state, name).state_dict()["state"].items():
+            out.update({f"{name}.{i}.{k}": torch.as_tensor(v).cpu() for k, v in s.items()})
+    out["generator"] = generator.get_state()
+    out["counters"] = torch.tensor([state.step, state.cur_nimg])
+    return out
+
+
+def train_stylegan3r(card: str, tmp: str, data: str, args=SG3_R_ARGS, res: int = 256,
+                     batch: int = 32) -> dict:
+    """Phase 12: StyleGAN3-R at full width and its published batch 32 on
+    phase 2's dataset, through the training CLI's build (``build_training``
+    of its parsed flags), gradients accumulated over the largest chunk
+    that fits.  From one state, one +Dreg step, then three plain steps,
+    each with the blur at sigma 10: host time, peak memory, the kernels'
+    launches and the plain-route FIR calls (only ``SG3_R_PLAIN_ROUTE``;
+    the 61-tap blur must be one); then one profiled step of each variant
+    (device time, the plain route's share); then a checkpoint saved and
+    loaded into a fresh state of the CLI's build, bit for bit.  Returns
+    the launch counts of the four steps."""
+    import torch
+
+    from gantrack_tpu_torch.ops import fir
+    from gantrack_tpu_torch.tools import train as cli
+    from gantrack_tpu_torch.training.loop import to_device_batch
+    from gantrack_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+    device = _cli_device(cli, args)
+    print(f"phase 12: StyleGAN3-R at full width, batch {batch}; the largest chunk (--batch-gpu) "
+          "of 32, 16, 8, 4 that fits")
+    batch_gpu = _pick_batch_gpu(cli, tmp, data, args, device, batch)
+    argv = [f"--outdir={os.path.join(tmp, 'runs3r')}", f"--data={data}", f"--batch={batch}",
+            f"--batch-gpu={batch_gpu}", *args]
+    print(f"phase 12: the build of python -m gantrack_tpu_torch.tools.train {' '.join(argv)}")
+
+    def build():
+        opts = cli.build_parser().parse_args(argv)
+        cli.check_slice(opts)
+        _, loader, state, stepper = cli.build_training(cli.resolve_config(opts), opts, device)
+        return loader, state, stepper
+
+    loader, state, stepper = build()
+    cmax = cli.build_parser().parse_args(argv).cmax
+    try:
+        real_img, real_c = to_device_batch(*next(loader), device)
+    finally:
+        loader.close()
+    names = state.G.synthesis.layer_names
+    g_params = sum(p.numel() for p in state.G.parameters())
+    d_params = sum(p.numel() for p in state.D.parameters())
+    channels = [getattr(state.G.synthesis, n).spec.out_channels for n in names]
+    print(f"  G: {len(names)} layers {names[0]} .. {names[-1]}, channels {max(channels)} .. "
+          f"{min(channels)}, {g_params / 1e6:.2f} M parameters; D {d_params / 1e6:.2f} M; "
+          f"blur sigma {stepper.loss.blur_sigma(0)} at kimg 0, fading over "
+          f"{stepper.loss.cfg.blur_fade_kimg:g} kimg")
+    if len(names) != 15 or max(channels) != 2 * cmax or \
+            stepper.loss.blur_sigma(0) != SG3_R_BLUR_SIGMA:
+        raise AssertionError(f"not the published StyleGAN3-R (14 layers + toRGB, {2 * cmax} "
+                             f"channels at most, blur sigma {SG3_R_BLUR_SIGMA})")
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = {}, {}
+    for label, flags, reps in (("+Dreg", (False, True), 1), ("plain", (False, False), 3)):
+        before = {k: n for counter in _kernel_counters() for k, n in counter.items()}
+        for _ in range(reps):
+            state.cur_nimg = 0  # the blur at sigma 10, its 61 taps
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            moments = stepper.run(state, real_img, real_c, *flags)
+            torch.cuda.synchronize()
+            times.setdefault(label, []).append((time.perf_counter() - t) * 1e3)
+            for k, v in moments.items():
+                if k.startswith("Loss/") and not torch.isfinite(v).all():
+                    raise AssertionError(f"{label} step: non-finite {k} {v.tolist()}")
+        counts[label] = {k: (n - before[k]) / reps for counter in _kernel_counters()
+                         for k, n in counter.items() if n > before[k]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2"),
+                              SG3_R_PLAIN_ROUTE)
+    plain = dict(fir.PLAIN_ROUTE)
+    blur = f"{2 * int(3 * SG3_R_BLUR_SIGMA) + 1} x {2 * int(3 * SG3_R_BLUR_SIGMA) + 1} taps"
+    if not any(reason.startswith(blur) for reason in plain):
+        raise AssertionError(f"D's input blur ({blur}) never took the plain route: {plain}")
+    losses = {k: float(v[1] / v[0]) for k, v in moments.items() if k.startswith("Loss/")}
+    print(f"  steps from one state, batch {batch} in {stepper.cfg.micro_batches} chunks of "
+          f"{batch_gpu}: +Dreg {times['+Dreg'][0]:.1f} ms; plain "
+          + " / ".join(f"{t:.1f}" for t in times["plain"]) + f" ms (host clock); "
+          f"{batch / sorted(times['plain'])[1] * 1e3:.2f} img/s plain; peak {peak:.2f} GiB on "
+          f"{card}")
+    print(f"  losses of the last plain step: { {k: round(v, 4) for k, v in losses.items()} }")
+    print(f"  kernel launches of the four steps: { {k: n for k, n in launches.items() if n} }; "
+          f"a +Dreg step {counts['+Dreg']}, a plain step {counts['plain']}; plain-route FIR "
+          f"calls {plain}")
+
+    for label, flags in (("+Dreg", (False, True)), ("plain", (False, False))):
+        state.cur_nimg = 0
+        prof = _profile_step(stepper, state, real_img, real_c, flags, card,
+                             f"{label} StyleGAN3-R (batch {batch}, chunks of {batch_gpu})")
+        print(f"  device time of one {label} step: {prof['total_ms']:.1f} ms on {card}")
+
+    ckpt = save_checkpoint(os.path.join(tmp, "ckpt3r"), state, stepper.generator)
+    saved = _train_state_tensors(state, stepper.generator)
+    del state, stepper, real_img, real_c, moments
+    torch.cuda.empty_cache()
+    loader, fresh, fresh_stepper = build()
+    loader.close()
+    load_checkpoint(ckpt, fresh, fresh_stepper.generator)
+    loaded = _train_state_tensors(fresh, fresh_stepper.generator)
+    if saved.keys() != loaded.keys():
+        raise AssertionError(f"the reloaded state has other tensors: "
+                             f"{sorted(saved.keys() ^ loaded.keys())[:5]}")
+    differ = [k for k in saved if not torch.equal(saved[k], loaded[k])]
+    if differ:
+        raise AssertionError(f"the reloaded state differs in {differ[:5]}")
+    print(f"  {os.path.basename(ckpt)}: {os.path.getsize(ckpt) / 2**20:.1f} MiB, loaded into a "
+          f"fresh build bit for bit ({len(saved)} tensors: networks, Adam moments, counters, "
+          f"ADA, the step generator)")
+    del fresh, fresh_stepper
+    torch.cuda.empty_cache()
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s wall on {card}")
+    return launches
+
+
+# Phase 13: the research tools around a run, on the host of the card
+# machine: a sweep of job scripts, the analysis of phase 2's run, the stats
+# dashboard, the dataset reports on phase 11's volumes, and the claro TIFF
+# stage from raw slices to a packed set.
+P13_PATIENTS, P13_SLICES, P13_RAW = 5, 4, 512
+
+
+def _raw_claro_tree(root: str, rng) -> tuple:
+    """claro's raw layout: ``<patient>/images/<patient>_<slice>.tif``,
+    float32 slices of 512² in HU (written by the port's TIFF encoder, as
+    PIL writes them), a patient table with an ``image`` column and a box
+    table keyed ``img ID``; one slice has no box."""
+    import numpy as np
+
+    from gantrack_tpu_torch.data.preprocess.tiff import write_tiff
+
+    src = os.path.join(root, "raw")
+    rows, boxes = [], []
+    for p in range(P13_PATIENTS):
+        for s in range(P13_SLICES):
+            sid = f"C{p:03d}_{s:03d}"
+            d = os.path.join(src, f"C{p:03d}", "images")
+            os.makedirs(d, exist_ok=True)
+            sl = _ct_volume(rng, P13_RAW, 1)[:, :, 0].astype(np.float32)
+            write_tiff(os.path.join(d, f"{sid}.tif"), sl)
+            rows.append(f"C{p:03d}/images/{sid}.tif")
+            if (p, s) != (0, 0):
+                y0, x0 = rng.integers(P13_RAW // 12, P13_RAW // 6, 2).tolist()
+                boxes.append((sid, [y0, x0, P13_RAW - y0, P13_RAW - x0]))
+    info = os.path.join(root, "patients_info.csv")
+    with open(info, "w") as f:
+        f.write("image\n" + "".join(f"{r}\n" for r in rows))
+    box_file = os.path.join(root, "boxes.csv")
+    with open(box_file, "w") as f:
+        f.write('"img ID","box lung"\n' + "".join(f'"{s}","{b}"\n' for s, b in boxes))
+    return src, info, box_file, len(boxes)
+
+
+def run_tools(card: str, tmp: str, data: str, claro_dir: str) -> None:
+    """Phase 13: the last tools of the port on the card machine's host
+    (none launches a kernel but ``calc_metrics``): ``generate_jobs`` (a 2 ×
+    2 sweep, every script parsed, checked and resolved by the training
+    CLI), ``analysis`` on phase 2's run (the metric loop emitted and its
+    first line run in-process, the trend, the best snapshot, a dry-run
+    clean-up), ``stats_dashboard`` on localhost, ``analyze_dataset`` on
+    phase 11's volumes, ``create_label_files`` on its slice pickles and
+    split, and the claro TIFF stage: ``prepare_dataset`` → ``dataset_tool``
+    ``process_tiff`` → ``snap_zip`` → ``pack``, opened by the port's
+    dataset."""
+    import shlex
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from gantrack_tpu_torch.data import open_dataset
+    from gantrack_tpu_torch.tools import (analysis, analyze_dataset, calc_metrics,
+                                          create_label_files, dataset_tool, generate_jobs,
+                                          prepare_dataset, stats_dashboard)
+    from gantrack_tpu_torch.tools import train as cli
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "tools")
+    os.makedirs(root)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    # Jobs: the sweep's scripts, each a command the training CLI takes.
+    sweep = os.path.join(root, "sweep.json")
+    with open(sweep, "w") as f:
+        json.dump({"gamma": [0.4096, 2.0], "cfg": ["stylegan2", "stylegan3-r"]}, f)
+    defaults = json.dumps({"outdir": os.path.join(root, "runs"), "data": data, "batch": 32,
+                           "cbase": 16384, "glr": 0.0025, "dlr": 0.0025, "kimg": 5000,
+                           "snap": 50, "tick": 4, "mirror": 1, "aug": "ada"})
+    argv = [f"--sweep={sweep}", f"--out-dir={os.path.join(root, 'jobs')}",
+            f"--defaults={defaults}"]
+    print(f"phase 13: python -m gantrack_tpu_torch.tools.generate_jobs {shlex.join(argv)}")
+    scripts = timed("generate_jobs", generate_jobs.main, argv)
+    for path in scripts:
+        with open(path) as f:
+            command = shlex.split(f.read().split("set -e\n", 1)[1].replace("\\\n", " "))
+        if command[:3] != ["python", "-m", "gantrack_tpu_torch.tools.train"]:
+            raise AssertionError(f"{path}: {command[:3]}")
+        opts = cli.build_parser().parse_args(command[3:])
+        cli.check_slice(opts)
+        c = cli.resolve_config(opts)
+        if (c["batch_size"], c["G"]["channel_base"], c["num_devices"]) != (32, 16384, 1):
+            raise AssertionError(f"{path} resolved to {c}")
+    print(f"  {len(scripts)} scripts, each parsed, checked and resolved by the training CLI")
+    if len(scripts) != 4:
+        raise AssertionError(f"{len(scripts)} scripts for a 2 x 2 sweep")
+
+    # Run analysis on phase 2's run: the emitted metric loop's first line
+    # through calc_metrics in-process, then the trend and the best snapshot.
+    script = timed("emit_metric_loop", analysis.emit_metric_loop, claro_dir, data, "kid10k")
+    with open(script) as f:
+        lines = [line for line in f.read().splitlines() if "calc_metrics" in line]
+    checkpoints = analysis.checkpoints(claro_dir)
+    if len(lines) != len(checkpoints) or not checkpoints:
+        raise AssertionError(f"{len(lines)} calc_metrics lines for checkpoints {checkpoints}")
+    words = shlex.split(lines[0])
+    print(f"phase 13: {lines[0]}")
+    results = timed("calc_metrics (emitted)", calc_metrics.main, words[3:])
+    trend = analysis.metric_trend(claro_dir, "kid10k")
+    best = analysis.best_snapshot(claro_dir, "kid10k")
+    if not best or not best[0].endswith(".pt") or not os.path.isfile(best[0]):
+        raise AssertionError(f"best_snapshot named {best}")
+    removed = analysis.clean_run_dir(claro_dir, dry_run=True, metric="kid10k")
+    if len(removed) != max(len(checkpoints) - 1, 0) or analysis.checkpoints(claro_dir) != \
+            checkpoints:
+        raise AssertionError(f"clean_run_dir (dry run) removed {removed} of {checkpoints}")
+    print(f"  {results}; kid10k trend {[(os.path.basename(s), round(v, 6)) for s, v in trend]}; "
+          f"best {os.path.basename(best[0])} = {best[1]:.6f}; the dry-run clean-up would remove "
+          f"{len(removed)} of {len(checkpoints)} checkpoints (the latest stays)")
+
+    # The dashboard on localhost: one kimg a tick of stats.jsonl.
+    with open(os.path.join(claro_dir, "stats.jsonl")) as f:
+        ticks = sum(1 for line in f if line.strip())
+    httpd = stats_dashboard.serve(claro_dir, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        t = time.perf_counter()
+        page = urllib.request.urlopen(url + "/", timeout=30).read()
+        series = json.loads(urllib.request.urlopen(url + "/api/series", timeout=30).read())
+        walls["stats_dashboard"] = time.perf_counter() - t
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    if b"gantrack stats" not in page or len(series["kimg"]) != ticks or \
+            not any(v is not None for v in series["loss_g"]) or "kid10k" not in series["metrics"]:
+        raise AssertionError(f"dashboard: {len(series['kimg'])} kimg entries for {ticks} ticks, "
+                             f"metrics {list(series['metrics'])}")
+    print(f"  stats_dashboard on {url}: /api/series has {len(series['kimg'])} ticks as "
+          f"stats.jsonl, metrics {sorted(series['metrics'])}")
+
+    # Dataset reports on phase 11's volumes, slice pickles and split.
+    volumes = os.path.join(tmp, "volumes")
+    argv = [f"--source={os.path.join(volumes, 'raw')}",
+            f"--out={os.path.join(root, 'volume_stats.csv')}"]
+    print(f"phase 13: python -m gantrack_tpu_torch.tools.analyze_dataset {' '.join(argv)}")
+    report = timed("analyze_dataset", analyze_dataset.main, argv)
+    lo, hi = report["range"]["lower"], report["range"]["upper"]
+    if len(report["rows"]) != P11_PATIENTS or not -1024 <= lo < hi <= 3071:
+        raise AssertionError(f"analyze_dataset: {len(report['rows'])} volumes, range {lo}..{hi}")
+    (split,) = [os.path.join(volumes, "zipped", "train_val_test_ids", f)
+                for f in os.listdir(os.path.join(volumes, "zipped", "train_val_test_ids"))]
+    labels = os.path.join(root, "labels.csv")
+    with open(labels, "w") as f:
+        f.write("id,label\n" + "".join(f"P{p:03d},{'ab'[p % 2]}\n" for p in range(P11_PATIENTS)))
+    argv = [f"--patients-dir={os.path.join(volumes, 'pickles')}", f"--labels={labels}",
+            f"--split-file={split}", f"--out-dir={os.path.join(root, 'labels')}"]
+    print(f"phase 13: python -m gantrack_tpu_torch.tools.create_label_files {' '.join(argv)}")
+    counts = timed("create_label_files", create_label_files.main, argv)
+    pickles = sum(len(files) for d, _, files in os.walk(os.path.join(volumes, "pickles"))
+                  if os.path.basename(d).startswith("P"))
+    if sum(counts.values()) != pickles:
+        raise AssertionError(f"create_label_files labelled {counts} of {pickles} slices")
+    print(f"  {len(report['rows'])} volumes, pooled p1..p99 [{lo:.1f}, {hi:.1f}] HU; labels "
+          f"{counts} of {pickles} slice pickles")
+
+    # The claro TIFF stage.
+    t = time.perf_counter()
+    src, info, box_file, kept = _raw_claro_tree(os.path.join(root, "claro"),
+                                                np.random.default_rng(13))
+    walls["raw tree"] = time.perf_counter() - t
+    interim = os.path.join(root, "claro", "interim")
+    argv = [f"--source={src}", f"--dest={interim}", f"--patients-info={info}",
+            f"--box-file={box_file}", f"--resolution={P11_RES}"]
+    print(f"phase 13: python -m gantrack_tpu_torch.tools.prepare_dataset {' '.join(argv)}")
+    timed("prepare_dataset", prepare_dataset.main, argv)
+    written = sorted(os.listdir(os.path.join(interim, "images")))
+    if len(written) != kept:
+        raise AssertionError(f"prepare_dataset wrote {len(written)} slices of {kept} with a box")
+    # prepare_dataset writes the slices flat; process_tiff reads a directory
+    # a patient, so they are linked into one a patient (as the JAX tools
+    # are chained), and its HU range is the [0, 255] the slices are now in.
+    by_patient = os.path.join(root, "claro", "by_patient")
+    for name in written:
+        os.makedirs(os.path.join(by_patient, name.split("_")[0]), exist_ok=True)
+        os.link(os.path.join(interim, "images", name),
+                os.path.join(by_patient, name.split("_")[0], name))
+    paths = {"by_patient": by_patient}
+    for step, source, dest, flags in (
+            ("process_tiff", "by_patient", "pickles",
+             [f"--resolution={P11_RES}", "--hu-min=0", "--hu-max=255"]),
+            ("snap_zip", "pickles", "zipped", []),
+            ("pack", "zip", "packed", ["--modalities=CT"])):
+        paths[dest] = os.path.join(root, "claro", dest)
+        argv = [f"--processing_step={step}", f"--source={paths[source]}",
+                f"--dest={paths[dest]}", *flags]
+        print(f"phase 13: python -m gantrack_tpu_torch.tools.dataset_tool {' '.join(argv)}")
+        timed(step, dataset_tool.main, argv)
+        if step == "snap_zip":
+            (paths["zip"],) = [os.path.join(paths[dest], f) for f in os.listdir(paths[dest])
+                               if f.endswith(".zip")]
+    with open(os.path.join(paths["zipped"], "train_val_test_ids",
+                           os.path.basename(paths["zip"])[:-4] + ".json")) as f:
+        train_patients = [p for p in json.load(f)["train"] if p.startswith("C")]
+    want = sum(n.startswith(tuple(f"{p}_" for p in train_patients)) for n in written)
+    dataset = open_dataset(paths["packed"])
+    img = np.asarray(dataset[0][0], np.float64)
+    if (len(dataset), dataset.resolution, dataset.num_channels) != (want, P11_RES, 1) or \
+            not np.isfinite(img).all() or not 0 <= img.min() < img.max() <= 255:
+        raise AssertionError(f"packed claro set: {len(dataset)} items at {dataset.resolution}^2 "
+                             f"x {dataset.num_channels}, pixels {img.min()}..{img.max()}; want "
+                             f"{want} at {P11_RES}^2 x 1 in [0, 255]")
+    print(f"  claro TIFF stage: {P13_PATIENTS * P13_SLICES} raw slices {P13_RAW}^2 float32 HU, "
+          f"{kept} with a box → {len(written)} TIFFs {P11_RES}^2 → pickles → zip → packed train "
+          f"split of {len(dataset)} slices ({len(train_patients)} patients), "
+          f"{dataset.resolution}^2 x {dataset.num_channels}, pixels {img.min():.1f}..{img.max():.1f}")
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s wall; by tool (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()) + f"; on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -3270,16 +3651,18 @@ def main() -> int:
         parallel = timed("phase 9", run_data_parallel, card, tmp, data)
         timed("phase 10", run_i2i, card, tmp)
         resumed = timed("phase 11", run_volume_route, card, tmp, run_dir)
+        sg3r = timed("phase 12", train_stylegan3r, card, tmp, data)
+        timed("phase 13", run_tools, card, tmp, data, run_dir)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall since the build began")
     # Launches on the main paths: the claro run, the StyleGAN3 run with its
     # metrics, the unfused augment steps, the probes' run, the kernel-route
     # steps, the metric-async run, the generation leg, the data-parallel
-    # run and the run resumed from a pickle with its tools, each counted
-    # from 0.
+    # run, the run resumed from a pickle with its tools and the StyleGAN3-R
+    # steps, each counted from 0.
     paths = {"claro": claro, "stylegan3-t": sg3, "unfused augment": unfused, "probes": probed,
              "kernel conv route": routed, "claro, metric-async": asynced,
              "generation": generated, "claro, NCCL world 1": parallel,
-             "claro, resumed from a NVIDIA pickle": resumed}
+             "claro, resumed from a NVIDIA pickle": resumed, "stylegan3-r": sg3r}
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     print("kernel launches by main path: "
           + "; ".join(f"{name} { {k: n for k, n in counts.items() if n} }"
@@ -3294,9 +3677,10 @@ def main() -> int:
                    if m.split(".")[0] in ("gantrack_tpu", "jax", "flax", "optax", "orbax")]
     if jax_modules:
         raise AssertionError(f"the port imported JAX or the JAX package: {sorted(jax_modules)[:5]}")
-    # Nor what the card machine lacks (a function may import PIL or PyYAML
-    # where they are installed; no path of this run needs them).
-    missing = [m for m in sys.modules if m.split(".")[0] in ("click", "PIL", "yaml")]
+    # Nor what the card machine lacks (a function may import PIL, PyYAML or
+    # pandas where they are installed; no path of this run needs them).
+    missing = [m for m in sys.modules
+               if m.split(".")[0] in ("click", "PIL", "yaml", "pandas", "cv2")]
     if missing:
         raise AssertionError(f"the run imported {sorted(missing)[:5]}")
     print(json.dumps({"kernels": report}))

@@ -229,7 +229,8 @@ def _rle_decode(fragment: bytes, rows: int, cols: int, nbytes: int) -> np.ndarra
 
 
 class MissingCodecError(ImportError):
-    """A transfer syntax whose codec (PIL) is not installed."""
+    """An image form the port does not decode, whose decoder (PIL) is not
+    installed: a DICOM transfer syntax here, a TIFF form in ``tiff.py``."""
 
 
 def _decode_encapsulated(kind: str, frags: List[bytes], rows: int, cols: int,

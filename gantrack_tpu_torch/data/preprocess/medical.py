@@ -6,12 +6,14 @@ The port's own copy of ``gantrack_tpu/data/preprocess/medical.py`` (framework-fr
 Capability parity with the reference
 ``genlib/utils/util_medical_data.py:23-134`` and
 ``src/data/dataset_tool_mi.py:882-1001``: square bounding-box extraction
-with zero-padding, cv2 resize, HU clipping, and min-max normalisation —
-the stages BASELINE config 1 requires bit-exactly.
+with zero-padding, bilinear resize, HU clipping, and min-max
+normalisation — the stages BASELINE config 1 requires bit-exactly.
 
-All functions are pure NumPy/cv2 host code (offline preprocessing is
-CPU-bound IO, not a TPU workload); the fused jittable variant used for
-on-the-fly augmentation lives in ``transforms.py``.
+All functions are NumPy/SciPy host code.  The JAX module resizes with
+OpenCV (``cv2.resize``); the port needs no OpenCV, and resizes with
+:func:`resize_bilinear`, OpenCV's float64 bilinear path to the bit
+(``tests/test_torch_preprocess.py`` holds it to ``cv2.resize``), so a
+slice is resized alike wherever the port runs.
 """
 
 from __future__ import annotations
@@ -86,6 +88,61 @@ def normalize(
     return img
 
 
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """``a * b + c`` rounded once (a fused multiply-add) in float64, from
+    error-free transformations: the exact product (Dekker), the exact sum
+    with ``c`` (Knuth), their tails added with rounding to odd, then one
+    rounding to nearest (Boldo and Melquiond, "Emulation of FMA and
+    correctly rounded sums", IEEE TC 2008).  Exact for the magnitudes of
+    image samples (no overflow, no subnormal products)."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(v, np.float64) for v in (a, b, c)))
+    split = 134217729.0  # 2**27 + 1
+
+    def halves(x):
+        t = split * x
+        hi = t - (t - x)
+        return hi, x - hi
+
+    p = a * b
+    (ah, al), (bh, bl) = halves(a), halves(b)
+    p_err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = c + p
+    bv = s - c
+    s_err = (c - (s - bv)) + (p - bv)
+    # Round to odd: the nearest sum of the tails, moved one unit toward
+    # the exact sum where it is inexact and its last bit even.
+    v = s_err + p_err
+    vb = v - s_err
+    v_err = (s_err - (v - vb)) + (p_err - vb)
+    even = (v.view(np.int64) & 1) == 0
+    v = np.where((v_err != 0) & even, np.nextafter(v, np.where(v_err > 0, np.inf, -np.inf)), v)
+    return s + v
+
+
+def _bilinear_axis(n: int, m: int):
+    """Source rows (or columns) and weights of an ``n`` → ``m`` axis:
+    the centre of output ``d`` maps to ``(d + 0.5) * n / m - 0.5``, which
+    is clamped at the borders."""
+    f = _fma(np.arange(m) + 0.5, np.float64(n / m), np.float64(-0.5))
+    s = np.floor(f).astype(np.int64)
+    t = np.where((s < 0) | (s >= n - 1), 0.0, f - s)
+    return np.clip(s, 0, n - 1), np.clip(s + 1, 0, n - 1), t
+
+
+def resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
+    """``cv2.resize(img, (size, size))`` (``INTER_LINEAR``) of a float64
+    ``[H, W]`` image with both sides resized, to the bit: each row
+    interpolated as ``fma(x1 - x0, t, x0)``, then each column of the
+    result so, in OpenCV's order."""
+    if img.dtype != np.float64 or img.ndim != 2:
+        raise ValueError(f"resize_bilinear takes a float64 [H, W] image, not {img.dtype} "
+                         f"{img.shape}")
+    x0, x1, tx = _bilinear_axis(img.shape[1], size)
+    y0, y1, ty = _bilinear_axis(img.shape[0], size)
+    rows = _fma(img[:, x1] - img[:, x0], tx, img[:, x0])
+    return _fma(rows[y1] - rows[y0], ty[:, None], rows[y0])
+
+
 def load_slice(
     img: np.ndarray,
     img_dim: int,
@@ -97,15 +154,13 @@ def load_slice(
     perc_border: float = 0.5,
 ) -> np.ndarray:
     """The claro per-slice pipeline (``util_medical_data.py:111-134``):
-    box-crop (border 0.5) → cv2 resize to ``img_dim``² → clip HU →
-    normalise.  Takes the decoded HxW array; returns HxW float64 (or
-    uint8)."""
-    import cv2
-
+    box-crop (border 0.5) → bilinear resize to ``img_dim``² → clip HU →
+    normalise.  Takes the decoded HxW float64 array; returns HxW float64
+    (or uint8)."""
     if box is not None:
         img = get_box(img, box, perc_border=perc_border)
     if img_dim != img.shape[0]:
-        img = cv2.resize(img, (img_dim, img_dim))
+        img = resize_bilinear(img, img_dim)
     if clip is not None:
         img = np.clip(img, clip["min"], clip["max"])
     if scale is not None:

@@ -16,8 +16,10 @@ Processing steps (``--processing_step``), mirroring
 * ``mask_nifti``            — body-mask extraction.
 * ``process_tiff``          — claro per-slice TIFF/PNG path: box crop →
   resize → clip → normalise (BASELINE config 1).  PNG slices (8- or
-  16-bit grayscale) are read by the port's PNG decoder; TIFF needs PIL,
-  and raises :class:`MissingCodecError` without it.
+  16-bit grayscale) are read by the port's PNG decoder, TIFF slices by
+  its TIFF decoder (``data/preprocess/tiff.py``); a TIFF form that
+  decoder refuses needs PIL, and raises :class:`MissingCodecError`
+  without it.
 * ``snap_pickle``           — slice volumes to per-patient pickles.
 * ``snap_zip``              — deterministic patient split + zip packaging.
 * ``pack``                  — the sharded-memmap training format
@@ -27,7 +29,7 @@ Processing steps (``--processing_step``), mirroring
 Each invocation allocates a run dir under ``<dest>/runs``, snapshots the
 YAML config (read without PyYAML where it is absent: ``utils.config``)
 and tees its output to ``log.txt`` (reference ``:1031-1047``).  Runs on
-the host; it needs neither ``click`` nor ``PIL`` for any step but TIFF.
+the host; it needs neither ``click`` nor ``PIL``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..data.preprocess.dicom import MissingCodecError
+
 STEPS = [
     "process_dicom_2_nifti",
     "process_nifti_resized",
@@ -53,23 +57,30 @@ STEPS = [
 ]
 
 
-class MissingCodecError(ImportError):
-    """An image format whose decoder (PIL) is not installed."""
-
-
 def read_slice_image(path: str) -> np.ndarray:
-    """One slice image: a PNG through ``utils.checkpoint.decode_png``, any
-    other format (TIFF) through PIL, as the JAX tool reads it."""
+    """One slice image: a PNG through ``utils.checkpoint.decode_png``, a
+    TIFF through the port's decoder (``data/preprocess/tiff.py``).  A TIFF
+    that decoder refuses, and any other format, is read by PIL, as the JAX
+    tool reads every slice; without PIL that raises
+    :class:`MissingCodecError`, naming what was refused."""
     if path.lower().endswith(".png"):
         from ..utils.checkpoint import decode_png
 
         with open(path, "rb") as f:
             return decode_png(f.read())
+    refused = "not a PNG or TIFF"
+    if path.lower().endswith((".tif", ".tiff")):
+        from ..data.preprocess import tiff
+
+        try:
+            return tiff.read_tiff(path)
+        except MissingCodecError as e:
+            refused = str(e)
     try:
         from PIL import Image
     except ImportError:
-        raise MissingCodecError(f"{path}: TIFF slices need PIL, which is not installed; "
-                                f"PNG slices are read without it") from None
+        raise MissingCodecError(f"{path}: {refused}, and PIL, which reads more TIFF forms and "
+                                f"formats, is not installed") from None
     return np.asarray(Image.open(path))
 
 
@@ -236,9 +247,8 @@ def step_mask(source: str, dest: str, method: str = "epi") -> None:
 def step_process_tiff(source: str, dest: str, resolution: int,
                       hu_min: float, hu_max: float) -> None:
     """claro path: per-slice TIFF/PNG → box-crop → resize → clip →
-    normalise → per-patient pickles (reference ``:882-1001``).  PNG slices
-    are read by the port's own decoder; TIFF needs PIL
-    (:func:`read_slice_image`)."""
+    normalise → per-patient pickles (reference ``:882-1001``).  Slices are
+    read by the port's own decoders (:func:`read_slice_image`)."""
     from ..data.preprocess.medical import load_slice
 
     os.makedirs(dest, exist_ok=True)

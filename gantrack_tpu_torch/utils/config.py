@@ -13,6 +13,10 @@ block and flow lists, flow mappings such as ``{min: -1000, max: 1000}``,
 plain and quoted scalars (YAML 1.1 ints, floats, booleans and nulls) and
 comments.  Anything else (anchors, tags, block scalars, documents,
 mappings inside list items, ...) raises :class:`YamlSubsetError`.
+
+:func:`read_excel` and :func:`write_excel` are the research tools' one
+route to ``.xlsx``/``.xls`` tables: pandas and its Excel engine, imported
+when a table is read or written, or :class:`MissingPackageError`.
 """
 
 from __future__ import annotations
@@ -23,8 +27,8 @@ import re
 import sys
 from typing import Any, List, Optional, Tuple
 
-__all__ = ["EasyDict", "Logger", "YamlSubsetError", "allocate_run_dir", "dump_options",
-           "load_yaml", "parse_yaml_subset"]
+__all__ = ["EasyDict", "Logger", "MissingPackageError", "YamlSubsetError", "allocate_run_dir",
+           "dump_options", "load_yaml", "parse_yaml_subset", "read_excel", "write_excel"]
 
 
 class EasyDict(dict):
@@ -276,6 +280,40 @@ def allocate_run_dir(outdir: str, desc: str) -> str:
 def dump_options(run_dir: str, options: dict, name: str = "training_options.json") -> None:
     with open(os.path.join(run_dir, name), "wt") as f:
         json.dump(options, f, indent=2, default=repr)
+
+
+class MissingPackageError(ImportError):
+    """A table format whose reader or writer (pandas with openpyxl) is not
+    installed."""
+
+
+def _excel(path: str):
+    """pandas and the Excel engine of ``path``'s suffix (openpyxl for
+    ``.xlsx``, xlrd for ``.xls``), or :class:`MissingPackageError`."""
+    import importlib
+
+    engine = "xlrd" if path.lower().endswith(".xls") else "openpyxl"
+    try:
+        import pandas as pd
+
+        importlib.import_module(engine)
+    except ImportError as e:
+        raise MissingPackageError(f"{path}: Excel tables need pandas and {engine}, and {e.name} "
+                                  f"is not installed; use .csv instead") from None
+    return pd, engine
+
+
+def read_excel(path: str, **kwargs):
+    """``pandas.read_excel(path, **kwargs)``, or :class:`MissingPackageError`."""
+    pd, engine = _excel(path)
+    return pd.read_excel(path, engine=engine, **kwargs)
+
+
+def write_excel(path: str, rows: List[dict]) -> None:
+    """``rows`` as a sheet of ``path`` (no index column), or
+    :class:`MissingPackageError`."""
+    pd, engine = _excel(path)
+    pd.DataFrame(rows).to_excel(path, index=False, engine=engine)
 
 
 class Logger:

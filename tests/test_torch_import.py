@@ -5,8 +5,8 @@ Checked in a fresh interpreter with ``JAX_PLATFORMS`` unset: after
 importing a module of the port, no module whose top-level name is
 ``gantrack_tpu`` (or a forbidden package) is in ``sys.modules``; the
 port keeps its own copies of that package's framework-free modules.  In
-the sources, no import statement names a forbidden package, but for PIL
-and PyYAML inside a function.
+the sources, no import statement names a forbidden package, but for PIL,
+PyYAML and pandas inside a function.
 ``chip_smoke.py`` imports only the port, and without a CUDA device it
 fails and prints no result.
 """
@@ -19,15 +19,17 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("gantrack_tpu", "jax", "flax", "optax", "orbax", "click", "PIL", "psutil", "yaml")
+FORBIDDEN = ("gantrack_tpu", "jax", "flax", "optax", "orbax", "click", "PIL", "psutil", "yaml",
+             "pandas", "cv2")
 # Imported only inside the function that needs them (a plot, a GIF), never
 # when a module is imported.
 LAZY = ("matplotlib", "imageio")
 # Of the forbidden packages, those a function may import for a format or a
-# reader that only they give (PIL: JPEG / JPEG 2000 DICOM and TIFF slices;
-# PyYAML: YAML beyond the subset read without it), raising a named error
-# where they are absent; never at the top of a module.
-INSIDE_A_FUNCTION = ("PIL", "yaml")
+# reader that only they give (PIL: JPEG / JPEG 2000 DICOM and the TIFF forms
+# the port's decoder refuses; PyYAML: YAML beyond the subset read without
+# it; pandas: .xlsx tables), raising a named error where they are absent;
+# never at the top of a module.
+INSIDE_A_FUNCTION = ("PIL", "yaml", "pandas")
 
 
 @pytest.mark.parametrize("module", [
@@ -80,6 +82,14 @@ INSIDE_A_FUNCTION = ("PIL", "yaml")
     "gantrack_tpu_torch.data.preprocess.dicom",
     "gantrack_tpu_torch.data.preprocess.medical",
     "gantrack_tpu_torch.data.preprocess.packaging",
+    "gantrack_tpu_torch.data.preprocess.tiff",
+    "gantrack_tpu_torch.utils.stats_tests",
+    "gantrack_tpu_torch.tools.analysis",
+    "gantrack_tpu_torch.tools.analyze_dataset",
+    "gantrack_tpu_torch.tools.stats_dashboard",
+    "gantrack_tpu_torch.tools.create_label_files",
+    "gantrack_tpu_torch.tools.prepare_dataset",
+    "gantrack_tpu_torch.tools.generate_jobs",
 ])
 def test_port_imports_no_jax(module):
     env = {k: v for k, v in os.environ.items()

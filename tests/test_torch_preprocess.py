@@ -249,6 +249,24 @@ def test_medical_copy_is_bit_equal(fn):
               j_medical.resample_volume(vol, (1.0, 1.0, 3.0), 2.0))
 
 
+@pytest.mark.parametrize("shape,size", [((512, 512), 256), ((433, 433), 256), ((200, 200), 256),
+                                        ((2, 2), 17), ((37, 29), 16), ((96, 80), 64),
+                                        ((1024, 1024), 255)])
+def test_resize_bilinear_is_cv2_to_the_bit(shape, size, monkeypatch):
+    """The port's resize (no OpenCV on the card machine) against
+    ``cv2.resize``, which the JAX ``load_slice`` calls, on HU-range
+    float64 samples; ``load_slice`` runs with cv2 hidden."""
+    import cv2
+
+    img = np.random.default_rng(size).uniform(-1024, 3071, shape)
+    _same(t_medical.resize_bilinear(img, size), cv2.resize(img, (size, size)))
+    want = j_medical.load_slice(img.copy(), img_dim=size, clip={"min": -1000, "max": 1000})
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    _same(t_medical.load_slice(img.copy(), img_dim=size, clip={"min": -1000, "max": 1000}), want)
+    with pytest.raises(ValueError, match="float64"):
+        t_medical.resize_bilinear(img.astype(np.float32), size)
+
+
 # --------------------------------------------------------------- packaging
 
 
@@ -474,14 +492,17 @@ def test_dataset_tool_reads_the_config_without_yaml(tmp_path, monkeypatch):
 
 
 def test_dataset_tool_tiff_needs_pil(tmp_path, monkeypatch):
+    """A TIFF form the port's decoder refuses (here RGB) needs PIL, and
+    names what was refused without it; grayscale TIFFs are read without PIL
+    (``tests/test_torch_tools.py``)."""
     from gantrack_tpu_torch.tools import dataset_tool
 
     os.makedirs(tmp_path / "src" / "P0")
     from PIL import Image
 
-    Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / "src" / "P0" / "a.tif")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "src" / "P0" / "a.tif")
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(dataset_tool.MissingCodecError, match="TIFF"):
+    with pytest.raises(dataset_tool.MissingCodecError, match=r"TIFF SamplesPerPixel .* = 3"):
         dataset_tool.main(["--processing_step=process_tiff", f"--source={tmp_path / 'src'}",
                            f"--dest={tmp_path / 'out'}"])
 
