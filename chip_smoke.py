@@ -108,7 +108,7 @@ per source, all started together), then:
    build, in the largest chunk of 32, 16, 8, 4 that fits; from one state
    takes one +Dreg and three plain steps with D's input blur at sigma 10
    (61 taps), with host times, peak memory, the launches (K1, K2, K5–K7)
-   and the plain-route FIR calls (only ``SG3_R_PLAIN_ROUTE``, the blur
+   and the plain-route FIR calls (only ``SG3_R_PLAIN_REASONS``, the blur
    among them), profiles one step of each variant, and loads a saved
    checkpoint into a fresh build bit for bit;
 13. drives the research tools on the host: ``generate_jobs`` (a 2 × 2
@@ -192,7 +192,7 @@ CONV_SHAPES = [
 # up 2, D conv1 down 2) and stay on the library under conv_impl="kernel",
 # as ``conv3x3.library_reason`` words them.  The 1x1 layers (to/from RGB,
 # skips) take no conv_impl at all.
-CLARO_LIBRARY_ROUTE = ("up=2, down=1", "up=1, down=2")
+CLARO_LIBRARY_REASONS = ("up=2, down=1", "up=1, down=2")
 EVERY_AUG_OPT = ("xflip,rotate90,xint,scale,rotate,aniso,xfrac,brightness,contrast,lumaflip,hue,"
                  "saturation,imgfilter,noise,cutout")
 SG3_ARGS = [
@@ -202,12 +202,12 @@ SG3_ARGS = [
 ]
 # The only upfirdn2d calls of StyleGAN3-T that no FIR kernel covers (the
 # reason as ``fir.fir_spec`` words it): the x4 up-filters of its layers.
-SG3_T_PLAIN_ROUTE = ("up=4, down=1",)
+SG3_T_PLAIN_REASONS = ("up=4, down=1",)
 # Those of StyleGAN3-R: its radial (2-D) down-filters, D's input blur at its
 # initial sigma of 10 (61 taps; it fades over 200 kimg) and the x4
 # up-filters (``fir.fir_spec``'s words; a step of -r at 256^2 and narrow widths on the CPU
 # takes these three and no other).
-SG3_R_PLAIN_ROUTE = ("2-D filter, not separable", "61 x 61 taps (at most 32 per axis)",
+SG3_R_PLAIN_REASONS = ("2-D filter, not separable", "61 x 61 taps (at most 32 per axis)",
                      "up=4, down=1")
 # The FIR calls of phase 1: name, [N, C, H, W], dtype of the step, then
 # the upfirdn2d arguments.  The first of each form is the one the kernel
@@ -344,29 +344,57 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _reset(*counters) -> None:
-    for counter in counters:
-        for k in counter:
-            counter[k] = 0
+# The probes' kernels, as ``probes.launch/<probe>`` counts them.
+PROBES = ("probe_matmul", "probe_halo_tile", "probe_padded_tile", "probe_ring", "probe_concat",
+          "probe_row_slice")
+# The program's recorder (``utils.profiling``) that counts the kernels'
+# launches and the routes for these checks: installed at first use, for
+# the rest of the process.
+_RECORDING: list = []
 
 
-def _kernel_counters() -> list:
-    from gantrack_tpu_torch.ops import conv3x3 as c3
-    from gantrack_tpu_torch.ops import fir, probes
-    from gantrack_tpu_torch.ops import upwarp as uw
-    from gantrack_tpu_torch.ops import warp as wp
+def _recorder():
+    from gantrack_tpu_torch.utils import profiling
 
-    return [uw.LAUNCHES, fir.LAUNCHES, wp.LAUNCHES, c3.LAUNCHES, c3.VARIANTS, probes.LAUNCHES]
+    if not _RECORDING:
+        context = profiling.recording()
+        _RECORDING.append((context, context.__enter__()))
+    return _RECORDING[0][1]
 
 
 def _reset_launches() -> None:
     """Every kernel's count, and the plain- and library-route counts, to 0."""
-    from gantrack_tpu_torch.ops import conv3x3 as c3
-    from gantrack_tpu_torch.ops import fir
+    rec = _recorder()
+    rec.counters.clear()
+    rec.spans.clear()
 
-    _reset(*_kernel_counters())
-    fir.PLAIN_ROUTE.clear()
-    c3.LIBRARY_ROUTE.clear()
+
+def _launch_counts() -> dict:
+    """The kernels' launches since the last reset: ``upwarp``, ``upsplat``,
+    ``fir_<form>``, ``warp``, ``splat``, ``conv3x3``, ``wgrad3x3``, each
+    conv3x3 variant (``<wrapper>:<variant>``) and each probe, 0 for those
+    not launched."""
+    from gantrack_tpu_torch.ops import conv3x3 as c3
+
+    rec = _recorder()
+    counts = dict.fromkeys(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2", "warp",
+                            "splat", "conv3x3", "wgrad3x3", *c3.VARIANTS, *PROBES), 0)
+    for prefix, head in (("upwarp.launch", ""), ("fir.launch", "fir_"), ("warp.launch", ""),
+                         ("conv3x3.launch", ""), ("conv3x3.variant", ""), ("probes.launch", "")):
+        counts.update({head + k: n for k, n in rec.under(prefix).items()})
+    return counts
+
+
+def _plain_route() -> dict:
+    """The ``upfirdn2d`` calls that took the plain version since the last
+    reset, by reason."""
+    return _recorder().under("upfirdn2d.plain_route")
+
+
+def _library_route() -> dict:
+    """The ``conv_impl="kernel"`` calls that stayed on the library since
+    the last reset, by reason."""
+    return _recorder().under("conv3x3.library_route")
 
 
 def _read_launches(must_run, plain_route=(), library_route=None) -> dict:
@@ -377,20 +405,17 @@ def _read_launches(must_run, plain_route=(), library_route=None) -> dict:
     contract).  ``library_route`` is None for a path on the default
     ``conv_impl="library"``, which must launch no conv3x3 kernel; on the
     kernel route it names the only reasons a conv may stay on the library."""
-    from gantrack_tpu_torch.ops import conv3x3 as c3
-    from gantrack_tpu_torch.ops import fir
-
-    counts = {k: n for counter in _kernel_counters() for k, n in counter.items()}
+    counts = _launch_counts()
     for k in must_run:
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by this run: {counts}")
-    if not set(fir.PLAIN_ROUTE) <= set(plain_route):
+    if not set(_plain_route()) <= set(plain_route):
         raise AssertionError(f"FIR calls left the kernels for the plain version: "
-                             f"{fir.PLAIN_ROUTE}; allowed on this path: {list(plain_route)}")
-    if library_route is None and (counts["conv3x3"] or counts["wgrad3x3"] or c3.LIBRARY_ROUTE):
+                             f"{_plain_route()}; allowed on this path: {list(plain_route)}")
+    if library_route is None and (counts["conv3x3"] or counts["wgrad3x3"] or _library_route()):
         raise AssertionError(f"the default conv route launched conv3x3 kernels: {counts}")
-    if not set(c3.LIBRARY_ROUTE) <= set(library_route or ()):
-        raise AssertionError(f"convs left the kernel route for the library: {c3.LIBRARY_ROUTE}; "
+    if not set(_library_route()) <= set(library_route or ()):
+        raise AssertionError(f"convs left the kernel route for the library: {_library_route()}; "
                              f"allowed on this path: {list(library_route)}")
     return counts
 
@@ -1211,7 +1236,7 @@ def check_conv3x3(card: str) -> dict:
         if step_dtype == "bf16" and (v8, v9) != ("wgmma", "wgmma"):
             raise AssertionError(f"a bf16 shape of the claro step left the wgmma kernels: "
                                  f"{c3.wgmma_reason(x.shape, dtype)}")
-        _reset(c3.VARIANTS)
+        _reset_launches()
         ref = c3.conv3x3_plain(x.float(), w.float())
         err8 = _max_err(c3.conv3x3(x, w), ref)
         _check(f"K8 {step_dtype} ({v8}) vs plain", err8, rel * float(ref.abs().max()))
@@ -1223,7 +1248,7 @@ def check_conv3x3(card: str) -> dict:
         print(f"  K9 bitwise deterministic over two calls: {same}")
         if not same:
             raise AssertionError("K9 is not bitwise deterministic")
-        ran = {k: n for k, n in c3.VARIANTS.items() if n}
+        ran = {k: n for k, n in _launch_counts().items() if ":" in k and n}
         if ran != {f"conv3x3:{v8}": 1, f"wgrad3x3:{v9}": 2}:
             raise AssertionError(f"the launches took other variants than the shape picks: {ran}")
         if step_dtype == "bf16":
@@ -1531,15 +1556,13 @@ def _step_times(stepper, state, real_img, real_c, variants, plain_route=(),
     the main path's count was read)."""
     import torch
 
-    from gantrack_tpu_torch.ops import fir
-
     out = {}
     for label, flags in variants:
         _reset_launches()
         stepper.run(state, real_img, real_c, *flags)
         print(f"  kernel launches of one {label} step: "
               f"{ {k: n for k, n in _read_launches((), plain_route, library_route).items() if n} }"
-              f"; plain-route FIR calls {dict(fir.PLAIN_ROUTE)}")
+              f"; plain-route FIR calls {_plain_route()}")
         times = []
         for i in range(reps):
             torch.cuda.synchronize()
@@ -1677,13 +1700,23 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
     not counted, so the share is a lower bound), of all hand-written
     kernels, of the conv3x3 pair K8/K9 among them, of each FIR form and of
     each warp kernel K1–K4.  Returns
-    {"total_ms", "rows": {label: ms}}."""
+    {"total_ms", "rows": {label: ms}}.  Also the host and the device
+    milliseconds of each phase of the step (the program's top-level spans,
+    ``utils.profiling``; the device's by the launches made inside them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from gantrack_tpu_torch.utils import profiling
+
+    with profiling.recording() as rec, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         stepper.run(state, real_img, real_c, *flags)
         torch.cuda.synchronize()
+    device, share = profiling.launched_device_us(rec.spans, prof)
+    phases = [f"{n} {(b - a) / 1e6:.1f} / {us / 1e3:.1f}"
+              for (n, parent, a, b, _, _), us in zip(rec.spans, device) if parent is None]
+    print(f"  phases of one {label} step, host / device ms (the device's by launch; "
+          f"{share!r} of its busy time launched in them): {', '.join(phases)}")
     rows = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -1723,7 +1756,6 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     import numpy as np
     import torch
 
-    from gantrack_tpu_torch.ops import fir
     from gantrack_tpu_torch.tools import calc_metrics
     from gantrack_tpu_torch.tools import train as cli
     from gantrack_tpu_torch.training.loop import to_device_batch
@@ -1743,12 +1775,12 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2", "warp"),
-                              SG3_T_PLAIN_ROUTE)
+                              SG3_T_PLAIN_REASONS)
     print(f"  CLI run: {seconds:.1f} s wall (incl. setup, image grids and the eq metrics) on "
           f"{card}; kernel launches {launches}")
     print(f"  upfirdn2d calls outside the FIR kernels' contract (plain route) in the run: "
-          f"{sum(fir.PLAIN_ROUTE.values())}, by reason {dict(fir.PLAIN_ROUTE)}")
-    if not fir.PLAIN_ROUTE:
+          f"{sum(_plain_route().values())}, by reason {_plain_route()}")
+    if not _plain_route():
         raise AssertionError("StyleGAN3's factor-4 filters did not take the plain route")
 
     with open(os.path.join(run_dir, "stats.jsonl")) as f:
@@ -1818,7 +1850,7 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     variants = (("plain", (False, False)), ("+Dreg", (False, True)))
     label = f"batch {batch} in {stepper.cfg.micro_batches} chunks of {batch_gpu}"
     torch.cuda.reset_peak_memory_stats()
-    times = _step_times(stepper, state, real_img, real_c, variants, SG3_T_PLAIN_ROUTE)
+    times = _step_times(stepper, state, real_img, real_c, variants, SG3_T_PLAIN_REASONS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for variant, ms in times.items():
         print(f"  step {variant}, {label}: median {ms:.1f} ms of 3 ({res}^2; "
@@ -1838,10 +1870,10 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     t0 = time.perf_counter()
     results = calc_metrics.main(argv)
     torch.cuda.synchronize()
-    launches = _read_launches(("fir_down2", "fir_up2"), SG3_T_PLAIN_ROUTE)
+    launches = _read_launches(("fir_down2", "fir_up2"), SG3_T_PLAIN_REASONS)
     print(f"  {results} in {time.perf_counter() - t0:.1f} s on {card}; kernel launches "
           f"{ {k: n for k, n in launches.items() if n} }; plain-route FIR calls "
-          f"{dict(fir.PLAIN_ROUTE)}")
+          f"{_plain_route()}")
     _metric_rows(run_dir, "fid1k")
     return run_dir, {k: trained[k] + launches[k] for k in trained}
 
@@ -1913,7 +1945,7 @@ def run_probe_path() -> dict:
     print("phase 6: probes.run_probes (the scripts' inputs: ones)")
     _reset_launches()
     sums = probes.run_probes("cuda")
-    launches = _read_launches(tuple(probes.LAUNCHES))
+    launches = _read_launches(PROBES)
     tile = 576.0 * 4 * probes.TH * probes.W * probes.C
     want = {"A halo-window-as-it-lies": tile, "B padded-window-shifted-reads": tile,
             "C two-slot-ring-dynslot": 4.0 * probes.TH * probes.W * probes.C,
@@ -1934,7 +1966,6 @@ def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
     over one step of each variant."""
     import torch
 
-    from gantrack_tpu_torch.ops import conv3x3 as c3
     from gantrack_tpu_torch.tools import train as cli
     from gantrack_tpu_torch.training.loop import to_device_batch
 
@@ -1965,7 +1996,7 @@ def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
         _reset_launches()
         first[route] = stepper.run(state, real_img, real_c, False, False)
         _read_launches(("conv3x3", "wgrad3x3") if route == "kernel" else (),
-                       library_route=CLARO_LIBRARY_ROUTE if route == "kernel" else None)
+                       library_route=CLARO_LIBRARY_REASONS if route == "kernel" else None)
     for key in ("Loss/G/loss", "Loss/D/loss", "Loss/scores/fake", "Loss/scores/real"):
         a, b = (float(first[r][key][1] / first[r][key][0]) for r in ("kernel", "library"))
         _check(f"first plain step, {key}: kernel route {a:.6f} vs library {b:.6f}", abs(a - b),
@@ -1977,7 +2008,7 @@ def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
     for label, flags in variants:
         _reset_launches()
         m = stepper.run(state, real_img, real_c, *flags)
-        counts = _read_launches(("conv3x3", "wgrad3x3"), library_route=CLARO_LIBRARY_ROUTE)
+        counts = _read_launches(("conv3x3", "wgrad3x3"), library_route=CLARO_LIBRARY_REASONS)
         for k, v in m.items():
             if not torch.isfinite(v).all():
                 raise AssertionError(f"kernel-route {label} step: non-finite {k}")
@@ -1990,7 +2021,7 @@ def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
                                  f"{by_variant}")
         print(f"  {label} step on the kernel route: conv3x3 {counts['conv3x3']}, wgrad3x3 "
               f"{counts['wgrad3x3']} launches, by variant {by_variant}; losses finite; convs left "
-              f"to the library {dict(c3.LIBRARY_ROUTE)}")
+              f"to the library {_library_route()}")
     for label in ("+Greg", "+Dreg", "+Greg+Dreg"):
         for k in ("conv3x3", "wgrad3x3"):
             if per_variant[label][k] <= per_variant["plain"][k]:
@@ -1998,7 +2029,7 @@ def run_kernel_route(card: str, tmp: str, data: str, args=CLARO_ARGS):
                                      f"step: the second differentiation left the kernels")
 
     times = {route: _step_times(stepper, state, real_img, real_c, variants,
-                                library_route=CLARO_LIBRARY_ROUTE if route == "kernel" else None)
+                                library_route=CLARO_LIBRARY_REASONS if route == "kernel" else None)
              for route, (state, stepper, real_img, real_c) in runs.items()}
     for label, _ in variants:
         print(f"  step {label}: kernel route {times['kernel'][label]:.1f} ms, library route "
@@ -2183,19 +2214,19 @@ def compare_generation_routes(card: str, G, G3, vgg, target) -> None:
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
 
-    fir.PLAIN_ROUTE.clear()
+    _reset_launches()
     loss_k, grads_k, images_k = run()
-    if not set(fir.PLAIN_ROUTE) <= set(SG3_T_PLAIN_ROUTE):
-        raise AssertionError(f"FIR calls left the kernels: {fir.PLAIN_ROUTE}")
-    launch, launched = fir.fir_planes, dict(fir.LAUNCHES)
+    if not set(_plain_route()) <= set(SG3_T_PLAIN_REASONS):
+        raise AssertionError(f"FIR calls left the kernels: {_plain_route()}")
+    launch, launched = fir.fir_planes, _launch_counts()
     fir.fir_planes = lambda x, spec, **kw: fir.fir_plain(x.float(), spec).to(x.dtype)
     try:
         loss_p, grads_p, images_p = run()
     finally:
         fir.fir_planes = launch
-    if fir.LAUNCHES != launched:
+    if _launch_counts() != launched:
         raise AssertionError("the plain run launched FIR kernels")
-    fir.PLAIN_ROUTE.clear()
+    _reset_launches()
     _check("projector step loss, kernels vs plain (relative)", abs(loss_k - loss_p) / abs(loss_p),
            1e-3)
     _check(f"projector step gradients of w and {len(grads_k) - 1} noise buffers, kernels vs "
@@ -2373,7 +2404,7 @@ def run_generation(card: str, tmp: str, data: str, claro_dir: str, sg3_dir: str)
         raise AssertionError(f"PPL (force_fp32) {value32}")
     print(f"  C12: ppl of the claro checkpoint, seed {mopts.seed}, 2000 samples: {value:.6f} as "
           f"is (top 4 resolutions in bf16), {value32:.6f} with force_fp32=True, on {card}")
-    launches = _read_launches(("fir_same", "fir_down2", "fir_up2"), SG3_T_PLAIN_ROUTE)
+    launches = _read_launches(("fir_same", "fir_down2", "fir_up2"), SG3_T_PLAIN_REASONS)
     stop_recording()
     print(f"  kernel launches of the generation leg: "
           f"{ {k: n for k, n in launches.items() if n} }")
@@ -3272,14 +3303,13 @@ def train_stylegan3r(card: str, tmp: str, data: str, args=SG3_R_ARGS, res: int =
     of its parsed flags), gradients accumulated over the largest chunk
     that fits.  From one state, one +Dreg step, then three plain steps,
     each with the blur at sigma 10: host time, peak memory, the kernels'
-    launches and the plain-route FIR calls (only ``SG3_R_PLAIN_ROUTE``;
+    launches and the plain-route FIR calls (only ``SG3_R_PLAIN_REASONS``;
     the 61-tap blur must be one); then one profiled step of each variant
     (device time, the plain route's share); then a checkpoint saved and
     loaded into a fresh state of the CLI's build, bit for bit.  Returns
     the launch counts of the four steps."""
     import torch
 
-    from gantrack_tpu_torch.ops import fir
     from gantrack_tpu_torch.tools import train as cli
     from gantrack_tpu_torch.training.loop import to_device_batch
     from gantrack_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -3322,7 +3352,7 @@ def train_stylegan3r(card: str, tmp: str, data: str, args=SG3_R_ARGS, res: int =
     torch.cuda.reset_peak_memory_stats()
     times, counts = {}, {}
     for label, flags, reps in (("+Dreg", (False, True), 1), ("plain", (False, False), 3)):
-        before = {k: n for counter in _kernel_counters() for k, n in counter.items()}
+        before = _launch_counts()
         for _ in range(reps):
             state.cur_nimg = 0  # the blur at sigma 10, its 61 taps
             torch.cuda.synchronize()
@@ -3333,12 +3363,12 @@ def train_stylegan3r(card: str, tmp: str, data: str, args=SG3_R_ARGS, res: int =
             for k, v in moments.items():
                 if k.startswith("Loss/") and not torch.isfinite(v).all():
                     raise AssertionError(f"{label} step: non-finite {k} {v.tolist()}")
-        counts[label] = {k: (n - before[k]) / reps for counter in _kernel_counters()
-                         for k, n in counter.items() if n > before[k]}
+        counts[label] = {k: (n - before[k]) / reps for k, n in _launch_counts().items()
+                         if n > before[k]}
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2"),
-                              SG3_R_PLAIN_ROUTE)
-    plain = dict(fir.PLAIN_ROUTE)
+                              SG3_R_PLAIN_REASONS)
+    plain = _plain_route()
     blur = f"{2 * int(3 * SG3_R_BLUR_SIGMA) + 1} x {2 * int(3 * SG3_R_BLUR_SIGMA) + 1} taps"
     if not any(reason.startswith(blur) for reason in plain):
         raise AssertionError(f"D's input blur ({blur}) never took the plain route: {plain}")

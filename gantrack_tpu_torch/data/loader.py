@@ -24,6 +24,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
 from .dataset import GANDataset
 
 
@@ -260,19 +261,22 @@ class InfiniteLoader:
         return self
 
     def __next__(self) -> Tuple[np.ndarray, np.ndarray]:
-        if not self._threads:
-            return self._make_batch()
-        with self._cond:
-            while self._next_yield not in self._results:
-                if self._error is not None:
-                    raise RuntimeError(
-                        "InfiniteLoader worker failed while building batch "
-                        f"{self._next_yield}") from self._error
-                self._cond.wait(0.5)
-            batch = self._results.pop(self._next_yield)
-            self._next_yield += 1
-            self._cond.notify_all()
-        return batch
+        """The next batch (the span ``data.fetch``: the wait for it, or its
+        making where no worker runs)."""
+        with span("data.fetch"):
+            if not self._threads:
+                return self._make_batch()
+            with self._cond:
+                while self._next_yield not in self._results:
+                    if self._error is not None:
+                        raise RuntimeError(
+                            "InfiniteLoader worker failed while building batch "
+                            f"{self._next_yield}") from self._error
+                    self._cond.wait(0.5)
+                batch = self._results.pop(self._next_yield)
+                self._next_yield += 1
+                self._cond.notify_all()
+            return batch
 
     def close(self):
         self._stop.set()

@@ -6,9 +6,11 @@ any framework but cannot be imported without JAX: importing it runs
 which imports jax.  float64 raw mean and covariance, optional capture of
 all features, ``max_items`` clamping, pickle save and load.
 
-One change: :func:`cache_path` takes ``shim``, a token naming the
+Two changes: :func:`cache_path` takes ``shim``, a token naming the
 dataset pass's uint8 shim, into the key, so a changed shim gives a new
-cache file instead of reusing features computed under the old one.
+cache file instead of reusing features computed under the old one; and
+``FeatureStats.append`` is the span ``metric.sums``
+(:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import pickle
 from typing import Optional
 
 import numpy as np
+
+from ..utils.profiling import span
 
 
 class FeatureStats:
@@ -47,20 +51,23 @@ class FeatureStats:
         return self.max_items is not None and self.num_items >= self.max_items
 
     def append(self, x: np.ndarray):
-        x = np.asarray(x, dtype=np.float32)
-        assert x.ndim == 2
-        if self.max_items is not None and self.num_items + x.shape[0] > self.max_items:
-            if self.num_items >= self.max_items:
-                return
-            x = x[: self.max_items - self.num_items]
-        self.set_num_features(x.shape[1])
-        self.num_items += x.shape[0]
-        if self.capture_all:
-            self.all_features.append(x)
-        if self.capture_mean_cov:
-            x64 = x.astype(np.float64)
-            self.raw_mean += x64.sum(axis=0)
-            self.raw_cov += x64.T @ x64
+        """Counts the rows of ``x`` and keeps or sums them (the span
+        ``metric.sums``)."""
+        with span("metric.sums"):
+            x = np.asarray(x, dtype=np.float32)
+            assert x.ndim == 2
+            if self.max_items is not None and self.num_items + x.shape[0] > self.max_items:
+                if self.num_items >= self.max_items:
+                    return
+                x = x[: self.max_items - self.num_items]
+            self.set_num_features(x.shape[1])
+            self.num_items += x.shape[0]
+            if self.capture_all:
+                self.all_features.append(x)
+            if self.capture_mean_cov:
+                x64 = x.astype(np.float64)
+                self.raw_mean += x64.sum(axis=0)
+                self.raw_cov += x64.T @ x64
 
     def get_all(self) -> np.ndarray:
         assert self.capture_all

@@ -24,6 +24,12 @@ Only rank 0 writes the feature cache.
   come back to the host.
 * Statistics accumulate on the host in float64 (``feature_stats``), and
   FID's ``sqrtm`` is scipy host work, as in the JAX package.
+
+The generator pass marks its batches with spans (:mod:`..utils.profiling`),
+each with the pass's ``opts.seed`` as ``seed``: ``metric.generate`` (the
+generator callable), ``metric.detect`` (the detector), ``metric.fetch``
+(the features' copy to the host, which waits for the device) and, in
+``FeatureStats.append``, ``metric.sums``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.inception import bilinear_resize
+from ..utils.profiling import span
 from ..parallel.mesh import Mesh
 from .feature_stats import FeatureStats, cache_path
 
@@ -308,12 +315,16 @@ def compute_feature_stats_for_generator(opts: MetricOptions, capture_all: bool =
             z = sample_z(gen, bs, opts.z_dim, device)
             if rows is not None:
                 z, c = z[rows], (None if c is None else c[rows])
-            img = opts.generator(z, c)
+            with span("metric.generate", seed=opts.seed):
+                img = opts.generator(z, c)
             img = torch.floor(torch.clamp(img.float() * 127.5 + 128, 0, 255))
-            feats = opts.detector(to_detector_input(img, opts.mode_idx))
+            with span("metric.detect", seed=opts.seed):
+                feats = opts.detector(to_detector_input(img, opts.mode_idx))
             if mesh is not None:
                 feats = gather_rows(mesh, feats, bs)
-            stats.append(feats.cpu().numpy())
+            with span("metric.fetch", seed=opts.seed):
+                feats = feats.cpu().numpy()
+            stats.append(feats)
             if opts.progress and stats.max_items:
                 opts.progress(stats.num_items, stats.max_items)
     return stats

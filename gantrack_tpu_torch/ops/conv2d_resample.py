@@ -12,7 +12,7 @@ plain branch: ``"library"`` (the default: cuDNN through
 hand-written implicit-GEMM kernels, differentiable to every order through
 themselves).  Every other convolution (1×1, strided, transposed, grouped,
 asymmetric padding) is another function and stays on the library, counted
-by reason in ``conv3x3.LIBRARY_ROUTE``.
+by reason as ``conv3x3.library_route/<why>`` (:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ port's layout: ``x [N, Ci, H, W]``, ``w [Co, Ci, 3, 3]`` (NCHW / OIHW).
   float32 and are rounded once to ``x.dtype``.
 * On a CUDA tensor they launch the hand-written kernels of
   ``csrc/conv3x3.cu``, in the variant the static shape picks
-  (:func:`conv_variant`, :func:`wgrad_variant`; counted in ``VARIANTS``):
+  (:func:`conv_variant`, :func:`wgrad_variant`; counted by variant):
 
   - ``wgmma`` (bfloat16, ``W % 8 == 0``): warpgroup ``wgmma`` from a ring of
     shared-memory stages that TMA fills as NCHW lies, zero fill beyond the
@@ -39,37 +39,33 @@ port's layout: ``x [N, Ci, H, W]``, ``w [Co, Ci, 3, 3]`` (NCHW / OIHW).
 The contract (:func:`supported`) is wider than the JAX kernel's: any
 ``N, Ci, Co, H, W ≥ 1`` in bfloat16 or float32 (the width fold, the 128-lane
 rows and the VMEM budget were the TPU's).  Outside it the wrappers raise.
-``LAUNCHES`` counts kernel launches; ``LIBRARY_ROUTE`` counts, by reason, the
-calls of ``conv2d_resample(conv_impl="kernel")`` that are another function
-than a dense 3×3 stride-1 convolution and therefore stayed on the library
-convolution.
+Each kernel launch counts ``conv3x3.launch/<wrapper>`` and
+``conv3x3.variant/<wrapper>:<variant>`` in the installed recorder
+(:mod:`..utils.profiling`); ``conv3x3.library_route/<why>`` counts, by
+reason, the calls of ``conv2d_resample(conv_impl="kernel")`` that are
+another function than a dense 3×3 stride-1 convolution and therefore
+stayed on the library convolution.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import conv2d_gradfix
 from ._nvcc import check_rc, load_library
 
 __all__ = ["conv3x3", "wgrad3x3", "supported", "conv3x3_plain", "wgrad3x3_plain",
            "library_reason", "count_library_route", "wgmma_reason", "conv_variant",
-           "wgrad_variant", "wgrad_plan", "pack_weights", "LAUNCHES", "VARIANTS",
-           "LIBRARY_ROUTE"]
+           "wgrad_variant", "wgrad_plan", "pack_weights", "VARIANTS"]
 
-# Kernel launches per wrapper; bumped only where a kernel is launched.
-LAUNCHES = {"conv3x3": 0, "wgrad3x3": 0}
-# The same launches by the kernel variant that ran ("wrapper:variant").
-VARIANTS = {"conv3x3:wgmma": 0, "conv3x3:mma_sync": 0, "conv3x3:f32_tiled": 0,
-            "conv3x3:f32_flat": 0, "wgrad3x3:wgmma": 0, "wgrad3x3:mma_sync": 0,
-            "wgrad3x3:f32": 0}
-# ``conv2d_resample(conv_impl="kernel")`` calls outside the kernels'
-# contract, which took the library convolution: {why: calls}.
-LIBRARY_ROUTE: Dict[str, int] = {}
+# The kernel variants of each wrapper ("wrapper:variant").
+VARIANTS = ("conv3x3:wgmma", "conv3x3:mma_sync", "conv3x3:f32_tiled", "conv3x3:f32_flat",
+            "wgrad3x3:wgmma", "wgrad3x3:mma_sync", "wgrad3x3:f32")
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _INT_MAX = 2**31 - 1
@@ -128,7 +124,7 @@ def library_reason(x_shape, w_shape, dtype, up: int, down: int, padding, groups:
 
 def count_library_route(why: str) -> None:
     """Count one ``conv_impl="kernel"`` call that stayed on the library."""
-    LIBRARY_ROUTE[why] = LIBRARY_ROUTE.get(why, 0) + 1
+    profiling.count(f"conv3x3.library_route/{why}")
 
 
 def wgmma_reason(x_shape: Sequence[int], dtype) -> Optional[str]:
@@ -321,8 +317,8 @@ def _conv_launch(x: torch.Tensor, w: torch.Tensor, variant: Optional[str] = None
         rc = _lib().gantrack_conv3x3(x.data_ptr(), wp.data_ptr(), out.data_ptr(), n, ci, co, h, wd,
                                      _VARIANT_CODE[variant], stream)
     check_rc(rc, f"conv3x3 kernel ({variant})")
-    LAUNCHES["conv3x3"] += 1
-    VARIANTS[f"conv3x3:{variant}"] += 1
+    profiling.count("conv3x3.launch/conv3x3")
+    profiling.count(f"conv3x3.variant/conv3x3:{variant}")
     return out
 
 
@@ -347,8 +343,8 @@ def _wgrad_launch(x: torch.Tensor, g: torch.Tensor, variant: Optional[str] = Non
                                       plan["slices"], plan["images_per_tile"],
                                       _VARIANT_CODE[variant], stream)
     check_rc(rc, f"wgrad3x3 kernel ({variant})")
-    LAUNCHES["wgrad3x3"] += 1
-    VARIANTS[f"wgrad3x3:{variant}"] += 1
+    profiling.count("conv3x3.launch/wgrad3x3")
+    profiling.count(f"conv3x3.variant/wgrad3x3:{variant}")
     return dw
 
 

@@ -18,10 +18,11 @@ the taps, keep every ``down``-th sample.
   with the high pads solved so the output has the input's size.  So
   every order of gradient, as R1 and path length take, stays on the
   kernels.
-* ``LAUNCHES`` counts kernel launches per form; it is bumped only where a
-  kernel is launched.  ``PLAIN_ROUTE`` counts no kernel: it holds, by
-  reason, the ``upfirdn2d`` calls whose static spec lies outside the
-  kernels' contract and which therefore took the plain version.
+* Each kernel launch counts ``fir.launch/<form>`` in the installed
+  recorder (:mod:`..utils.profiling`).  :func:`.upfirdn2d.upfirdn2d`
+  counts its routing: ``upfirdn2d.kernel_route`` for a call that takes
+  :class:`Fir`, ``upfirdn2d.plain_route/<why>`` for one whose static spec
+  lies outside the kernels' contract and which took the plain version.
 """
 
 from __future__ import annotations
@@ -29,25 +30,20 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from ._nvcc import check_planes, check_rc, load_library
 from .upfirdn2d import (NOT_SEPARABLE, Taps, _parse_padding, _parse_scaling, filter_taps,
                         upfirdn2d_plain)
 
-__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "up2_phases", "LAUNCHES",
-           "PLAIN_ROUTE"]
+__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "up2_phases"]
 
 FORMS = ("same", "down2", "up2")
 MAX_TAPS = 32  # kMaxTaps of csrc/fir.cu
 MAX_PHASE_TAPS = MAX_TAPS // 2  # kMaxPhaseTaps
-# Kernel launches per form; bumped only where a kernel is launched.
-LAUNCHES = {"fir_same": 0, "fir_down2": 0, "fir_up2": 0}
-# ``upfirdn2d`` calls outside the kernels' contract, which took the plain
-# version: {why the call was outside: calls}.
-PLAIN_ROUTE: Dict[str, int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,7 +196,7 @@ def fir_planes(x: torch.Tensor, spec: FirSpec, *, blocks_per_sm: int = 0) -> tor
                 len(spec.taps_y), len(spec.taps_x), _c_taps(spec.taps_y), _c_taps(spec.taps_x),
                 is_bf16, blocks_per_sm, stream)
     check_rc(rc, f"FIR {spec.form} kernel")
-    LAUNCHES[f"fir_{spec.form}"] += 1
+    profiling.count(f"fir.launch/{spec.form}")
     return out
 
 

@@ -25,8 +25,9 @@ P6      ``probe_mosaic.probe_e``    rows 1..32 of a ``[40, 128]`` array
 
 :func:`run_probes` runs them all on the scripts' inputs (ones) and prints
 one line each, as the scripts' ``__main__`` do; ``python -m
-gantrack_tpu_torch.ops.probes`` calls it.  ``LAUNCHES`` counts kernel
-launches.
+gantrack_tpu_torch.ops.probes`` calls it.  Each kernel launch counts
+``probes.launch/<probe>`` in the installed recorder
+(:mod:`..utils.profiling`).
 """
 
 from __future__ import annotations
@@ -37,17 +38,15 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from ._nvcc import check_rc, load_library
 
 __all__ = ["probe_matmul", "probe_halo_tile", "probe_padded_tile", "probe_ring", "probe_concat",
            "probe_row_slice", "probe_matmul_plain", "probe_tile_plain", "probe_ring_plain",
            "probe_concat_plain", "probe_row_slice_plain", "matmul_cases", "run_probes",
-           "LAUNCHES", "TH", "W", "C"]
+           "TH", "W", "C"]
 
 TH, W, C = 16, 32, 64  # the tile of probe_mosaic.py
-# Kernel launches per probe; bumped only where a kernel is launched.
-LAUNCHES = {"probe_matmul": 0, "probe_halo_tile": 0, "probe_padded_tile": 0, "probe_ring": 0,
-            "probe_concat": 0, "probe_row_slice": 0}
 
 _BF16, _F32 = torch.bfloat16, torch.float32
 
@@ -101,7 +100,7 @@ def _launch(name: str, fn, out: torch.Tensor, *args) -> torch.Tensor:
     with torch.cuda.device(out.device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     check_rc(rc, f"{name} kernel")
-    LAUNCHES[name] += 1
+    profiling.count(f"probes.launch/{name}")
     return out
 
 

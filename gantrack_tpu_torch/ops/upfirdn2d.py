@@ -12,9 +12,10 @@ tensors.
   (StyleGAN3's factor-4 filters, its radial 2-D filters, more than 32
   taps an axis: forms the JAX package's FIR kernels never covered either)
   takes :func:`upfirdn2d_plain` on any device.  That is decided from the
-  call's static spec before anything is launched, and counted by its
-  reason in ``fir.PLAIN_ROUTE``; a kernel that fails to build or launch
-  still raises.
+  call's static spec before anything is launched, and counted in the
+  installed recorder (:mod:`..utils.profiling`): ``upfirdn2d.kernel_route``,
+  or ``upfirdn2d.plain_route/<why>`` by reason; a kernel that fails to
+  build or launch still raises.
 * :func:`upfirdn2d_plain` is the plain PyTorch version: a depthwise
   convolution (separable filters as a vertical then a horizontal pass)
   over a zero-inserted, padded copy.  The conv is
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from .conv2d_gradfix import conv2d
 
 IntOrPair = Union[int, Sequence[int]]
@@ -165,8 +167,9 @@ def upfirdn2d(
 
     spec, why = fir.fir_spec(f, taps, up, down, padding, flip_filter, gain)
     if spec is None:  # outside the kernels' contract: the plain version, counted
-        fir.PLAIN_ROUTE[why] = fir.PLAIN_ROUTE.get(why, 0) + 1
+        profiling.count(f"upfirdn2d.plain_route/{why}")
         return upfirdn2d_plain(x, f, up, down, padding, flip_filter, gain)
+    profiling.count("upfirdn2d.kernel_route")
     n, c, h, w = x.shape
     out = fir.Fir.apply(x.reshape(n * c, h, w).contiguous(), spec)
     return out.reshape(n, c, *out.shape[1:])

@@ -14,6 +14,9 @@ augmentation.
 * On a CPU tensor it runs the plain version: the plain ``upsample2d``
   followed by the gather sampler of :mod:`.grid_sample`, which autograd
   differentiates to any order.
+* Each kernel launch counts ``upwarp.launch/upwarp`` or
+  ``upwarp.launch/upsplat`` in the installed recorder
+  (:mod:`..utils.profiling`).
 
 Both sample at the same positions: the 2x-canvas position of output
 pixel (ox, oy) is ``(ax*ox + bx*oy) + cx`` (y likewise) from six float32
@@ -29,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import profiling
 from ._nvcc import check_coeffs as _check_coeffs
 from ._nvcc import check_planes as _check_planes
 from ._nvcc import check_rc as _check_rc
@@ -37,11 +41,9 @@ from .grid_sample import bilinear_gather, sample_positions, warp_coefficients
 from .upfirdn2d import upfirdn2d_plain, upsample2d_args
 
 __all__ = ["up_affine_warp", "up_affine_warp_plain", "warp_coefficients", "upwarp_planes",
-           "upwarp_blocks", "upsplat_planes", "upsplat_blocks", "UpWarp", "UpSplat", "LAUNCHES"]
+           "upwarp_blocks", "upsplat_planes", "upsplat_blocks", "UpWarp", "UpSplat"]
 
 NUM_TAPS = 12
-# Kernel launches per wrapper; bumped only where a kernel is launched.
-LAUNCHES = {"upwarp": 0, "upsplat": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -95,7 +97,7 @@ def upwarp_planes(planes: torch.Tensor, coeffs: torch.Tensor, taps: Tuple[float,
             planes.data_ptr(), coeffs.data_ptr(), out.data_ptr(), p, h1, w1, out_h, out_w,
             int(planes.dtype == torch.bfloat16), _fir_array(taps), counter, stream)
     _check_rc(rc, "upwarp kernel")
-    LAUNCHES["upwarp"] += 1
+    profiling.count("upwarp.launch/upwarp")
     return out
 
 
@@ -124,7 +126,7 @@ def upsplat_planes(g: torch.Tensor, coeffs: torch.Tensor, taps: Tuple[float, ...
             g.data_ptr(), coeffs.data_ptr(), out.data_ptr(), p, h1, w1, out_h, out_w,
             int(g.dtype == torch.bfloat16), _fir_array(taps), counter, stream)
     _check_rc(rc, "upsplat kernel")
-    LAUNCHES["upsplat"] += 1
+    profiling.count("upwarp.launch/upsplat")
     return out
 
 

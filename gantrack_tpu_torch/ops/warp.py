@@ -13,6 +13,8 @@ unfused chain and of the equivariance metrics.
   any order.  There is no source window: no transform loses taps.
 * On a CPU tensor it runs :func:`affine_warp_plain`, the gather sampler
   of :mod:`.grid_sample`, which autograd differentiates to any order.
+* Each kernel launch counts ``warp.launch/warp`` or ``warp.launch/splat``
+  in the installed recorder (:mod:`..utils.profiling`).
 
 Both sample at the same positions: the source position of output pixel
 (ox, oy) is ``(ax*ox + bx*oy) + cx`` (y likewise) from six float32
@@ -27,14 +29,13 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
 from ._nvcc import check_coeffs, check_planes, check_rc, load_library
 from .grid_sample import bilinear_gather, sample_positions, warp_coefficients
 
 __all__ = ["affine_warp", "affine_warp_plain", "warp_planes", "splat_planes",
-           "Warp", "Splat", "LAUNCHES"]
+           "Warp", "Splat"]
 
-# Kernel launches per wrapper; bumped only where a kernel is launched.
-LAUNCHES = {"warp": 0, "splat": 0}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -74,7 +75,7 @@ def _launch(name: str, src: torch.Tensor, coeffs: torch.Tensor, h: int, w: int,
         with torch.cuda.device(dev):
             rc = fn(*args)
     check_rc(rc, f"{name} kernel")
-    LAUNCHES[name] += 1
+    profiling.count(f"warp.launch/{name}")
     return out
 
 

@@ -30,7 +30,7 @@ import torch
 
 from ..parallel.mesh import Mesh
 from ..utils.checkpoint import save_checkpoint, save_image_grid
-from ..utils.profiling import cpu_mem_gb, device_memory_stats
+from ..utils.profiling import cpu_mem_gb, device_memory_stats, span
 from . import stats as stats_lib
 from .step import TrainStepper
 from .train_state import TrainState
@@ -52,13 +52,15 @@ def setup_snapshot_image_grid(dataset, random_seed: int = 0, gw: Optional[int] =
 
 
 def to_device_batch(images: np.ndarray, labels: np.ndarray, device):
-    """Loader batch (NHWC float32 numpy) → NCHW tensors on ``device``."""
-    img = torch.from_numpy(images)
-    lab = torch.from_numpy(labels)
-    if device.type == "cuda":
-        img, lab = img.pin_memory(), lab.pin_memory()
-    img = img.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
-    return img, lab.to(device, non_blocking=True)
+    """Loader batch (NHWC float32 numpy) → NCHW tensors on ``device``
+    (the span ``data.h2d``)."""
+    with span("data.h2d"):
+        img = torch.from_numpy(images)
+        lab = torch.from_numpy(labels)
+        if device.type == "cuda":
+            img, lab = img.pin_memory(), lab.pin_memory()
+        img = img.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
+        return img, lab.to(device, non_blocking=True)
 
 
 def metric_snapshot(state: TrainState) -> TrainState:

@@ -17,7 +17,8 @@ computes the ``2·⌊3σ⌋ + 1`` live taps from ``cur_nimg`` (a host integer,
 so nothing is read back from the device), which is the same filter.
 
 Each phase returns its loss and a moments dict (``stats.report``); the
-stepper takes the gradients.  Random draws come from the explicit
+stepper takes the gradients.  The inner ``create_graph`` passes are the
+spans ``pl_grads`` and ``r1_grads`` (:mod:`..utils.profiling`).  Random draws come from the explicit
 ``torch.Generator`` a phase is given; the path-length noise can be
 handed in instead (``pl_noise``), which the parity tests do.
 
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.upfirdn2d import filter2d
+from ..utils.profiling import span
 from . import stats
 
 
@@ -159,7 +161,8 @@ class StyleGAN2Loss:
         if pl_noise is None:
             pl_noise = self._randn(img.shape, gen, img.device)
         pl_noise = pl_noise / np.sqrt(img.shape[2] * img.shape[3])
-        (pl_grads,) = torch.autograd.grad((img * pl_noise).sum(), ws, create_graph=True)
+        with span("pl_grads"):
+            (pl_grads,) = torch.autograd.grad((img * pl_noise).sum(), ws, create_graph=True)
         pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
         # The lerped mean stays in the graph for the penalty.
         new_pl_mean = pl_mean + self.cfg.pl_decay * (batch_mean(pl_lengths) - pl_mean)
@@ -193,7 +196,8 @@ class StyleGAN2Loss:
         """R1 gradient penalty (differentiates through the augment twice)."""
         real = real_img.detach().requires_grad_(True)
         logits = self.run_D(real, real_c, gen, ada_p, cur_nimg)
-        (r1_grads,) = torch.autograd.grad(logits.sum(), real, create_graph=True)
+        with span("r1_grads"):
+            (r1_grads,) = torch.autograd.grad(logits.sum(), real, create_graph=True)
         r1_penalty = r1_grads.square().sum(dim=[1, 2, 3])
         loss = r1_penalty * (self.cfg.r1_gamma / 2)
         m: stats.Moments = {}

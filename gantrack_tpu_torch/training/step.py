@@ -39,6 +39,12 @@ step.  ``pl_mean`` and G's EMA buffers go from chunk to chunk; moments
 sum over the chunks.  The parameters a phase updates are those its
 optimizer holds, so a discriminator built with frozen layers
 (``--freezed``) still passes gradients through them.
+
+Spans (:mod:`..utils.profiling`): ``Gmain``, ``Greg``, ``Dmain`` and
+``Dreg`` (the reference's phase names) a phase, with the step number as
+``step``; ``forward`` and ``backward`` a chunk, with its index as
+``chunk``; ``opt`` (all-reduce, scrub, Adam) a phase's update; ``ema``
+and ``ada`` the step's tail.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..parallel.mesh import Mesh, all_mean, all_sum, batch_mean, create_mesh
+from ..utils.profiling import span
 from . import stats
 from .loss import StyleGAN2Loss
 from .train_state import TrainState
@@ -88,14 +95,17 @@ def _accumulate(params, num_chunks: int,
                 chunk_loss: Callable[[int], Tuple[torch.Tensor, stats.Moments]]):
     """Sum of the gradients of ``chunk_loss(j)`` w.r.t. ``params`` over
     the chunks ``j`` in order, and the chunks' moments summed; each
-    chunk's graph is freed before the next is built."""
+    chunk's graph is freed before the next is built.  Spans ``forward``
+    and ``backward`` a chunk."""
     total: Optional[List[torch.Tensor]] = None
     moments: stats.Moments = {}
     for j in range(num_chunks):
-        loss, m = chunk_loss(j)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        total = grads if total is None else [a + g for a, g in zip(total, grads)]
+        with span("forward", chunk=j):
+            loss, m = chunk_loss(j)
+        with span("backward", chunk=j):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            total = grads if total is None else [a + g for a, g in zip(total, grads)]
         moments = stats.merge(moments, m)
     return total, moments
 
@@ -183,7 +193,8 @@ class TrainStepper:
 
     def _apply(self, opt: torch.optim.Optimizer, params, grads) -> None:
         """Gradients averaged over ranks, then scrubbed and applied."""
-        _apply(opt, params, all_mean(self.mesh, grads))
+        with span("opt"):
+            _apply(opt, params, all_mean(self.mesh, grads))
 
     def __call__(self, state: TrainState, real_img, real_c=None) -> stats.Moments:
         return self.run(state, real_img, real_c, *self.phase_flags(state.step))
@@ -219,74 +230,80 @@ class TrainStepper:
         def chunk(x: Optional[torch.Tensor], j: int) -> Optional[torch.Tensor]:
             return None if x is None else x[j * n:(j + 1) * n]
 
-        # G-main.
-        z, c = zc("gmain")
-        grads, moments = _accumulate(g_params, M, lambda j: loss.gmain(
-            chunk(z, j), chunk(c, j), gen, state.ada_p, cur_nimg))
-        self._apply(state.opt_g, g_params, grads)
+        step = state.step
+        with span("Gmain", step=step):
+            z, c = zc("gmain")
+            grads, moments = _accumulate(g_params, M, lambda j: loss.gmain(
+                chunk(z, j), chunk(c, j), gen, state.ada_p, cur_nimg))
+            self._apply(state.opt_g, g_params, grads)
 
         # G-reg (path length); pl_mean goes from chunk to chunk.
         if do_gpl:
-            z, c = zc("gpl")
-            pl_noise = draws.get("pl_noise")
-            gain = float(cfg.g_reg_interval)
+            with span("Greg", step=step):
+                z, c = zc("gpl")
+                pl_noise = draws.get("pl_noise")
+                gain = float(cfg.g_reg_interval)
 
-            def gpl_chunk(j):
-                noise = pl_noise if M == 1 or pl_noise is None else pl_noise[j]
-                loss_pl, state.pl_mean, m = loss.gpl(
-                    chunk(z, j), chunk(c, j), gen, state.pl_mean, noise,
-                    batch_mean=lambda x: batch_mean(self.mesh, x))
-                return loss_pl * gain, m
+                def gpl_chunk(j):
+                    noise = pl_noise if M == 1 or pl_noise is None else pl_noise[j]
+                    loss_pl, state.pl_mean, m = loss.gpl(
+                        chunk(z, j), chunk(c, j), gen, state.pl_mean, noise,
+                        batch_mean=lambda x: batch_mean(self.mesh, x))
+                    return loss_pl * gain, m
 
-            grads, m = _accumulate(g_params, M, gpl_chunk)
-            self._apply(state.opt_g, g_params, grads)
-            moments = stats.merge(moments, m)
+                grads, m = _accumulate(g_params, M, gpl_chunk)
+                self._apply(state.opt_g, g_params, grads)
+                moments = stats.merge(moments, m)
 
         # D-main (updates w_avg and StyleGAN3's magnitude_ema from each
         # chunk's fake pass, in chunk order).
-        z, c = zc("dmain")
-        grads, m = _accumulate(d_params, M, lambda j: loss.dmain(
-            chunk(z, j), chunk(c, j), chunk(real_img, j), chunk(real_c, j), gen, state.ada_p,
-            cur_nimg))
-        self._apply(state.opt_d, d_params, grads)
-        moments = stats.merge(moments, m)
-        if self.mesh.distributed:
-            emas = [b for name, b in state.G.named_buffers()
-                    if name.rsplit(".", 1)[-1] in EMA_BUFFERS]
-            with torch.no_grad():
-                for b, mean in zip(emas, all_mean(self.mesh, emas)):
-                    b.copy_(mean)
+        with span("Dmain", step=step):
+            z, c = zc("dmain")
+            grads, m = _accumulate(d_params, M, lambda j: loss.dmain(
+                chunk(z, j), chunk(c, j), chunk(real_img, j), chunk(real_c, j), gen,
+                state.ada_p, cur_nimg))
+            self._apply(state.opt_d, d_params, grads)
+            moments = stats.merge(moments, m)
+            if self.mesh.distributed:
+                emas = [b for name, b in state.G.named_buffers()
+                        if name.rsplit(".", 1)[-1] in EMA_BUFFERS]
+                with torch.no_grad():
+                    for b, mean in zip(emas, all_mean(self.mesh, emas)):
+                        b.copy_(mean)
 
         # D-reg (R1).
         if do_dr1:
-            gain = float(cfg.d_reg_interval)
+            with span("Dreg", step=step):
+                gain = float(cfg.d_reg_interval)
 
-            def dr1_chunk(j):
-                loss_r1, m = loss.dr1(chunk(real_img, j), chunk(real_c, j), gen, state.ada_p,
-                                      cur_nimg)
-                return loss_r1 * gain, m
+                def dr1_chunk(j):
+                    loss_r1, m = loss.dr1(chunk(real_img, j), chunk(real_c, j), gen,
+                                          state.ada_p, cur_nimg)
+                    return loss_r1 * gain, m
 
-            grads, m = _accumulate(d_params, M, dr1_chunk)
-            self._apply(state.opt_d, d_params, grads)
-            moments = stats.merge(moments, m)
+                grads, m = _accumulate(d_params, M, dr1_chunk)
+                self._apply(state.opt_d, d_params, grads)
+                moments = stats.merge(moments, m)
 
-        update_ema(state.G_ema, state.G, cfg.batch_size, state.cur_nimg, cfg.ema_kimg,
-                   cfg.ema_rampup)
+        with span("ema", step=step):
+            update_ema(state.G_ema, state.G, cfg.batch_size, state.cur_nimg, cfg.ema_kimg,
+                       cfg.ema_rampup)
 
         # ADA controller: sign feedback every ada_interval batches, from
         # the moments of the global batch.
-        names = list(moments)
-        moments = dict(zip(names, all_sum(self.mesh, [moments[k] for k in names])))
-        if cfg.ada_target is not None:
-            sr = moments["Loss/signs/real"]
-            state.ada_signs = state.ada_signs + sr[:2]
-            if (state.step + 1) % cfg.ada_interval == 0:
-                mean_sign = state.ada_signs[1] / state.ada_signs[0].clamp(min=1.0)
-                adjust = (torch.sign(mean_sign - cfg.ada_target)
-                          * (cfg.batch_size * cfg.ada_interval) / (cfg.ada_kimg * 1000.0))
-                state.ada_p = (state.ada_p + adjust).clamp(min=0.0)
-                state.ada_signs = torch.zeros_like(state.ada_signs)
-        moments = stats.report(moments, "Progress/augment", state.ada_p)
+        with span("ada", step=step):
+            names = list(moments)
+            moments = dict(zip(names, all_sum(self.mesh, [moments[k] for k in names])))
+            if cfg.ada_target is not None:
+                sr = moments["Loss/signs/real"]
+                state.ada_signs = state.ada_signs + sr[:2]
+                if (state.step + 1) % cfg.ada_interval == 0:
+                    mean_sign = state.ada_signs[1] / state.ada_signs[0].clamp(min=1.0)
+                    adjust = (torch.sign(mean_sign - cfg.ada_target)
+                              * (cfg.batch_size * cfg.ada_interval) / (cfg.ada_kimg * 1000.0))
+                    state.ada_p = (state.ada_p + adjust).clamp(min=0.0)
+                    state.ada_signs = torch.zeros_like(state.ada_signs)
+            moments = stats.report(moments, "Progress/augment", state.ada_p)
 
         state.step += 1
         state.cur_nimg += cfg.batch_size

@@ -26,6 +26,7 @@ from gantrack_tpu.ops.attic import conv3x3 as jc3
 from gantrack_tpu_torch.ops import conv3x3 as c3
 from gantrack_tpu_torch.ops.conv2d_resample import conv2d_resample
 from gantrack_tpu_torch.ops.upfirdn2d import filter_taps, setup_filter
+from gantrack_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -217,14 +218,15 @@ def test_conv2d_resample_kernel_route_equals_library(case):
     f = setup_filter([1, 3, 3, 1]) if ("up" in kw or "down" in kw) else None
     taps = filter_taps(f) if f is not None else None
     outs = []
-    c3.LIBRARY_ROUTE.clear()
-    for impl in ("library", "kernel"):
-        y = conv2d_resample(x, w, f=f, taps=taps, conv_impl=impl, **kw)
-        outs.append((y, *torch.autograd.grad(y.square().sum(), (x, w))))
+    with profiling.recording() as rec:
+        for impl in ("library", "kernel"):
+            y = conv2d_resample(x, w, f=f, taps=taps, conv_impl=impl, **kw)
+            outs.append((y, *torch.autograd.grad(y.square().sum(), (x, w))))
     for a, b in zip(*outs):
         scale = max(1.0, float(a.detach().abs().max()))
         assert float((a - b).detach().abs().max()) <= 1e-6 * scale, label
-    assert c3.LIBRARY_ROUTE == ({} if reason is None else {reason: 1}), label
+    routed = rec.under("conv3x3.library_route")
+    assert routed == ({} if reason is None else {reason: 1}), label
 
 
 def test_conv_impl_is_checked():
@@ -362,7 +364,7 @@ def test_variant_counters_move_only_with_launches():
     assert set(c3.VARIANTS) == {"conv3x3:wgmma", "conv3x3:mma_sync", "conv3x3:f32_tiled",
                                 "conv3x3:f32_flat", "wgrad3x3:wgmma", "wgrad3x3:mma_sync",
                                 "wgrad3x3:f32"}
-    before, launches = dict(c3.VARIANTS), dict(c3.LAUNCHES)
     x, w = torch.zeros(1, 8, 8, 8), torch.zeros(4, 8, 3, 3)
-    c3.wgrad3x3(x, c3.conv3x3(x, w))        # CPU tensors: the plain versions
-    assert c3.VARIANTS == before and c3.LAUNCHES == launches
+    with profiling.recording() as rec:
+        c3.wgrad3x3(x, c3.conv3x3(x, w))    # CPU tensors: the plain versions
+    assert rec.under("conv3x3.variant") == {} and rec.under("conv3x3.launch") == {}

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from gantrack_tpu_torch.ops import conv3x3 as c3
 from gantrack_tpu_torch.ops import probes
+from gantrack_tpu_torch.utils import profiling
 
 # The 4x4 layers of the full-width training step, an image smaller than
 # the kernels' tile, at the batch sizes the step gives them: G's last-but-
@@ -92,13 +93,14 @@ def _close(got, ref, rel):
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_conv_and_wgrad_match_plain_on_card(cuda_device, shape, dtype, rel):
     x, w, g = _case(cuda_device, shape, dtype)
-    before = dict(c3.LAUNCHES)
-    out = c3.conv3x3(x, w)
-    dw = c3.wgrad3x3(x, g)
+    with profiling.recording() as rec:
+        out = c3.conv3x3(x, w)
+        dw = c3.wgrad3x3(x, g)
     torch.cuda.synchronize()
     assert out.dtype == dtype and dw.dtype == dtype
-    assert c3.LAUNCHES["conv3x3"] == before["conv3x3"] + 1
-    assert c3.LAUNCHES["wgrad3x3"] == before["wgrad3x3"] + 1
+    launches = rec.under("conv3x3.launch")
+    assert launches.get("conv3x3") == 1
+    assert launches.get("wgrad3x3") == 1
     _close(out, c3.conv3x3_plain(x.float(), w.float()), rel)
     _close(dw, c3.wgrad3x3_plain(x.float(), g.float()), rel)
     assert torch.equal(dw, c3.wgrad3x3(x, g)), "K9 is not bitwise deterministic"
@@ -109,18 +111,19 @@ def test_conv_and_wgrad_match_plain_on_card(cuda_device, shape, dtype, rel):
 def test_wgmma_kernels_at_tile_edges_on_card(cuda_device, shape):
     x, w, g = _case(cuda_device, shape, torch.bfloat16, seed=3)
     assert c3.conv_variant(x.shape, x.dtype) == c3.wgrad_variant(x.shape, x.dtype) == "wgmma"
-    before = dict(c3.VARIANTS)
-    out, dw = c3.conv3x3(x, w), c3.wgrad3x3(x, g)
+    with profiling.recording() as rec:
+        out, dw = c3.conv3x3(x, w), c3.wgrad3x3(x, g)
     torch.cuda.synchronize()
-    assert c3.VARIANTS["conv3x3:wgmma"] == before["conv3x3:wgmma"] + 1
-    assert c3.VARIANTS["wgrad3x3:wgmma"] == before["wgrad3x3:wgmma"] + 1
+    assert rec.under("conv3x3.variant").get("conv3x3:wgmma") == 1
+    assert rec.under("conv3x3.variant").get("wgrad3x3:wgmma") == 1
     ref, ref9 = c3.conv3x3_plain(x.float(), w.float()), c3.wgrad3x3_plain(x.float(), g.float())
     _close(out, ref, 1e-2)
     _close(dw, ref9, 1e-2)
     assert torch.equal(dw, c3.wgrad3x3(x, g)), "K9 (wgmma) is not bitwise deterministic"
     # The general kernels take the same shape and agree within the same limits.
-    old, old9 = c3._conv_launch(x, w, "mma_sync"), c3._wgrad_launch(x, g, "mma_sync")
-    assert c3.VARIANTS["conv3x3:mma_sync"] == before["conv3x3:mma_sync"] + 1
+    with profiling.recording() as rec:
+        old, old9 = c3._conv_launch(x, w, "mma_sync"), c3._wgrad_launch(x, g, "mma_sync")
+    assert rec.under("conv3x3.variant").get("conv3x3:mma_sync") == 1
     _close(old, ref, 1e-2)
     _close(old9, ref9, 1e-2)
     _close(out, old.float(), 1e-2)
@@ -157,10 +160,10 @@ def test_forcing_a_variant_the_shape_does_not_allow_raises_on_card(cuda_device):
 def test_small_image_packing_on_card(cuda_device, shape):
     x, w, g = _case(cuda_device, shape, torch.float32, seed=5)
     assert c3.conv_variant(x.shape, x.dtype) == "f32_flat"
-    before = c3.VARIANTS["conv3x3:f32_flat"]
-    out = c3.conv3x3(x, w)
+    with profiling.recording() as rec:
+        out = c3.conv3x3(x, w)
     torch.cuda.synchronize()
-    assert c3.VARIANTS["conv3x3:f32_flat"] == before + 1
+    assert rec.under("conv3x3.variant").get("conv3x3:f32_flat") == 1
     _close(out, c3.conv3x3_plain(x, w), 1e-5)
     dw = c3.wgrad3x3(x, g)
     _close(dw, c3.wgrad3x3_plain(x, g), 1e-5)
@@ -181,11 +184,11 @@ def test_grad_of_grad_through_the_wgmma_kernels_on_card(cuda_device, shape):
         gw, ggx = torch.autograd.grad(gx.float().square().sum(), (ws, xs))
         return gx.detach(), gw, ggx
 
-    for k in c3.VARIANTS:
-        c3.VARIANTS[k] = 0
-    got = r1(c3.conv3x3)
-    assert c3.VARIANTS["conv3x3:wgmma"] >= 4 and c3.VARIANTS["wgrad3x3:wgmma"] >= 1, c3.VARIANTS
-    assert c3.VARIANTS["conv3x3:mma_sync"] == 0 and c3.VARIANTS["wgrad3x3:mma_sync"] == 0
+    with profiling.recording() as rec:
+        got = r1(c3.conv3x3)
+    ran = rec.under("conv3x3.variant")
+    assert ran.get("conv3x3:wgmma", 0) >= 4 and ran.get("wgrad3x3:wgmma", 0) >= 1, ran
+    assert ran.get("conv3x3:mma_sync", 0) == 0 and ran.get("wgrad3x3:mma_sync", 0) == 0
     for a, b in zip(got, r1(c3.conv3x3_plain)):
         _close(a, b, 3e-2)
 
@@ -213,11 +216,12 @@ def test_grad_and_grad_of_grad_through_kernels_on_card(cuda_device, shape):
         gw, ggx = torch.autograd.grad(gx.square().sum(), (ws, xs))
         return gx.detach(), gw, ggx
 
-    c3.LAUNCHES.update(conv3x3=0, wgrad3x3=0)
-    got = r1(c3.conv3x3)
+    with profiling.recording() as rec:
+        got = r1(c3.conv3x3)
     # forward, dgrad; then the dgrad's two gradients (a conv and a wgrad)
     # and the forward's input gradient once more.
-    assert c3.LAUNCHES["conv3x3"] >= 4 and c3.LAUNCHES["wgrad3x3"] >= 1, c3.LAUNCHES
+    launches = rec.under("conv3x3.launch")
+    assert launches.get("conv3x3", 0) >= 4 and launches.get("wgrad3x3", 0) >= 1, launches
     ref = r1(c3.conv3x3_plain)
     for a, b in zip(got, ref):
         _close(a, b, 1e-4)

@@ -4,7 +4,7 @@ Same numpy inputs on both sides; NHWC there, NCHW here.  Filters are the
 StyleGAN3 designs (Kaiser, separable 1-D; jinc, radial 2-D).  Tolerance
 1e-5 of the largest reference value: both sides run the same float32
 sums (a zero-stuffed, padded depthwise convolution) in another order.
-The factor-4 and radial passes are counted in ``fir.PLAIN_ROUTE``.
+The factor-4 and radial passes are counted as ``upfirdn2d.plain_route/<why>``.
 """
 
 import numpy as np
@@ -17,8 +17,9 @@ import jax.numpy as jnp
 from gantrack_tpu.models.stylegan3 import design_lowpass_filter as j_design
 from gantrack_tpu.ops.filtered_lrelu import filtered_lrelu as j_filtered_lrelu
 from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
-from gantrack_tpu_torch.ops import filtered_lrelu, fir
+from gantrack_tpu_torch.ops import filtered_lrelu
 from gantrack_tpu_torch.ops.upfirdn2d import NOT_SEPARABLE, filter_taps
+from gantrack_tpu_torch.utils import profiling
 
 
 def _filters(up, down, radial):
@@ -51,15 +52,15 @@ def test_filtered_lrelu_matches_jax(up, down, radial):
     want = np.asarray(j_filtered_lrelu(
         jnp.asarray(x), None if fu is None else jnp.asarray(fu),
         None if fd is None else jnp.asarray(fd), jnp.asarray(b), **kw))
-    before = sum(fir.PLAIN_ROUTE.values())
     t = lambda a: None if a is None else torch.from_numpy(a)
-    got = filtered_lrelu(torch.from_numpy(x).permute(0, 3, 1, 2), t(fu), t(fd), t(b),
-                         fu_taps=_taps(fu), fd_taps=_taps(fd), **kw)
+    with profiling.recording() as rec:
+        got = filtered_lrelu(torch.from_numpy(x).permute(0, 3, 1, 2), t(fu), t(fd), t(b),
+                             fu_taps=_taps(fu), fd_taps=_taps(fd), **kw)
     _close(got.permute(0, 2, 3, 1).numpy(), want)
     if down == 1:  # nothing filters after the clamp: it is active
         assert np.abs(want).max() == pytest.approx(1.5)
     outside = int(up == 4) + int(down == 4 or (radial and down > 1))
-    assert sum(fir.PLAIN_ROUTE.values()) - before == outside
+    assert sum(rec.under("upfirdn2d.plain_route").values()) == outside
 
 
 def test_designed_filters_equal_the_jax_designs():

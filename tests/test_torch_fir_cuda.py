@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from gantrack_tpu_torch.ops import fir
 from gantrack_tpu_torch.training.augment import WAVELETS
+from gantrack_tpu_torch.utils import profiling
 
 ufd = importlib.import_module("gantrack_tpu_torch.ops.upfirdn2d")
 
@@ -91,14 +92,14 @@ def test_fir_kernel_matches_plain_on_card(cuda_device, case):
     f, up, down, padding, flip, gain, shape = CASES[case]
     rng = np.random.default_rng(case)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
-    before, routed = dict(fir.LAUNCHES), fir.PLAIN_ROUTE.get("up=4, down=1", 0)
-    got = _run(x, f, up, down, padding, flip, gain, kernel=True)
-    ref = _run(x, f, up, down, padding, flip, gain, kernel=False)
+    with profiling.recording() as rec:
+        got = _run(x, f, up, down, padding, flip, gain, kernel=True)
+        ref = _run(x, f, up, down, padding, flip, gain, kernel=False)
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == torch.float32
     assert _max_err(got, ref) <= 1e-5 * float(ref.abs().max())
     form = "up2" if up == 2 else "down2" if down == 2 else "same"
-    assert fir.LAUNCHES[f"fir_{form}"] == before[f"fir_{form}"] + 1
+    assert rec.under("fir.launch").get(form) == 1
 
     xb = x.bfloat16()
     got_b = _run(xb, f, up, down, padding, flip, gain, kernel=True)
@@ -144,12 +145,12 @@ def test_upfirdn2d_outside_the_contract_takes_the_counted_plain_route_on_card(cu
     # A factor of 4 is outside the contract by the call's static spec: the
     # plain version runs, counted; no kernel is launched for it.
     x = torch.randn((1, 2, 8, 8), device=cuda_device)
-    before, routed = dict(fir.LAUNCHES), fir.PLAIN_ROUTE.get("up=4, down=1", 0)
-    got = ufd.upfirdn2d(x, F4.to(cuda_device), up=4, taps=ufd.filter_taps(F4))
+    with profiling.recording() as rec:
+        got = ufd.upfirdn2d(x, F4.to(cuda_device), up=4, taps=ufd.filter_taps(F4))
     torch.testing.assert_close(got, ufd.upfirdn2d_plain(x, F4.to(cuda_device), up=4),
                                rtol=0, atol=0)
-    assert fir.LAUNCHES == before
-    assert fir.PLAIN_ROUTE["up=4, down=1"] == routed + 1
+    assert rec.under("fir.launch") == {}
+    assert rec.under("upfirdn2d.plain_route") == {"up=4, down=1": 1}
     with pytest.raises(ValueError, match="host taps"):
         ufd.upfirdn2d(x, F4.to(cuda_device))
     with pytest.raises(TypeError, match="float32 or bfloat16"):

@@ -48,6 +48,7 @@ import torch
 from gantrack_tpu_torch.ops import fir
 from gantrack_tpu_torch.tools import projector
 from gantrack_tpu_torch.tools.train import make_generator
+from gantrack_tpu_torch.utils import profiling
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CLARO = dict(resolution=256, channels=1, c_dim=0, cbase=16384, cmax=512, map_depth=2)
@@ -99,10 +100,11 @@ def test_accumulated_gmain_gradient_is_twice_the_whole_batch(cuda_device, monkey
         seen = []
         monkeypatch.setattr(tstep, "_apply", lambda opt, p, g, seen=seen: seen.append(
             [x.clone() for x in g]) or apply(opt, p, g))
-        fir.LAUNCHES.update({k: 0 for k in fir.LAUNCHES})
-        stepper.run(state, reals.to(cuda_device), None, False, False,
-                    draws={"z_gmain": z, "z_dmain": z})
-        assert fir.LAUNCHES["fir_same"] > 0 and fir.LAUNCHES["fir_up2"] > 0
+        with profiling.recording() as rec:
+            stepper.run(state, reals.to(cuda_device), None, False, False,
+                        draws={"z_gmain": z, "z_dmain": z})
+        launches = rec.under("fir.launch")
+        assert launches.get("same", 0) > 0 and launches.get("up2", 0) > 0
         grads[micro] = seen[0]
     names = [n for n, _ in G0.named_parameters()]
     assert _rel(torch.cat([g.flatten() * 2 for g in grads[1]]),
@@ -192,15 +194,16 @@ def test_projector_step_on_the_kernels_matches_the_plain_route(cuda_device, monk
         grads = torch.autograd.grad(loss, [w, *noise.values()])
         return loss.detach(), grads
 
-    fir.LAUNCHES.update({k: 0 for k in fir.LAUNCHES})
-    fir.PLAIN_ROUTE.clear()
-    loss_k, grads_k = step()
+    with profiling.recording() as rec:
+        loss_k, grads_k = step()
     torch.cuda.synchronize()
-    assert all(fir.LAUNCHES[k] > 0 for k in ("fir_same", "fir_down2", "fir_up2")), fir.LAUNCHES
-    assert not fir.PLAIN_ROUTE
+    launches = rec.under("fir.launch")
+    assert all(launches.get(k, 0) > 0 for k in ("same", "down2", "up2")), launches
+    assert not rec.under("upfirdn2d.plain_route")
     monkeypatch.setattr(fir, "fir_spec", lambda *a, **k: (None, "forced plain"))
-    loss_p, grads_p = step()
-    assert fir.PLAIN_ROUTE.get("forced plain", 0) > 0
+    with profiling.recording() as rec:
+        loss_p, grads_p = step()
+    assert rec.under("upfirdn2d.plain_route").get("forced plain", 0) > 0
     np.testing.assert_allclose(float(loss_k), float(loss_p), rtol=1e-3)
     for i, (a, b) in enumerate(zip(grads_k, grads_p)):
         assert _rel(a, b) <= 1e-2, (i, _rel(a, b))

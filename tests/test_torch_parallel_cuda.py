@@ -21,6 +21,7 @@ import torch.distributed as dist
 
 from gantrack_tpu_torch.parallel import mesh as pm
 from gantrack_tpu_torch.tools.train import make_generator
+from gantrack_tpu_torch.utils import profiling
 
 CLARO = dict(resolution=256, channels=1, c_dim=0, cbase=16384, cmax=512, map_depth=2)
 BATCH = 8
@@ -38,7 +39,6 @@ def cuda_device(monkeypatch):
 
 def _four_steps(device, mesh):
     from gantrack_tpu_torch.models.stylegan2 import Discriminator
-    from gantrack_tpu_torch.ops import upwarp
     from gantrack_tpu_torch.training.augment import AugmentPipe, medical_augment_config
     from gantrack_tpu_torch.training.loss import StyleGAN2Loss, StyleGAN2LossConfig
     from gantrack_tpu_torch.training.step import TrainStepConfig, TrainStepper
@@ -55,10 +55,11 @@ def _four_steps(device, mesh):
     stepper = TrainStepper(loss, TrainStepConfig(batch_size=BATCH, z_dim=512, ada_target=0.6),
                            torch.Generator(device).manual_seed(0), mesh=mesh)
     reals = torch.randn((BATCH, 1, 256, 256), generator=torch.Generator().manual_seed(2))
-    upwarp.LAUNCHES.update({k: 0 for k in upwarp.LAUNCHES})
-    for flags in ((True, True), (False, False), (True, False), (False, True)):
-        stepper.run(state, reals.to(device), None, *flags)
-    assert upwarp.LAUNCHES["upwarp"] > 0 and upwarp.LAUNCHES["upsplat"] > 0
+    with profiling.recording() as rec:
+        for flags in ((True, True), (False, False), (True, False), (False, True)):
+            stepper.run(state, reals.to(device), None, *flags)
+    launches = rec.under("upwarp.launch")
+    assert launches.get("upwarp", 0) > 0 and launches.get("upsplat", 0) > 0
     out = {f"{name}.{k}": v.detach().cpu() for name in ("G", "D", "G_ema")
            for k, v in getattr(state, name).state_dict().items()}
     out.update(pl_mean=state.pl_mean.cpu(), ada_p=state.ada_p.cpu(),

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gantrack_tpu_torch.ops import probes
+from gantrack_tpu_torch.utils import profiling
 
 BF16 = torch.bfloat16
 
@@ -82,8 +83,8 @@ def test_ring_concat_and_row_slice_probes():
 
 
 def test_run_probes_prints_the_scripts_lines(capsys):
-    before = dict(probes.LAUNCHES)
-    sums = probes.run_probes("cpu")
+    with profiling.recording() as rec:
+        sums = probes.run_probes("cpu")
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == len(sums) == len(probes.matmul_cases()) + 5
     assert all(": OK sum=" in line for line in lines)
@@ -92,4 +93,4 @@ def test_run_probes_prints_the_scripts_lines(capsys):
     assert sums["C two-slot-ring-dynslot"] == 4.0 * 16 * 32 * 64
     assert sums["D concat-9x64"] == 256.0 * 576
     assert sums["E row-offset-slice"] == 32.0 * 128
-    assert probes.LAUNCHES == before  # a CPU run launches no kernel
+    assert rec.under("probes.launch") == {}  # a CPU run launches no kernel

@@ -23,7 +23,7 @@ from gantrack_tpu.models import stylegan3 as jsg3
 from gantrack_tpu.models.torch_compat import sg3_generator_params_from_torch
 from gantrack_tpu_torch.models import bridge
 from gantrack_tpu_torch.models import stylegan3 as tsg3
-from gantrack_tpu_torch.ops import fir
+from gantrack_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -83,13 +83,12 @@ def test_generator_matches_jax_with_carried_weights(cfg):
     g = port_generator(cfg, variables)
     z = np.random.default_rng(5).standard_normal((2, ZDIM)).astype(np.float32)
     want = np.asarray(jax_apply(cfg)(variables, jnp.asarray(z)))
-    before = dict(fir.PLAIN_ROUTE)
-    got = g(torch.from_numpy(z), None, noise_mode="const")
+    with profiling.recording() as rec:
+        got = g(torch.from_numpy(z), None, noise_mode="const")
     assert got.shape == (2, 1, RES, RES) and got.dtype == torch.float32
     _close(_nhwc(got), want)
     # Only -r has filters that no FIR kernel takes for being radial.
-    radial = fir.PLAIN_ROUTE.get("2-D filter, not separable", 0) - before.get(
-        "2-D filter, not separable", 0)
+    radial = rec.counters.get("upfirdn2d.plain_route/2-D filter, not separable", 0)
     assert (radial > 0) == (cfg == "stylegan3-r")
 
 

@@ -45,6 +45,7 @@ from gantrack_tpu_torch.training import augment as taug
 from gantrack_tpu_torch.training import loss as tloss
 from gantrack_tpu_torch.training import step as tstep
 from gantrack_tpu_torch.training.train_state import create_train_state
+from gantrack_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -249,20 +250,21 @@ def test_full_step_on_the_kernel_route_matches_library_and_jax():
     from gantrack_tpu_torch.ops import conv3x3 as c3
 
     lib_state, _, _ = _run_full_step("library")
-    c3.LIBRARY_ROUTE.clear()
     calls = []
     conv, wgrad = c3._conv, c3._wgrad
     try:
         c3._conv = lambda x, w: calls.append("conv") or conv(x, w)
         c3._wgrad = lambda x, g: calls.append("wgrad") or wgrad(x, g)
-        state, new_j, moments = _run_full_step("kernel")
+        with profiling.recording() as rec:
+            state, new_j, moments = _run_full_step("kernel")
     finally:
         c3._conv, c3._wgrad = conv, wgrad
     # G 4^2..16^2 conv1 and D 16^2, 8^2 conv0 and the epilogue conv, in four
     # phases, differentiated once or twice.
     assert calls.count("conv") > 40 and calls.count("wgrad") > 10, (len(calls),)
     # Only the 3×3 layers take ``conv_impl``: the strided ones stay on the library.
-    assert set(c3.LIBRARY_ROUTE) == {"up=2, down=1", "up=1, down=2"}, c3.LIBRARY_ROUTE
+    routed = rec.under("conv3x3.library_route")
+    assert set(routed) == {"up=2, down=1", "up=1, down=2"}, routed
     _assert_step_matches_jax(state, new_j, moments)
     for name in ("G", "D", "G_ema"):
         lib, ker = getattr(lib_state, name).state_dict(), getattr(state, name).state_dict()
