@@ -18,10 +18,11 @@ per source, all started together), then:
    drawn from ``medical_augment_config`` at p = 1; timed at 64 and 32
    planes one call at a time, back to back and cold, with the share of
    their blocks that read from device memory), the resample FIR
-   K5–K7 (``ops/fir.py``) at the five FIR shapes of the claro step and
-   four ↓2 and four ×2 shapes of StyleGAN3-T (12 taps; forward alone and
-   forward + backward, one call at a time, back to back and cold; each
-   kernel also at several grid sizes), and
+   K5–K7 (``ops/fir.py``) at the five FIR shapes of the claro step,
+   four ↓2 and four ×2 shapes of StyleGAN3-T (12 taps) and its four ×4
+   and four ↓4 shapes (K7 at ×4 and the ↓4 kernel, 24 taps; forward
+   alone and forward + backward, one call at a time, back to back and
+   cold; each kernel also at several grid sizes), and
    the affine warp pair K3/K4 (``ops/warp.py``) at the shape of the
    unfused augment chain (64 planes of 812 × 806, out 524², bf16) and of
    the equivariance metrics (8 planes of 256², float32), each with
@@ -155,6 +156,9 @@ KERNELS = {
     "fir_same": ("fir.cu", "gantrack_tpu/ops/attic/fir.py:100"),
     "fir_down2": ("fir.cu", "gantrack_tpu/ops/attic/fir.py:117"),
     "fir_up2": ("fir.cu", "gantrack_tpu/ops/attic/fir.py:144"),
+    # StyleGAN3's factor 4: XLA convolutions in the JAX package, no TPU kernel.
+    "fir_up4": ("fir.cu", "gantrack_tpu/ops/upfirdn2d.py:146 (XLA)"),
+    "fir_down4": ("fir.cu", "gantrack_tpu/ops/upfirdn2d.py:146 (XLA)"),
     "warp": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:87"),
     "splat": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:114"),
     "conv3x3": ("conv3x3.cu", "gantrack_tpu/ops/attic/conv3x3.py:145"),
@@ -200,15 +204,15 @@ SG3_ARGS = [
     "--dlr=0.0025", "--aug=ada", "--target=0.6", "--mirror=1", "--kimg=1", "--tick=1",
     "--snap=1", "--metrics=eqt1k_int,eqr1k", "--devices=1",
 ]
-# The only upfirdn2d calls of StyleGAN3-T that no FIR kernel covers (the
-# reason as ``fir.fir_spec`` words it): the x4 up-filters of its layers.
-SG3_T_PLAIN_REASONS = ("up=4, down=1",)
-# Those of StyleGAN3-R: its radial (2-D) down-filters, D's input blur at its
-# initial sigma of 10 (61 taps; it fades over 200 kimg) and the x4
-# up-filters (``fir.fir_spec``'s words; a step of -r at 256^2 and narrow widths on the CPU
-# takes these three and no other).
-SG3_R_PLAIN_REASONS = ("2-D filter, not separable", "61 x 61 taps (at most 32 per axis)",
-                     "up=4, down=1")
+# The upfirdn2d calls of StyleGAN3-T that no FIR kernel covers (the reason
+# as ``fir.fir_spec`` words it): none, since its x4 up-filters and their
+# adjoints take the x4 kernels.
+SG3_T_PLAIN_REASONS = ()
+# Those of StyleGAN3-R: its radial (2-D) down-filters and D's input blur at
+# its initial sigma of 10 (61 taps; it fades over 200 kimg) (``fir.fir_spec``'s
+# words; a step of -r at 256^2 and narrow widths on the CPU takes these two
+# and no other).
+SG3_R_PLAIN_REASONS = ("2-D filter, not separable", "61 x 61 taps (at most 32 per axis)")
 # The FIR calls of phase 1: name, [N, C, H, W], dtype of the step, then
 # the upfirdn2d arguments.  The first of each form is the one the kernel
 # report quotes: for K5 the claro step's, for K6 and K7 StyleGAN3-T's
@@ -246,6 +250,23 @@ FIR_SHAPES = [
 ] + [
     ("G image skip upsample2d (up2)", (32, 1, 128, 128), "f32",
      dict(filter="f4", up=2, padding=[2, 1, 2, 1], gain=4)),
+] + [
+    # StyleGAN3-T's ×4 up-filters at batch 16 (filtered_lrelu of L10, L7,
+    # L5, L3): 24 taps, gain 16, the cropping pads of its layers.
+    (f"StyleGAN3-T {label} (up4, 24 taps)", shape, "bf16",
+     dict(filter="sg3x4", up=4, padding=[-6, -9, -6, -9], gain=16))
+    for label, shape in (("150² -> 562²", (16, 256, 150, 150)),
+                         ("86² -> 306²", (16, 512, 86, 86)),
+                         ("54² -> 178²", (16, 512, 54, 54)),
+                         ("38² -> 114²", (16, 512, 38, 38)))
+] + [
+    # Their ↓4 adjoints (the generator's backward): 24 taps, pads 29.
+    (f"StyleGAN3-T {label} (down4, 24 taps)", shape, "bf16",
+     dict(filter="sg3x4", down=4, padding=29, gain=16))
+    for label, shape in (("562² -> 150²", (16, 256, 562, 562)),
+                         ("306² -> 86²", (16, 512, 306, 306)),
+                         ("178² -> 54²", (16, 512, 178, 178)),
+                         ("114² -> 38²", (16, 512, 114, 114)))
 ]
 # Grid sizes of the FIR kernels (blocks an SM) timed beside their own
 # choice (``kBlocksPerSM``, ``kUpBlocksPerSM`` of csrc/fir.cu).
@@ -255,6 +276,8 @@ UPWARP_PLANES = (64, 32)
 # A 12-tap StyleGAN3 low-pass of the ×2 layers (Kaiser, as the generator
 # designs it: numtaps, cutoff, transition width, sampling rate).
 SG3_FILTER = (12, 32.0, 16.0, 128.0)
+# The 24-tap low-pass of its ×4 layers (L10's design).
+SG3X4_FILTER = (24, 45.254833995939045, 37.49033200812191, 512.0)
 
 
 def reference_stand_in(net, init_kwargs=None):
@@ -377,8 +400,9 @@ def _launch_counts() -> dict:
     from gantrack_tpu_torch.ops import conv3x3 as c3
 
     rec = _recorder()
-    counts = dict.fromkeys(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2", "warp",
-                            "splat", "conv3x3", "wgrad3x3", *c3.VARIANTS, *PROBES), 0)
+    counts = dict.fromkeys(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2", "fir_up4",
+                            "fir_down4", "warp", "splat", "conv3x3", "wgrad3x3", *c3.VARIANTS,
+                            *PROBES), 0)
     for prefix, head in (("upwarp.launch", ""), ("fir.launch", "fir_"), ("warp.launch", ""),
                          ("conv3x3.launch", ""), ("conv3x3.variant", ""), ("probes.launch", "")):
         counts.update({head + k: n for k, n in rec.under(prefix).items()})
@@ -643,8 +667,9 @@ def check_kernels(card: str) -> dict:
 
 
 def check_fir(card: str) -> dict:
-    """Phase 1 (FIR): K5–K7 against the plain ``upfirdn2d`` at the step's
-    FIR shapes, and at StyleGAN3-T's ↓2 and ×2 shapes.  Each shape is timed
+    """Phase 1 (FIR): K5–K7 and the ↓4 kernel against the plain
+    ``upfirdn2d`` at the step's FIR shapes, and at StyleGAN3-T's ↓2, ×2,
+    ×4 and ↓4 shapes.  Each shape is timed
     forward alone and forward + backward, one call at a time, back to back
     and (forward) on a cold L2, beside its bound and the one library call
     that computes it, and the kernel is also timed at the grid sizes of
@@ -665,7 +690,8 @@ def check_fir(card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     filters = {"f4": ufd.setup_filter([1, 3, 3, 1]), "sym6": ufd.setup_filter(WAVELETS["sym6"]),
-               "sg3": torch.from_numpy(design_lowpass_filter(*SG3_FILTER))}
+               "sg3": torch.from_numpy(design_lowpass_filter(*SG3_FILTER)),
+               "sg3x4": torch.from_numpy(design_lowpass_filter(*SG3X4_FILTER))}
     report = {}
     for label, shape, step_dtype, call in FIR_SHAPES:
         kw = dict(call)
@@ -741,10 +767,11 @@ def check_fir(card: str) -> dict:
                       "lib fb": _median_ms(lambda: torch.autograd.grad(lib(xt), xt, gt), slow),
                       "lib fb b2b": _b2b_ms(lambda: torch.autograd.grad(lib(xt), xt, gt), slow)})
         # Bound of the forward: x and the output once; a separable pass of
-        # ky then kx taps per output (half of them for the polyphase up2),
-        # 2 flops a tap.  Forward + backward: twice that.
+        # ky then kx taps per output (a half or a quarter of them for the
+        # polyphase up2 and up4), 2 flops a tap.  Forward + backward: twice
+        # that.
         ky, kx = len(spec.taps_y), len(spec.taps_x)
-        taps_per_out = (ky + kx) / (2 if spec.form == "up2" else 1)
+        taps_per_out = (ky + kx) / fir.FACTORS[spec.form][0]
         bound_f = _bound(_nbytes(xt, gt), gt.numel() * 2 * taps_per_out)
         bound = _bound(2 * _nbytes(xt, gt), 2 * gt.numel() * 2 * taps_per_out)
 
@@ -784,29 +811,31 @@ def check_fir(card: str) -> dict:
 
 def _fir_library_call(spec, channels: int, dev, dtype):
     """One ``torch.nn.functional`` call that computes the FIR of ``spec``
-    on ``[N, channels, H, W]``, or None where no one call does: for same
-    and down2 the depthwise ``F.conv2d`` (stride 1 or 2) where each axis
-    has equal pads or pads ≤ 0 (a view crops those first); for up2 the
-    depthwise ``F.conv_transpose2d(stride=2, padding=q)`` with
-    q = k − 1 − p0 ≥ 0 and p1 = p0 − 1 (p1 = p0 through
+    on ``[N, channels, H, W]``, or None where no one call does: for same,
+    down2 and down4 the depthwise ``F.conv2d`` (stride 1, 2 or 4) where
+    each axis has equal pads or pads ≤ 0 (a view crops those first); for
+    up2 and up4 the depthwise ``F.conv_transpose2d(stride=u, padding=q)``
+    with q = k − 1 − p0 ≥ 0 and p1 − p0 + u − 1 in 0 .. u − 1 (the
     ``output_padding``)."""
     import torch
     import torch.nn.functional as F
+
+    from gantrack_tpu_torch.ops import fir
 
     ty = torch.tensor(spec.taps_y, dtype=torch.float64)
     tx = torch.tensor(spec.taps_x, dtype=torch.float64)
     w2 = torch.outer(ty, tx)  # correlation taps, gain folded in
     py0, py1, px0, px1 = spec.pads
     ky, kx = len(ty), len(tx)
-    if spec.form == "up2":
-        q, extra = (ky - 1 - py0, kx - 1 - px0), (py1 - py0 + 1, px1 - px0 + 1)
-        if min(q) < 0 or not set(extra) <= {0, 1}:
+    up, stride = fir.FACTORS[spec.form]
+    if up > 1:
+        q, extra = (ky - 1 - py0, kx - 1 - px0), (py1 - py0 + up - 1, px1 - px0 + up - 1)
+        if min(q) < 0 or not set(extra) <= set(range(up)):
             return None
         w = w2.flip([0, 1]).to(dev, dtype)[None, None].repeat(channels, 1, 1, 1)
-        return lambda x: F.conv_transpose2d(x, w, stride=2, padding=q, output_padding=extra,
+        return lambda x: F.conv_transpose2d(x, w, stride=up, padding=q, output_padding=extra,
                                             groups=channels)
     w = w2.to(dev, dtype)[None, None].repeat(channels, 1, 1, 1)
-    stride = 2 if spec.form == "down2" else 1
     if py0 == py1 >= 0 and px0 == px1 >= 0:
         return lambda x: F.conv2d(x, w, stride=stride, padding=(py0, px0), groups=channels)
     if max(spec.pads) <= 0:
@@ -1674,20 +1703,26 @@ _DTYPES = {"__nv_bfloat16": "bf16", "float": "f32"}
 
 def kernel_label(name: str) -> str:
     """A profiler row named by what it computes where it is a FIR kernel
-    (``fir_kernel<T, form, taps>``: form 0 same, 1 down2, 2 up2; the ×2
-    polyphase ``fir_up_kernel<T, factor, taps>``; taps 0 is the generic
-    tap loop) or a warp kernel (K1–K4), else the kernel's own name."""
+    (``fir_kernel<T, form, taps>``: form 0 same, 1 down2, 2 up2; the
+    polyphase ``fir_up_kernel<T, factor, taps>``; ``fir_down4_kernel<T,
+    taps>``; taps 0 is the generic tap loop) or a warp kernel (K1–K4),
+    else the kernel's own name."""
     import re
 
     m = re.search(r"\b(" + "|".join(_WARP_ROWS) + r")<([\w:]+)", name)
     if m:
         kind, dtype = m.groups()
         return f"{_WARP_ROWS[kind]}, {_DTYPES.get(dtype, dtype)} [{kind}]"
-    m = re.search(r"\b(fir_kernel|fir_up_kernel)<([\w:]+), (\d+), (\d+)>", name)
-    if not m:
-        return name
-    kind, dtype, form, taps = m.groups()
-    what = _FIR_FORMS[int(form)] if kind == "fir_kernel" else f"up{form} (K7)"
+    m = re.search(r"\b(fir_down4_kernel)<([\w:]+), (\d+)>", name)
+    if m:
+        kind, dtype, taps = m.groups()
+        form, what = "4", "down4"
+    else:
+        m = re.search(r"\b(fir_kernel|fir_up_kernel)<([\w:]+), (\d+), (\d+)>", name)
+        if not m:
+            return name
+        kind, dtype, form, taps = m.groups()
+        what = _FIR_FORMS[int(form)] if kind == "fir_kernel" else f"up{form} (K7)"
     taps = taps if taps != "0" else "any"
     return f"FIR {what}, {taps} taps, {_DTYPES.get(dtype, dtype)} [{kind}]"
 
@@ -1706,6 +1741,7 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from gantrack_tpu_torch.ops import fir
     from gantrack_tpu_torch.utils import profiling
 
     with profiling.recording() as rec, \
@@ -1731,7 +1767,7 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
     hand = conv + sum(t for k, t in rows.items() if "gantrack" in k or k.startswith(_HAND_ROWS))
     depthwise = sum(t for k, t in rows.items() if "depthwise" in k.lower())
     forms = {form: sum(t for k, t in rows.items() if k.startswith(f"FIR {form}"))
-             for form in ("same", "down2", "up2")}
+             for form in fir.FORMS}
     warps = {w: sum(t for k, t in rows.items() if k.startswith(w)) for w in _HAND_ROWS[1:]}
     print(f"  profile of one {label} step on {card}: {total:.1f} ms of device time in "
           f"{len(rows)} kernels; depthwise-conv kernels (the plain FIR route) {depthwise:.1f} ms "
@@ -1774,14 +1810,14 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     run_dir = cli.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2", "warp"),
-                              SG3_T_PLAIN_REASONS)
+    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2",
+                               "fir_up4", "fir_down4", "warp"), SG3_T_PLAIN_REASONS)
     print(f"  CLI run: {seconds:.1f} s wall (incl. setup, image grids and the eq metrics) on "
           f"{card}; kernel launches {launches}")
     print(f"  upfirdn2d calls outside the FIR kernels' contract (plain route) in the run: "
           f"{sum(_plain_route().values())}, by reason {_plain_route()}")
-    if not _plain_route():
-        raise AssertionError("StyleGAN3's factor-4 filters did not take the plain route")
+    if _plain_route():
+        raise AssertionError(f"StyleGAN3-T calls took the plain route: {_plain_route()}")
 
     with open(os.path.join(run_dir, "stats.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -1870,7 +1906,7 @@ def train_stylegan3(card: str, tmp: str, data: str, args=SG3_ARGS, res: int = 25
     t0 = time.perf_counter()
     results = calc_metrics.main(argv)
     torch.cuda.synchronize()
-    launches = _read_launches(("fir_down2", "fir_up2"), SG3_T_PLAIN_REASONS)
+    launches = _read_launches(("fir_down2", "fir_up2", "fir_up4"), SG3_T_PLAIN_REASONS)
     print(f"  {results} in {time.perf_counter() - t0:.1f} s on {card}; kernel launches "
           f"{ {k: n for k, n in launches.items() if n} }; plain-route FIR calls "
           f"{_plain_route()}")
@@ -2404,7 +2440,8 @@ def run_generation(card: str, tmp: str, data: str, claro_dir: str, sg3_dir: str)
         raise AssertionError(f"PPL (force_fp32) {value32}")
     print(f"  C12: ppl of the claro checkpoint, seed {mopts.seed}, 2000 samples: {value:.6f} as "
           f"is (top 4 resolutions in bf16), {value32:.6f} with force_fp32=True, on {card}")
-    launches = _read_launches(("fir_same", "fir_down2", "fir_up2"), SG3_T_PLAIN_REASONS)
+    launches = _read_launches(("fir_same", "fir_down2", "fir_up2", "fir_up4"),
+                              SG3_T_PLAIN_REASONS)
     stop_recording()
     print(f"  kernel launches of the generation leg: "
           f"{ {k: n for k, n in launches.items() if n} }")

@@ -1,5 +1,5 @@
-// Separable resample FIR in three forms (K5 same, K6 down2, K7 up2) for
-// NVIDIA Hopper (sm_90a).
+// Separable resample FIR in five forms (K5 same, K6 down2, K7 up2 and up4,
+// and down4) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels ``_fir_same_kernel``, ``_fir_down2_kernel``
 // and ``_fir_up2_kernel`` (launched by ``_call_same``, ``_call_down2`` and
@@ -14,11 +14,15 @@
 //            Z[2m, 2n] = X[m, n] and zero elsewhere (polyphase: only taps
 //            that land on an even Z row and column are read; Z is never
 //            built).
+// StyleGAN3's factor 4, which the JAX package computes with XLA
+// convolutions (no TPU kernel), takes up4 (``fir_up_kernel<T, 4, K>``) and
+// down4 (``fir_down4_kernel``): the same contracts with 4 for 2.
 // Samples outside the image are zero, so any pads work, including the
 // negative ones (cropping) of the augment pipe.  Sums are f32; the output
-// has the input's type (f32 or bf16).  The three forms are closed under
-// transposition (adjoint(same) = same, adjoint(down2) = up2 and back), so
-// the PyTorch wrapper's backward is this kernel again, to any order.
+// has the input's type (f32 or bf16).  The forms are closed under
+// transposition (adjoint(same) = same, adjoint(down2) = up2 and back,
+// adjoint(down4) = up4 and back), so the PyTorch wrapper's backward is
+// this kernel again, to any order.
 //
 // What is ported is the arithmetic.  The TPU form (``pl.Element`` halo
 // windows over the untiled H dimension, lane regroups for the decimation
@@ -97,12 +101,35 @@
 // the per-output form over the zero-stuffed grid does without the zero
 // terms.
 //
-// Tap counts 4 and 12 are unrolled at compile time; other counts up to
-// kMaxTaps take a generic loop (K5, K6: the vertical pass then reads each
-// tap's sample from device memory, not from a register window).  K7's
-// factor is a template parameter, instantiated at 2 only.  The grid sizes
-// (blocks an SM) are the fastest of 2 .. 1024 on an H100 at StyleGAN3-T's
-// shapes, which chip_smoke.py times on every run.
+// K7 at x4: the output is sixteen times the input, so its writes are the
+// byte bound (2.59 of 2.77 GB at StyleGAN3-T's largest call).  A block
+// owns an output tile of 64 rows x 128 columns (64 at f32) and walks the
+// planes; per plane it stages the tile's input box (21 x 40 at 24 taps)
+// as f32 in shared memory, loaded while the last plane was computed, runs
+// the vertical polyphase pass into a f32 buffer, then the horizontal pass
+// into the output tile in shared memory (a lane computes one 16-byte word
+// of outputs: the output column's slot and group are static for a
+// launch, so the taps unroll), rounded once, and copies the tile's rows
+// out in the widest words each row's address allows, neighbouring lanes
+// on neighbouring words.  (The rows of StyleGAN3-T's canvases are only
+// 4-byte aligned; storing each lane's 16 bytes straight from registers,
+// shifted to the row's 16-byte boundaries by warp shuffles, measured 1.28x
+// slower on an H100 at its largest call, and unrolling the passes or
+// capping the registers slower too.)  The down4 kernel (its adjoint)
+// reads sixteen times what it writes: K6's register column at step 4,
+// streamed (each input sample is read once and added into the output rows
+// whose taps reach it, so no window of 84 rows is held; a column wholly
+// inside the image skips the bounds tests), then K6's horizontal pass
+// with 16-byte words at step 4.  Neither uses atomics: the bits do not
+// depend on the grid.
+//
+// Tap counts 4 and 12 (24 at x4) are unrolled at compile time; other
+// counts up to kMaxTaps take a generic loop (K5, K6, down4: the vertical
+// pass then reads each tap's sample from device memory, not from a
+// register window).  K7's factor is a template parameter, instantiated at
+// 2 and 4.  The grid sizes (blocks an SM) are the fastest of 2 .. 1024
+// on an H100 at StyleGAN3-T's shapes, which chip_smoke.py times on every
+// run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -532,6 +559,413 @@ void launch_up_taps(const T* x, T* out, int P, int H, int W, int OH, int OW, con
   }
 }
 
+// ------------------------------------------------- K7 at x4, and the ↓4 adjoint
+
+constexpr int kUp4PhaseTaps = kMaxTaps / 4;  // taps of a residue, at most
+constexpr int kUp4Threads = 256;             // 8 warps
+constexpr int kUp4Rows = 64;                 // output rows of a tile: 16 groups of 4
+constexpr int kUp4Groups = kUp4Rows / 4;
+// Blocks of a launch an SM: on an H100 the fastest of 2 .. 1024 at
+// StyleGAN3-T's x4 shapes, which chip_smoke.py times on every run.
+constexpr int kUp4BlocksPerSM = 128;
+
+// One axis of the x4 polyphase split in the kernel's order: the four
+// outputs 4a + e + i (slot i = 0 .. 3; residue (e + i) mod 4) read the
+// same input samples, out[4a + e + i] = sum_t t[i][t] * X[a + D + t],
+// t < n[i].  Built by read_up4_axis from ops/fir.py ``up_phases``.
+struct Up4Axis {
+  float t[4][kUp4PhaseTaps];
+  int n[4];
+  int e;
+  int D;
+};
+
+// The tile of the x4 kernel by element type: a lane computes one 16-byte
+// word of outputs (kChunk) a row, 16 words a row, so a warp takes two rows
+// at once; the input box holds the tile's columns (kCols / 4 groups, one
+// more where the tile starts inside a group, and the taps' reach).
+template <typename T>
+struct Up4Tile {
+  static constexpr int kChunk = 16 / sizeof(T);
+  static constexpr int kCols = 16 * kChunk;
+  static constexpr int kBoxCols = kCols / 4 + kUp4PhaseTaps;
+  // Odd at bf16, so the two half-warps' rows fall on banks of either parity.
+  static constexpr int kVertPitch = kBoxCols + (sizeof(T) == 2 ? 1 : 0);
+};
+
+__device__ __forceinline__ unsigned bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The lane's word: outputs k = 0 .. A-1 at tile column A*q + k, slot
+// (PHI + k) mod 4 and group offset (PHI + k) / 4 from the vertical row
+// ``v`` (already at the lane's first group), rounded once into ``dst``.
+template <typename T, int NT, int PHI>
+__device__ __forceinline__ void up4_word(const float* v, T* dst, const Up4Axis& ax) {
+  constexpr int A = Up4Tile<T>::kChunk;
+  float o[A];
+  if constexpr (NT > 0) {
+    constexpr int NW = (PHI + A - 1) / 4 + NT;
+    float w[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) w[j] = v[j];
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) s += ax.t[(PHI + k) % 4][t] * w[(PHI + k) / 4 + t];
+      o[k] = s;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
+      const int slot = (PHI + k) % 4, go = (PHI + k) / 4;
+      float s = 0.f;
+      for (int t = 0; t < ax.n[slot]; ++t) s += ax.t[slot][t] * v[go + t];
+      o[k] = s;
+    }
+  }
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(bf16x2_bits(o[0], o[1]), bf16x2_bits(o[2], o[3]),
+                                                bf16x2_bits(o[4], o[5]), bf16x2_bits(o[6], o[7]));
+  } else {
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// The horizontal pass of one plane: vertical rows -> the output tile in
+// shared memory, one 16-byte word a lane, two rows a warp at a time.
+template <typename T, int NT, int PHI>
+__device__ __forceinline__ void up4_rows(const float (*vert)[Up4Tile<T>::kVertPitch],
+                                         T (*stage)[Up4Tile<T>::kCols], int oy0, int OH, int n,
+                                         const Up4Axis& ax) {
+  constexpr int A = Up4Tile<T>::kChunk;
+  const int lane = threadIdx.x & 31, q = lane & 15;
+  if (A * q >= n) return;
+  for (int r = 2 * (threadIdx.x >> 5) + (lane >> 4); r < kUp4Rows; r += 16) {
+    if (oy0 + r < 0 || oy0 + r >= OH) continue;
+    up4_word<T, NT, PHI>(vert[r] + (A / 4) * q, stage[r] + A * q, ax);
+  }
+}
+
+// One row of the staged tile to device memory in the widest words its
+// address allows (16 bytes where the row is so aligned), lanes on
+// neighbouring words.
+template <typename W, typename T>
+__device__ __forceinline__ void copy_words(T* dst, const T* src, int n, int lane) {
+  constexpr int E = sizeof(W) / sizeof(T);
+  const int words = n / E;
+  for (int j = lane; j < words; j += 32) {
+    reinterpret_cast<W*>(dst)[j] = reinterpret_cast<const W*>(src)[j];
+  }
+  for (int j = words * E + lane; j < n; j += 32) dst[j] = src[j];
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_row(T* dst, const T* src, int n, int lane) {
+  const size_t a = reinterpret_cast<size_t>(dst);
+  if (a % 16 == 0) {
+    copy_words<uint4>(dst, src, n, lane);
+  } else if (a % 8 == 0) {
+    copy_words<uint2>(dst, src, n, lane);
+  } else if (a % 4 == 0) {
+    copy_words<unsigned>(dst, src, n, lane);
+  } else {
+    copy_words<T>(dst, src, n, lane);
+  }
+}
+
+// K7 at x4: one block per output tile of kUp4Rows x kCols; the z dimension
+// of the grid walks the planes.  Per plane: the tile's input box (staged
+// as f32, the next plane's in flight in registers), the vertical pass
+// into a f32 buffer, the horizontal pass into the output tile in shared
+// memory (rounded once), then the tile's rows out in wide words.  K > 0
+// fixes the tap count of both axes (K/4 in each slot); K == 0 reads the
+// counts at run time.
+template <typename T, int UP, int K>
+__global__ void __launch_bounds__(kUp4Threads)
+fir_up_kernel(const T* __restrict__ x, T* __restrict__ out, int P, int H, int W, int OH, int OW,
+              Up4Axis ay, Up4Axis ax) {
+  static_assert(UP == 4, "the x4 form");
+  static_assert(K % 4 == 0, "a fixed tap count is a multiple of 4: K/4 taps in each slot");
+  using G = Up4Tile<T>;
+  constexpr int NT = K / 4;
+  constexpr int BR = kUp4Groups + (K > 0 ? NT : kUp4PhaseTaps) - 1;  // box rows
+  constexpr int BC = G::kBoxCols;
+  constexpr int NL = (BR * BC + kUp4Threads - 1) / kUp4Threads;       // box loads a thread
+  __shared__ float box[2][BR][BC];
+  __shared__ float vert[kUp4Rows][G::kVertPitch];
+  __shared__ uint4 stage_words[kUp4Rows * G::kCols * sizeof(T) / 16];
+  T (*stage)[G::kCols] = reinterpret_cast<T (*)[G::kCols]>(stage_words);
+  const int tid = threadIdx.x, lane = tid & 31;
+  // Vertical row 0 is output row oy0 = 4 * a0 + ay.e, the first of a group.
+  const int oy0 = blockIdx.y * kUp4Rows - ((4 - ay.e) & 3);
+  const int a0 = (oy0 - ay.e) / 4;  // exact
+  // The tile's first output column starts slot phi of group gx0.
+  const int ub = blockIdx.x * G::kCols, n = min(G::kCols, OW - ub);
+  const int phi = (ub - ax.e) & 3;
+  const int gx0 = (ub - ax.e - phi) / 4;  // exact
+  const int iy0 = a0 + ay.D, ix0 = gx0 + ax.D;
+  float pre[NL];
+  auto load_box = [&](int p) {
+    const T* plane = x + (size_t)p * H * W;
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+      const int idx = tid + k * kUp4Threads, iy = iy0 + idx / BC, ix = ix0 + idx % BC;
+      pre[k] = (idx < BR * BC && iy >= 0 && iy < H && ix >= 0 && ix < W)
+                   ? load(plane + (size_t)iy * W + ix) : 0.f;
+    }
+  };
+  int p = blockIdx.z;
+  if (p < P) load_box(p);
+  for (int buf = 0; p < P; p += gridDim.z, buf ^= 1) {
+    float* bx = &box[buf][0][0];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+      if (tid + k * kUp4Threads < BR * BC) bx[tid + k * kUp4Threads] = pre[k];
+    }
+    // The next plane's box is in flight while this plane is computed.
+    if (p + (int)gridDim.z < P) load_box(p + gridDim.z);
+    __syncthreads();  // the box is in; the last plane's tile has left shared memory
+    for (int it = tid; it < kUp4Groups * BC; it += kUp4Threads) {
+      const int g = it / BC, c = it % BC;
+      if constexpr (NT > 0) {
+        float w[NT];
+#pragma unroll
+        for (int t = 0; t < NT; ++t) w[t] = box[buf][g + t][c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float s = 0.f;
+#pragma unroll
+          for (int t = 0; t < NT; ++t) s += ay.t[i][t] * w[t];
+          vert[4 * g + i][c] = s;
+        }
+      } else {
+        for (int i = 0; i < 4; ++i) {
+          float s = 0.f;
+          for (int t = 0; t < ay.n[i]; ++t) s += ay.t[i][t] * box[buf][g + t][c];
+          vert[4 * g + i][c] = s;
+        }
+      }
+    }
+    __syncthreads();
+    switch (phi) {
+      case 0: up4_rows<T, NT, 0>(vert, stage, oy0, OH, n, ax); break;
+      case 1: up4_rows<T, NT, 1>(vert, stage, oy0, OH, n, ax); break;
+      case 2: up4_rows<T, NT, 2>(vert, stage, oy0, OH, n, ax); break;
+      default: up4_rows<T, NT, 3>(vert, stage, oy0, OH, n, ax); break;
+    }
+    __syncthreads();
+    T* plane = out + (size_t)p * OH * OW + ub;
+    for (int r = tid >> 5; r < kUp4Rows; r += kUp4Threads / 32) {
+      const int oy = oy0 + r;
+      if (oy >= 0 && oy < OH) copy_row(plane + (size_t)oy * OW, stage[r], n, lane);
+    }
+  }
+}
+
+template <typename T, int K>
+void launch_up4(const T* x, T* out, int P, int H, int W, int OH, int OW, const Up4Axis& ay,
+                const Up4Axis& ax, int blocks_per_sm, cudaStream_t s) {
+  constexpr int TC = Up4Tile<T>::kCols;
+  const int fy = (4 - ay.e) & 3;
+  const dim3 grid = plane_grid((OW + TC - 1) / TC, (OH + fy + kUp4Rows - 1) / kUp4Rows, P,
+                               blocks_per_sm);
+  fir_up_kernel<T, 4, K><<<grid, kUp4Threads, 0, s>>>(x, out, P, H, W, OH, OW, ay, ax);
+}
+
+template <typename T>
+void launch_up4_taps(const T* x, T* out, int P, int H, int W, int OH, int OW, const Up4Axis& ay,
+                     const Up4Axis& ax, int bps, cudaStream_t s) {
+  auto all = [](const Up4Axis& a, int n) {
+    return a.n[0] == n && a.n[1] == n && a.n[2] == n && a.n[3] == n;
+  };
+  if (all(ay, 6) && all(ax, 6)) {
+    launch_up4<T, 24>(x, out, P, H, W, OH, OW, ay, ax, bps, s);
+  } else {
+    launch_up4<T, 0>(x, out, P, H, W, OH, OW, ay, ax, bps, s);
+  }
+}
+
+// ``taps`` [4 residues][kUp4PhaseTaps] and ``geom`` [n_0 .. n_3, d_0 .. d_3]
+// of one axis (``up_phases``) in the kernel's slot order; false where the
+// split is not one (d_r is d_0 up to a residue and d_0 + 1 above).
+bool read_up4_axis(Up4Axis& ax, const float* taps, const int* geom) {
+  const int* d = geom + 4;
+  int at_d0 = 0;
+  for (int r = 0; r < 4; ++r) {
+    if (geom[r] < 0 || geom[r] > kUp4PhaseTaps) return false;
+    if (r > 0 && d[r] != d[r - 1] && d[r] != d[r - 1] + 1) return false;
+    at_d0 += d[r] == d[0];
+  }
+  if (d[3] > d[0] + 1) return false;
+  ax.e = at_d0 % 4;
+  ax.D = d[ax.e];
+  for (int i = 0; i < 4; ++i) {
+    const int r = (ax.e + i) % 4;
+    ax.n[i] = geom[r];
+    for (int j = 0; j < kUp4PhaseTaps; ++j) {
+      ax.t[i][j] = j < geom[r] ? taps[r * kUp4PhaseTaps + j] : 0.f;
+    }
+  }
+  return true;
+}
+
+constexpr int kDown4Cols = 256;  // window columns of a tile: one a thread
+constexpr int kDown4Threads = kDown4Cols;
+constexpr int kDown4Rows = 16;   // output rows of a tile
+// Blocks of a launch an SM: on an H100 the fastest of 2 .. 1024 at
+// StyleGAN3-T's ↓4 shapes, which chip_smoke.py times on every run.
+constexpr int kDown4BlocksPerSM = 256;
+
+// Output columns of a tile: the largest even count whose input window,
+// 4*(TW - 1) + k columns, fits kDown4Cols.
+__host__ __device__ constexpr int down4_tile_w(int k) { return ((kDown4Cols - k) / 4 + 1) & ~1; }
+
+// The vertical pass of the ↓4 kernel down one window column: sample j
+// (input row iy0 + j, ``ptr`` at j = 0) is added into the output rows a
+// with 0 <= j - 4a < K, taps ascending.  GUARDED reads only the rows
+// lo .. hi - 1 and takes the rest as zeros (outside the image); a column
+// wholly inside the image skips the tests, which cost 30 % of the
+// kernel's time at StyleGAN3-T's largest call.
+template <typename T, int K, bool GUARDED>
+__device__ __forceinline__ void down4_column(const T* ptr, int stride, int lo, int hi,
+                                             const Taps& t, float (&acc)[kDown4Rows]) {
+  constexpr int NY = 4 * (kDown4Rows - 1) + K;
+#pragma unroll
+  for (int j = 0; j < NY; ++j) {
+    const float v = (!GUARDED || (j >= lo && j < hi)) ? load(ptr) : 0.f;
+    ptr += stride;
+#pragma unroll
+    for (int a = 0; a < kDown4Rows; ++a) {
+      if (j - 4 * a >= 0 && j - 4 * a < K) acc[a] += t.y[j - 4 * a] * v;
+    }
+  }
+}
+
+// The ↓4 adjoint of K7 at x4: one block per output tile of kDown4Rows x
+// TW; the z dimension of the grid walks the planes.  Vertical pass: a
+// thread owns one column of the window and streams down it, each input
+// sample read once and added into the (at most K/4 + 1) output rows whose
+// taps reach it, then writes the tile's vertical sums to a shared f32
+// buffer (two alternate by plane: one barrier a plane).  Horizontal pass
+// as K6's at step 4: a lane takes an output pair and reads its window
+// columns as 16-byte words.  Each output sums its vertical taps in
+// ascending order, then its horizontal taps.
+template <typename T, int K>
+__global__ void __launch_bounds__(kDown4Threads)
+fir_down4_kernel(const T* __restrict__ x, T* __restrict__ out, int P, int H, int W, int OH,
+                 int OW, int py0, int px0, int ky_rt, int kx_rt, Taps t) {
+  constexpr int NY = K > 0 ? 4 * (kDown4Rows - 1) + K : 1;  // window rows streamed
+  constexpr int NH = (4 + K + 3) / 4 * 4;                      // window columns of a pair
+  static_assert(K == 0 || 4 * (down4_tile_w(K) - 2) + NH <= kDown4Cols,
+                "a lane's words stay inside the row of the vertical buffer");
+  __shared__ __align__(16) float vert[2][kDown4Rows][kDown4Cols];
+  const int ky = K > 0 ? K : ky_rt;
+  const int kx = K > 0 ? K : kx_rt;
+  const int tw = down4_tile_w(kx);
+  const int u0 = blockIdx.x * tw, v0 = blockIdx.y * kDown4Rows;
+  const int n_out = min(tw, (OW - u0 + 1) & ~1);
+  const int nc = 4 * (n_out - 1) + kx;
+  const int c = threadIdx.x;
+  const int ix = 4 * u0 - px0 + c;
+  const bool col_in = ix >= 0 && ix < W;
+  const bool active = c < nc;
+  const int iy0 = 4 * v0 - py0;
+  const int jlo = col_in ? max(0, -iy0) : NY, jhi = col_in ? min(NY, H - iy0) : NY;
+  const int lane = threadIdx.x & 31;
+  for (int p = blockIdx.z, buf = 0; p < P; p += gridDim.z, buf ^= 1) {
+    float (*vb)[kDown4Cols] = vert[buf];
+    if (active) {
+      if constexpr (K > 0) {
+        float acc[kDown4Rows];
+#pragma unroll
+        for (int a = 0; a < kDown4Rows; ++a) acc[a] = 0.f;
+        // Opaque to the compiler, as in fir_kernel's window.
+        int stride = W, lo = jlo, hi = jhi;
+        asm volatile("" : "+r"(stride), "+r"(lo), "+r"(hi));
+        const T* ptr = x + ((long long)p * H + iy0) * W + ix;
+        if (lo == 0 && hi == NY) {
+          down4_column<T, K, false>(ptr, stride, lo, hi, t, acc);
+        } else {
+          down4_column<T, K, true>(ptr, stride, lo, hi, t, acc);
+        }
+#pragma unroll
+        for (int a = 0; a < kDown4Rows; ++a) vb[a][c] = acc[a];
+      } else {
+        const T* col = x + (size_t)p * H * W + ix;
+        for (int a = 0; a < kDown4Rows; ++a) {
+          float s = 0.f;
+          for (int i = 0; i < ky; ++i) {
+            const int iy = iy0 + 4 * a + i;
+            s += t.y[i] * ((col_in && iy >= 0 && iy < H) ? load(col + (size_t)iy * W) : 0.f);
+          }
+          vb[a][c] = s;
+        }
+      }
+    }
+    __syncthreads();  // one barrier a plane: the two buffers alternate
+    T* plane = out + (size_t)p * OH * OW;
+    for (int r = threadIdx.x >> 5; r < kDown4Rows && v0 + r < OH; r += kDown4Threads / 32) {
+      T* row = plane + (size_t)(v0 + r) * OW;
+      const bool pair_ok = (reinterpret_cast<size_t>(row) % (2 * sizeof(T))) == 0;
+      const float* vr = vb[r];
+      for (int q = lane; 2 * q < n_out; q += 32) {
+        const int u = u0 + 2 * q;
+        float s0 = 0.f, s1 = 0.f;
+        if constexpr (K > 0) {
+          float h[NH];
+#pragma unroll
+          for (int j = 0; j < NH; j += 4) {
+            const float4 f = *reinterpret_cast<const float4*>(vr + 8 * q + j);
+            h[j] = f.x;
+            h[j + 1] = f.y;
+            h[j + 2] = f.z;
+            h[j + 3] = f.w;
+          }
+#pragma unroll
+          for (int j = 0; j < K; ++j) s0 += t.x[j] * h[j];
+#pragma unroll
+          for (int j = 0; j < K; ++j) s1 += t.x[j] * h[4 + j];
+        } else {
+          const float* hp = vr + 8 * q;
+          for (int j = 0; j < kx; ++j) s0 += t.x[j] * hp[j];
+          for (int j = 0; j < kx; ++j) s1 += t.x[j] * hp[4 + j];
+        }
+        if (u + 1 >= OW) {
+          store(row + u, s0);
+        } else if (pair_ok) {
+          store2(row + u, s0, s1);
+        } else {
+          store(row + u, s0);
+          store(row + u + 1, s1);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int K>
+void launch_down4(const T* x, T* out, int P, int H, int W, int OH, int OW, int py0, int px0,
+                  int ky, int kx, const Taps& t, int blocks_per_sm, cudaStream_t s) {
+  const int tw = down4_tile_w(kx);
+  const dim3 grid = plane_grid((OW + tw - 1) / tw, (OH + kDown4Rows - 1) / kDown4Rows, P,
+                               blocks_per_sm);
+  fir_down4_kernel<T, K><<<grid, kDown4Threads, 0, s>>>(x, out, P, H, W, OH, OW, py0, px0, ky,
+                                                         kx, t);
+}
+
+template <typename T>
+void launch_down4_taps(const T* x, T* out, int P, int H, int W, int OH, int OW, int py0,
+                       int px0, int ky, int kx, const Taps& t, int bps, cudaStream_t s) {
+  if (ky == 24 && kx == 24) {
+    launch_down4<T, 24>(x, out, P, H, W, OH, OW, py0, px0, ky, kx, t, bps, s);
+  } else {
+    launch_down4<T, 0>(x, out, P, H, W, OH, OW, py0, px0, ky, kx, t, bps, s);
+  }
+}
+
 bool read_phases(Phases& ph, const float* taps, const int* geom) {
   for (int r = 0; r < 2; ++r) {
     ph.n[r] = geom[r];
@@ -594,6 +1028,57 @@ extern "C" int gantrack_fir_up2(const void* x, void* out, int P, int H, int W, i
                                   py, px, bps, s);
   } else {
     launch_up_taps<float>((const float*)x, (float*)out, P, H, W, OH, OW, py, px, bps, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7 at x4: ``taps`` is [2 axes (y, x)][4 residues][kMaxTaps / 4] floats
+// and ``geom`` [2 axes][n_0 .. n_3, d_0 .. d_3] ints, the polyphase split
+// that ops/fir.py ``up_phases`` makes of each axis' taps and low pad.
+// ``blocks_per_sm`` sizes the grid (0: kUp4BlocksPerSM).  Launches on
+// ``stream`` and returns cudaGetLastError() (or cudaErrorInvalidValue for
+// arguments outside the kernel's contract).
+extern "C" int gantrack_fir_up4(const void* x, void* out, int P, int H, int W, int OH, int OW,
+                                const float* taps, const int* geom, int is_bf16,
+                                int blocks_per_sm, void* stream) {
+  Up4Axis ay = {}, ax = {};
+  if (P < 1 || H < 1 || W < 1 || OH < 1 || OW < 1 || !read_up4_axis(ay, taps, geom) ||
+      !read_up4_axis(ax, taps + 4 * kUp4PhaseTaps, geom + 8) || blocks_per_sm < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int bps = blocks_per_sm > 0 ? blocks_per_sm : kUp4BlocksPerSM;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    launch_up4_taps<__nv_bfloat16>((const __nv_bfloat16*)x, (__nv_bfloat16*)out, P, H, W, OH, OW,
+                                   ay, ax, bps, s);
+  } else {
+    launch_up4_taps<float>((const float*)x, (float*)out, P, H, W, OH, OW, ay, ax, bps, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The ↓4 adjoint: ``taps_y``/``taps_x`` are host arrays of ky/kx
+// correlation taps, ``py0``/``px0`` the low pads; otherwise as
+// gantrack_fir (0: kDown4BlocksPerSM).
+extern "C" int gantrack_fir_down4(const void* x, void* out, int P, int H, int W, int OH, int OW,
+                                  int py0, int px0, int ky, int kx, const float* taps_y,
+                                  const float* taps_x, int is_bf16, int blocks_per_sm,
+                                  void* stream) {
+  if (ky < 1 || kx < 1 || ky > kMaxTaps || kx > kMaxTaps || P < 1 || H < 1 || W < 1 || OH < 1 ||
+      OW < 1 || blocks_per_sm < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Taps t = {};
+  for (int i = 0; i < ky; ++i) t.y[i] = taps_y[i];
+  for (int j = 0; j < kx; ++j) t.x[j] = taps_x[j];
+  const int bps = blocks_per_sm > 0 ? blocks_per_sm : kDown4BlocksPerSM;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    launch_down4_taps<__nv_bfloat16>((const __nv_bfloat16*)x, (__nv_bfloat16*)out, P, H, W, OH,
+                                     OW, py0, px0, ky, kx, t, bps, s);
+  } else {
+    launch_down4_taps<float>((const float*)x, (float*)out, P, H, W, OH, OW, py0, px0, ky, kx, t,
+                             bps, s);
   }
   return (int)cudaGetLastError();
 }

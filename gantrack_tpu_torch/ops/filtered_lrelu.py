@@ -7,9 +7,9 @@ FIR ``fd`` → keep every ``down``-th sample, on NCHW tensors.
 It is composed from the port's ops, as the JAX function is composed from
 XLA ops (it is no Pallas kernel there): the two FIR passes go through
 :func:`.upfirdn2d.upfirdn2d`, so a pass with a separable filter of at
-most 32 taps and a factor of 1 or 2 launches the FIR kernels K5–K7 on
-the card, and a factor-4 or radial pass takes the plain version
-(counted as ``upfirdn2d.plain_route/<why>``).
+most 32 taps and a factor of 1, 2 or 4 launches the FIR kernels on the
+card, and a radial pass takes the plain version (counted as
+``upfirdn2d.plain_route/<why>``).
 """
 
 from __future__ import annotations

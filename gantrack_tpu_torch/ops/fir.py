@@ -1,7 +1,9 @@
-"""Separable resample FIR: same rate, ↓2, and ↑2 (polyphase).
+"""Separable resample FIR: same rate, ↓2, ↑2, ↑4 (polyphase) and ↓4.
 
 Port of ``gantrack_tpu/ops/attic/fir.py`` (``fir2d``, kernels K5–K7) on
-``[P, H, W]`` planes.  A :class:`FirSpec` names the form and holds the
+``[P, H, W]`` planes, widened to StyleGAN3's factor 4 (the ×4 up-filters
+of its layers and their ↓4 adjoints, which the JAX kernels never
+covered).  A :class:`FirSpec` names the form and holds the
 correlation taps per axis (flipped unless ``flip_filter``, √gain per
 axis, as ``fir2d`` prepares them) and the pads ``(py0, py1, px0, px1)``
 of the up-rate grid, with the ``upfirdn2d`` contract: pad or crop, run
@@ -9,15 +11,15 @@ the taps, keep every ``down``-th sample.
 
 * :class:`Fir` is the autograd Function.  On a CUDA tensor its forward
   launches the kernel of ``csrc/fir.cu`` (same and down2: ``fir_kernel``;
-  up2: ``fir_up_kernel``, which takes the static polyphase split of
-  :func:`up2_phases`); on a CPU tensor it computes the
-  plain form with :func:`.upfirdn2d.upfirdn2d_plain`.  Its backward is
-  :class:`Fir` again with the adjoint spec (``_fir_bwd`` of the JAX
-  module): adjoint(same) is same with reversed taps and pads
+  up2 and up4: ``fir_up_kernel``, which takes the static polyphase split
+  of :func:`up_phases`; down4: ``fir_down4_kernel``); on a CPU tensor it
+  computes the plain form with :func:`.upfirdn2d.upfirdn2d_plain`.  Its
+  backward is :class:`Fir` again with the adjoint spec (``_fir_bwd`` of
+  the JAX module): adjoint(same) is same with reversed taps and pads
   ``(k-1-p0, k-1-p1)``, adjoint(down2) is up2 and adjoint(up2) is down2,
-  with the high pads solved so the output has the input's size.  So
-  every order of gradient, as R1 and path length take, stays on the
-  kernels.
+  and likewise down4 and up4, with the high pads solved so the output has
+  the input's size.  So every order of gradient, as R1 and path length
+  take, stays on the kernels.
 * Each kernel launch counts ``fir.launch/<form>`` in the installed
   recorder (:mod:`..utils.profiling`).  :func:`.upfirdn2d.upfirdn2d`
   counts its routing: ``upfirdn2d.kernel_route`` for a call that takes
@@ -39,11 +41,13 @@ from ._nvcc import check_planes, check_rc, load_library
 from .upfirdn2d import (NOT_SEPARABLE, Taps, _parse_padding, _parse_scaling, filter_taps,
                         upfirdn2d_plain)
 
-__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "up2_phases"]
+__all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "up_phases"]
 
-FORMS = ("same", "down2", "up2")
+# (up, down) of each form; a form's adjoint swaps them.
+FACTORS = {"same": (1, 1), "down2": (1, 2), "up2": (2, 1), "up4": (4, 1), "down4": (1, 4)}
+FORMS = tuple(FACTORS)
+_FORM_OF = {factors: form for form, factors in FACTORS.items()}
 MAX_TAPS = 32  # kMaxTaps of csrc/fir.cu
-MAX_PHASE_TAPS = MAX_TAPS // 2  # kMaxPhaseTaps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +61,8 @@ class FirSpec:
     pads: Tuple[int, int, int, int]
 
     def _axis_out(self, n: int, k: int, p0: int, p1: int) -> int:
-        if self.form == "down2":
-            return (n + p0 + p1 - k) // 2 + 1
-        if self.form == "up2":
-            return 2 * n + p0 + p1 - k + 1
-        return n + p0 + p1 - k + 1
+        up, down = FACTORS[self.form]
+        return (up * n + p0 + p1 - k) // down + 1
 
     def out_size(self, h: int, w: int) -> Tuple[int, int]:
         py0, py1, px0, px1 = self.pads
@@ -70,10 +71,11 @@ class FirSpec:
 
     def _axis_adjoint(self, n: int, o: int, k: int, p0: int, p1: int) -> Tuple[int, int]:
         q0 = k - 1 - p0
-        if self.form == "down2":  # adjoint is up2: 2o + q0 + q1 - k + 1 = n
-            return q0, n + k - 1 - q0 - 2 * o
-        if self.form == "up2":  # adjoint is down2: (o + q0 + q1 - k) // 2 + 1 = n
-            return q0, 2 * n - 2 + k - q0 - o
+        up, down = FACTORS[self.form]
+        if down > 1:  # adjoint is up by ``down``: down·o + q0 + q1 - k + 1 = n
+            return q0, n + k - 1 - q0 - down * o
+        if up > 1:  # adjoint is down by ``up``: (o + q0 + q1 - k) // up + 1 = n
+            return q0, up * n - up + k - q0 - o
         return q0, k - 1 - p1
 
     def adjoint(self, h: int, w: int) -> "FirSpec":
@@ -82,8 +84,8 @@ class FirSpec:
         py0, py1, px0, px1 = self.pads
         qy = self._axis_adjoint(h, oh, len(self.taps_y), py0, py1)
         qx = self._axis_adjoint(w, ow, len(self.taps_x), px0, px1)
-        form = {"same": "same", "down2": "up2", "up2": "down2"}[self.form]
-        return FirSpec(form, self.taps_y[::-1], self.taps_x[::-1], (*qy, *qx))
+        return FirSpec(_FORM_OF[FACTORS[self.form][::-1]], self.taps_y[::-1], self.taps_x[::-1],
+                       (*qy, *qx))
 
 
 def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
@@ -95,7 +97,7 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
     downx, downy = _parse_scaling(down)
     if upx != upy or downx != downy:
         return None, f"up={up}, down={down} differ between the axes"
-    if upx not in (1, 2) or downx not in (1, 2) or upx == downx == 2:
+    if upx not in (1, 2, 4) or downx not in (1, 2, 4) or min(upx, downx) > 1:
         return None, f"up={upx}, down={downx}"
     if not gain > 0:
         return None, f"gain={gain}"
@@ -117,26 +119,27 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
         ty, tx = ty[::-1], tx[::-1]
     ga = float(gain) ** 0.5
     px0, px1, py0, py1 = _parse_padding(padding)
-    form = "up2" if upx == 2 else "down2" if downx == 2 else "same"
-    return FirSpec(form, tuple(float(t) * ga for t in ty), tuple(float(t) * ga for t in tx),
-                   (py0, py1, px0, px1)), ""
+    return FirSpec(_FORM_OF[(upx, downx)], tuple(float(t) * ga for t in ty),
+                   tuple(float(t) * ga for t in tx), (py0, py1, px0, px1)), ""
 
 
-def up2_phases(taps: Tuple[float, ...], p0: int):
-    """The static polyphase split of one axis of an up2 spec: correlation
-    ``taps`` over the ×2 zero-stuffed grid with low pad ``p0``.  Returns
-    ``(taps_r, d_r)`` for the output parities r = 0, 1, such that
+def up_phases(taps: Tuple[float, ...], p0: int, u: int):
+    """The static polyphase split of one axis of an up2 or up4 spec:
+    correlation ``taps`` over the ×``u`` zero-stuffed grid with low pad
+    ``p0``.  Returns ``(taps_r, d_r)`` for the output residues
+    r = 0 .. u - 1, such that
 
-        out[2b + r] = sum_t taps_r[t] * x[b + d_r + t]
+        out[u·b + r] = sum_t taps_r[t] * x[b + d_r + t]
 
-    (the taps j ≡ p0 + r (mod 2), ascending, land on input samples; the
-    others on stuffed zeros).  ``d_1 - d_0`` is 0 (p0 odd) or 1 (p0 even):
-    the kernel's two output rows 2a + e, 2a + e + 1 with e = d_1 - d_0
-    read the same input rows."""
+    (the taps j ≡ p0 - r (mod u), ascending, land on input samples; the
+    others on stuffed zeros).  ``d_r`` is d_0 for r ≤ p0 mod u and d_0 + 1
+    above, so the u outputs u·a + e .. u·a + e + u - 1, with e the count
+    of residues at d_0 (mod u), read the same input samples: at u = 2,
+    the kernel's two output rows 2a + e, 2a + e + 1 with e = d_1 - d_0."""
     phases = []
-    for r in (0, 1):
-        j0 = (p0 + r) % 2
-        phases.append((tuple(taps[j0::2]), (r + j0 - p0) // 2))
+    for r in range(u):
+        j0 = (p0 - r) % u
+        phases.append((tuple(taps[j0::u]), (r + j0 - p0) // u))
     return tuple(phases)
 
 
@@ -146,22 +149,26 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gantrack_fir.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, p, p, i, i, p]
         lib.gantrack_fir.restype = i
-        lib.gantrack_fir_up2.argtypes = [p, p, i, i, i, i, i, p, p, i, i, p]
-        lib.gantrack_fir_up2.restype = i
+        for up in (lib.gantrack_fir_up2, lib.gantrack_fir_up4):
+            up.argtypes = [p, p, i, i, i, i, i, p, p, i, i, p]
+            up.restype = i
+        lib.gantrack_fir_down4.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p, i, i, p]
+        lib.gantrack_fir_down4.restype = i
         lib._gantrack_typed = True
     return lib
 
 
 @functools.lru_cache(maxsize=256)
-def _c_phases(taps_y: Tuple[float, ...], taps_x: Tuple[float, ...], py0: int, px0: int):
-    """``gantrack_fir_up2``'s arrays: taps [axis][parity][MAX_PHASE_TAPS]
-    and geometry [axis][n0, n1, d0, d1], y then x."""
+def _c_phases(taps_y: Tuple[float, ...], taps_x: Tuple[float, ...], py0: int, px0: int, u: int):
+    """``gantrack_fir_up2``'s / ``gantrack_fir_up4``'s arrays: taps
+    [axis][residue][MAX_TAPS // u] and geometry [axis][n_0 .. n_{u-1},
+    d_0 .. d_{u-1}], y then x."""
     taps, geom = [], []
     for t, p0 in ((taps_y, py0), (taps_x, px0)):
-        (t0, d0), (t1, d1) = up2_phases(t, p0)
-        for tr in (t0, t1):
-            taps += list(tr) + [0.0] * (MAX_PHASE_TAPS - len(tr))
-        geom += [len(t0), len(t1), d0, d1]
+        phases = up_phases(t, p0, u)
+        for tr, _ in phases:
+            taps += list(tr) + [0.0] * (MAX_TAPS // u - len(tr))
+        geom += [len(tr) for tr, _ in phases] + [d for _, d in phases]
     return (ctypes.c_float * len(taps))(*taps), (ctypes.c_int * len(geom))(*geom)
 
 
@@ -186,10 +193,17 @@ def fir_planes(x: torch.Tensor, spec: FirSpec, *, blocks_per_sm: int = 0) -> tor
     is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if spec.form == "up2":
-            rc = _lib().gantrack_fir_up2(x.data_ptr(), out.data_ptr(), p, h, w, oh, ow,
-                                         *_c_phases(spec.taps_y, spec.taps_x, py0, px0), is_bf16,
-                                         blocks_per_sm, stream)
+        if spec.form in ("up2", "up4"):
+            up = FACTORS[spec.form][0]
+            launch = _lib().gantrack_fir_up2 if up == 2 else _lib().gantrack_fir_up4
+            rc = launch(x.data_ptr(), out.data_ptr(), p, h, w, oh, ow,
+                        *_c_phases(spec.taps_y, spec.taps_x, py0, px0, up), is_bf16, blocks_per_sm,
+                        stream)
+        elif spec.form == "down4":
+            rc = _lib().gantrack_fir_down4(
+                x.data_ptr(), out.data_ptr(), p, h, w, oh, ow, py0, px0, len(spec.taps_y),
+                len(spec.taps_x), _c_taps(spec.taps_y), _c_taps(spec.taps_x), is_bf16,
+                blocks_per_sm, stream)
         else:
             rc = _lib().gantrack_fir(
                 x.data_ptr(), out.data_ptr(), p, h, w, oh, ow, FORMS.index(spec.form), py0, px0,
@@ -206,9 +220,9 @@ def fir_plain(x: torch.Tensor, spec: FirSpec) -> torch.Tensor:
     tx = torch.tensor(spec.taps_x, dtype=torch.float32, device=x.device)
     f = ty if spec.taps_y == spec.taps_x else torch.outer(ty, tx)
     py0, py1, px0, px1 = spec.pads
-    return upfirdn2d_plain(x[:, None], f, up=2 if spec.form == "up2" else 1,
-                           down=2 if spec.form == "down2" else 1,
-                           padding=[px0, px1, py0, py1], flip_filter=True)[:, 0]
+    up, down = FACTORS[spec.form]
+    return upfirdn2d_plain(x[:, None], f, up=up, down=down, padding=[px0, px1, py0, py1],
+                           flip_filter=True)[:, 0]
 
 
 class Fir(torch.autograd.Function):

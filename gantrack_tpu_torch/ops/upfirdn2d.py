@@ -5,14 +5,14 @@ Port of ``gantrack_tpu/ops/upfirdn2d.py`` (``setup_filter``,
 tensors.
 
 * :func:`upfirdn2d` runs every call that fits the FIR kernels' contract
-  (a separable filter; ``up`` or ``down`` in {1, 2} on both axes, not
-  both 2; any padding) through :class:`.fir.Fir`: on a CUDA tensor that
-  launches the hand-written kernels K5–K7 of ``csrc/fir.cu``, on a CPU
+  (a separable filter of at most 32 taps an axis; ``up`` or ``down`` in
+  {1, 2, 4}, the same on both axes, not both above 1; any padding) through
+  :class:`.fir.Fir`: on a CUDA tensor that launches the hand-written
+  kernels of ``csrc/fir.cu`` (K5–K7, K7 at ×4 and the ↓4 kernel), on a CPU
   tensor it computes the plain form.  A call outside the contract
-  (StyleGAN3's factor-4 filters, its radial 2-D filters, more than 32
-  taps an axis: forms the JAX package's FIR kernels never covered either)
-  takes :func:`upfirdn2d_plain` on any device.  That is decided from the
-  call's static spec before anything is launched, and counted in the
+  (StyleGAN3-R's radial 2-D filters, more than 32 taps an axis, other
+  factors) takes :func:`upfirdn2d_plain` on any device.  That is decided
+  from the call's static spec before anything is launched, and counted in the
   installed recorder (:mod:`..utils.profiling`): ``upfirdn2d.kernel_route``,
   or ``upfirdn2d.plain_route/<why>`` by reason; a kernel that fails to
   build or launch still raises.

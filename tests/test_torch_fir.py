@@ -10,6 +10,10 @@ JAX, on the CPU.
 * Gradient and gradient of gradient through :class:`Fir` (each backward
   is the adjoint Function) against autograd of the plain version, 1e-5;
   adjointness ``<K x, g> = <x, Kᵀ g>`` of every form in float64.
+* StyleGAN3's ×4 forms (up4 and its ↓4 adjoint, which the JAX FIR
+  kernels never covered): their polyphase split, a 24-tap up4 against JAX
+  ``upfirdn2d(impl="conv")``, and float64 models of the tiles of the
+  kernels K5–K7 and of the ↓4 kernel.
 """
 
 import importlib
@@ -97,6 +101,16 @@ SPECS = [
     fir.FirSpec("down2", tuple(WAVELETS["sym6"]), tuple(WAVELETS["sym6"]), (-1, -1, -1, -1)),
     fir.FirSpec("up2", (0.25, 0.75, 0.75, 0.25), (0.25, 0.75, 0.75, 0.25), (2, 1, 2, 1)),
     fir.FirSpec("up2", (0.3, 0.6, 0.2, 0.1), (0.5, 1.0, 0.5), (-1, 2, 1, 0)),
+    # StyleGAN3-T's ×4 up-filter (24 taps summing to 4 an axis, as its
+    # gain of 16 makes them; its layers' cropping pads), its ↓4 adjoint's
+    # pads, and short and odd tap counts.
+    fir.FirSpec("up4", tuple(np.linspace(0.2, 1.0, 24) / 3.0),
+                tuple(np.linspace(1.0, 0.1, 24) / 3.3), (-6, -9, -6, -9)),
+    fir.FirSpec("down4", tuple(np.linspace(0.2, 1.0, 24) / 12),
+                tuple(np.linspace(1.0, 0.1, 24) / 13.2), (29, 29, 29, 30)),
+    fir.FirSpec("up4", (0.1, 0.3, 0.5, 0.2, 0.4, 0.3, 0.1), (0.25, 0.5, 0.25), (3, 2, 1, -2)),
+    fir.FirSpec("down4", (0.1, 0.3, 0.5, 0.2, 0.4), (0.2, 0.5, 0.3, 0.6, 0.1, 0.2, 0.4, 0.3),
+                (1, 2, -1, 3)),
 ]
 
 
@@ -152,7 +166,7 @@ def test_filter_taps_factor_separable_filters():
         ufd.filter_taps(torch.ones(4, device="meta"))
 
 
-@pytest.mark.parametrize("kwargs", [dict(up=4, padding=2), dict(up=(2, 1), down=(1, 2)),
+@pytest.mark.parametrize("kwargs", [dict(up=3, padding=2), dict(up=(2, 1), down=(1, 2)),
                                     dict(up=2, down=2, padding=1)])
 def test_upfirdn2d_outside_the_contract_takes_plain_on_cpu(kwargs):
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, 2, 9, 8)).astype(np.float32))
@@ -180,29 +194,29 @@ UP2_SPLITS = [
 ]
 
 
-@pytest.mark.parametrize("ty,tx,pads", UP2_SPLITS,
-                         ids=[f"{len(s[0])}x{len(s[1])}-{s[2]}" for s in UP2_SPLITS])
-def test_up2_polyphase_split_rebuilds_plain(ty, tx, pads):
-    """``up2_phases`` (what the ↑2 kernel is given per axis and output
-    parity) rebuilds ``fir_plain``'s up2 output from same-form sums over
-    the input, float64 at 1e-6."""
-    spec = fir.FirSpec("up2", ty, tx, pads)
+def _check_split(ty, tx, pads, up):
+    """``up_phases`` (what the ↑``up`` kernel is given per axis and output
+    residue) rebuilds ``fir_plain``'s output from same-form sums over the
+    input, float64 at 1e-6."""
+    spec = fir.FirSpec(f"up{up}", ty, tx, pads)
     h, w = 29, 31
     x = np.random.default_rng(6).standard_normal((2, h, w))
     oh, ow = spec.out_size(h, w)
 
     def axis(a, taps, p0, n_out, ax):
-        """out[2b + r] = sum_t taps_r[t] * a[b + d_r + t] along ``ax``."""
-        phases = fir.up2_phases(taps, p0)
-        assert phases[1][1] - phases[0][1] in (0, 1)
+        """out[up·b + r] = sum_t taps_r[t] * a[b + d_r + t] along ``ax``."""
+        phases = fir.up_phases(taps, p0, up)
+        d = [d_r for _, d_r in phases]
+        # d_r is d_0 up to p0 mod up and d_0 + 1 above it.
+        assert d == [d[0] + (r > p0 % up) for r in range(up)]
         assert sorted(len(t) for t, _ in phases) == sorted(
-            [len(taps) // 2, (len(taps) + 1) // 2])
+            len(taps[j::up]) for j in range(up))
         a = np.moveaxis(a, ax, -1)
         out = np.zeros(a.shape[:-1] + (n_out,))
         for u in range(n_out):
-            t_r, d_r = phases[u % 2]
+            t_r, d_r = phases[u % up]
             for t, c in enumerate(t_r):
-                m = u // 2 + d_r + t
+                m = u // up + d_r + t
                 if 0 <= m < a.shape[-1]:
                     out[..., u] += c * a[..., m]
         return np.moveaxis(out, -1, ax)
@@ -210,6 +224,58 @@ def test_up2_polyphase_split_rebuilds_plain(ty, tx, pads):
     got = axis(axis(x, ty, pads[0], oh, 1), tx, pads[2], ow, 2)
     want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("ty,tx,pads", UP2_SPLITS,
+                         ids=[f"{len(s[0])}x{len(s[1])}-{s[2]}" for s in UP2_SPLITS])
+def test_up2_polyphase_split_rebuilds_plain(ty, tx, pads):
+    _check_split(ty, tx, pads, 2)
+
+
+# 24-tap up4 specs (StyleGAN3's ×4 up-filters) at every residue of p0 mod 4,
+# StyleGAN3-T's cropping pads among them, and short and odd tap counts
+# (residues of 2 and 1 taps).
+_T24 = tuple(float(t) for t in np.random.default_rng(10).standard_normal(24))
+UP4_SPLITS = [
+    (_T24, _T24, (-6, -9, -6, -9)),      # StyleGAN3-T's ×4 layers: p0 ≡ 2
+    (_T24, _T24[::-1], (-5, -8, 3, 2)),   # p0 ≡ 3 / 3
+    (_T24, _T24, (4, 3, -7, 0)),          # p0 ≡ 0 / 1
+    (_T24, _T12, (9, 10, 13, 1)),         # p0 ≡ 1 / 1, mixed tap counts
+    (_T4, _T4, (2, 1, 3, 3)),
+    ((0.2, 0.5, 0.3, 0.1, 0.6, 0.4, 0.2), (0.5, 0.5), (0, 1, -2, 5)),
+]
+
+
+@pytest.mark.parametrize("ty,tx,pads", UP4_SPLITS,
+                         ids=[f"{len(s[0])}x{len(s[1])}-{s[2]}" for s in UP4_SPLITS])
+def test_up4_polyphase_split_rebuilds_plain(ty, tx, pads):
+    _check_split(ty, tx, pads, 4)
+
+
+def test_up2_split_is_up_phases_at_factor_2():
+    """The ×2 kernel's split is unchanged: residue r's taps are those j ≡
+    p0 + r (mod 2), as before the split took a factor."""
+    for taps, p0 in ((_T12, 9), (_T12, -12), (_T4, 2), ((0.2, 0.5, 0.3), 3)):
+        want = tuple((tuple(taps[(p0 + r) % 2::2]), (r + (p0 + r) % 2 - p0) // 2) for r in (0, 1))
+        assert fir.up_phases(taps, p0, 2) == want
+
+
+@pytest.mark.parametrize("up,down,n", [(4, 1, 24), (1, 4, 24), (4, 1, 32), (1, 4, 5)])
+def test_fir_spec_admits_x4_with_separable_taps(up, down, n):
+    """Factor 4 on both axes, up or down, with separable taps of at most
+    32 an axis, is inside the kernels' contract; 33 taps, a factor 4
+    with a 2-D filter, or up and down together are not."""
+    f = torch.from_numpy(np.linspace(0.5, 1.5, n).astype(np.float32))
+    spec, why = fir.fir_spec(f, None, up, down, [1, 2, 3, 4], False, 16.0)
+    assert why == "" and spec.form == ("up4" if up == 4 else "down4")
+    assert spec.pads == (3, 4, 1, 2) and len(spec.taps_y) == len(spec.taps_x) == n
+    np.testing.assert_allclose(spec.taps_x, 4.0 * f.numpy()[::-1], rtol=1e-6)
+    f33 = torch.ones(33)
+    assert fir.fir_spec(f33, None, up, down, 0, False, 1) == (
+        None, "33 x 33 taps (at most 32 per axis)")
+    assert fir.fir_spec(torch.ones(4, 4) + torch.eye(4), None, up, down, 0, False, 1)[1] == (
+        "2-D filter, not separable")
+    assert fir.fir_spec(f, None, 4, 2, 0, False, 1) == (None, "up=4, down=2")
 
 
 @pytest.mark.parametrize("padding", [(9, 8, 9, 8), (10, 9, 3, 2)])
@@ -340,6 +406,171 @@ def test_fir_kernel_tiling_model_rebuilds_plain(spec, shape):
     outer product of two different tap lists to float32)."""
     x = np.random.default_rng(9).standard_normal(shape)
     got = _fir_kernel_model(x, spec)
+    want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_24_tap_up4_matches_jax_upfirdn2d():
+    """A StyleGAN3-T ×4 geometry (24 taps, gain 16, the cropping pads of
+    its layers): JAX ``upfirdn2d(impl="conv")`` against the port's plain
+    version and its Fir path, float32 at 1e-5."""
+    from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
+
+    taps = design_lowpass_filter(24, 8.0, 11.3, 64.0).tolist()
+    x = np.random.default_rng(11).standard_normal((2, 13, 15, 3)).astype(np.float32)
+    kw = dict(up=4, padding=[-6, -9, -6, -9], gain=16.0)
+    want = np.asarray(jops.upfirdn2d(jnp.asarray(x), jnp.asarray(taps, dtype=jnp.float32),
+                                     impl="conv", **kw))
+    assert want.shape == (2, 4 * 13 - 38, 4 * 15 - 38, 3)
+    f = torch.tensor(taps, dtype=torch.float32)
+    plain = ufd.upfirdn2d_plain(_nchw(x), f, **kw)
+    via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(taps), tuple(taps)), **kw)
+    np.testing.assert_allclose(_nhwc(plain), want, **TOL)
+    np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)
+
+
+def _up4_axis(taps, p0):
+    """``read_up4_axis`` of csrc/fir.cu: the slot order of ``up_phases``'
+    split, the four outputs 4a + e + i reading X[a + D + t]."""
+    phases = fir.up_phases(taps, p0, 4)
+    d = [d_r for _, d_r in phases]
+    e = sum(d_r == d[0] for d_r in d) % 4
+    slots = [np.float32(phases[(e + i) % 4][0]).astype(np.float64) for i in range(4)]
+    return slots, e, d[e]
+
+
+def _up4_kernel_model(x, spec, chunk):
+    """``fir_up_kernel<T, 4, K>``'s data flow in float64, ``chunk`` outputs
+    a lane (8 at bf16, 4 at f32; 16 lanes a row): per tile of 64 rows x
+    16·chunk columns, the input box (zeros outside the image), the
+    vertical slots into a buffer whose unwritten entries are NaN, each
+    lane's word of outputs from the buffer at slot (phi + k) mod 4 and
+    group (phi + k) / 4, then the tile's rows that lie in the output.  An
+    output written twice or read from an unwritten sum fails."""
+    planes, h, w = x.shape
+    oh, ow = spec.out_size(h, w)
+    (sy, ey, dy), (sx, ex, dx) = (_up4_axis(spec.taps_y, spec.pads[0]),
+                                  _up4_axis(spec.taps_x, spec.pads[2]))
+    cols = 16 * chunk
+    box_cols = cols // 4 + 8
+    box_rows = 16 + max(len(t) for t in sy) - 1
+    assert box_rows <= 23
+    out = np.full((planes, oh, ow), np.nan)
+    for by in range(-(-(oh + (4 - ey) % 4) // 64)):
+        oy0 = 64 * by - (4 - ey) % 4
+        assert (oy0 - ey) % 4 == 0
+        a0 = (oy0 - ey) // 4
+        for bx in range(-(-ow // cols)):
+            ub, n = cols * bx, min(cols, ow - cols * bx)
+            phi = (ub - ex) % 4
+            gx0 = (ub - ex - phi) // 4
+            iy, ix = a0 + dy + np.arange(box_rows), gx0 + dx + np.arange(box_cols)
+            box = np.zeros((planes, box_rows, box_cols))
+            ok_y, ok_x = (iy >= 0) & (iy < h), (ix >= 0) & (ix < w)
+            box[:, np.ix_(ok_y, ok_x)[0], np.ix_(ok_y, ok_x)[1]] = x[:, iy[ok_y]][:, :, ix[ok_x]]
+            vert = np.full((planes, 64, box_cols), np.nan)
+            for g in range(16):
+                for i in range(4):
+                    vert[:, 4 * g + i] = np.einsum("t,ptc->pc", sy[i], box[:, g:g + len(sy[i])])
+            for r in range(64):
+                if not 0 <= oy0 + r < oh:
+                    continue
+                for q in range(16):
+                    if chunk * q >= n:
+                        continue
+                    for k in range(chunk):
+                        u = ub + chunk * q + k
+                        slot, go = (phi + k) % 4, (phi + k) // 4
+                        c0 = (chunk // 4) * q + go
+                        assert c0 + len(sx[slot]) <= box_cols
+                        if chunk * q + k < n:
+                            assert np.isnan(out[:, oy0 + r, u]).all()
+                            out[:, oy0 + r, u] = vert[:, r, c0:c0 + len(sx[slot])] @ sx[slot]
+    return out
+
+
+UP4_TILINGS = [
+    # StyleGAN3-T's ×4 layers at reduced size (two row and column tiles,
+    # ragged), an odd residue on both axes, the generic tap loop (7 and 5
+    # taps), and an output narrower than one tile.
+    (fir.FirSpec("up4", _T24, _T24, (-6, -9, -6, -9)), (2, 23, 40)),
+    (fir.FirSpec("up4", _T24, _T24[::-1], (-5, -8, 3, 2)), (1, 30, 21)),
+    (fir.FirSpec("up4", (0.2, 0.5, 0.3, 0.1, 0.6, 0.4, 0.2), (0.1, 0.2, 0.4, 0.2, 0.1),
+                 (2, 1, -1, 4)), (1, 20, 34)),
+    (fir.FirSpec("up4", _T24, _T24, (4, 3, 9, 2)), (2, 9, 7)),
+]
+
+
+@pytest.mark.parametrize("chunk", [8, 4])
+@pytest.mark.parametrize("spec,shape", UP4_TILINGS,
+                         ids=[f"{len(s.taps_y)}x{len(s.taps_x)}-{s.pads}" for s, _ in UP4_TILINGS])
+def test_up4_kernel_tiling_model_rebuilds_plain(spec, shape, chunk):
+    """The tiles, box, slots and lane words of the ×4 kernel (the model
+    above, at both element sizes) cover every output once from written
+    sums, and rebuild ``fir_plain`` in float64 at 1e-6."""
+    x = np.random.default_rng(12).standard_normal(shape)
+    got = _up4_kernel_model(x, spec, chunk)
+    want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def _down4_kernel_model(x, spec):
+    """``fir_down4_kernel``'s data flow in float64: per tile of 16 rows x
+    TW columns (TW the widest even count whose window of 4·(TW − 1) + kx
+    columns fits 256), each window column's vertical sums from the input
+    rows 4v + i − py0 (zeros outside the image) into a buffer whose
+    unwritten entries are NaN, then each lane's output pair (u, u + 1)
+    from the buffer columns 8q … 8q + 4 + kx − 1."""
+    planes, h, w = x.shape
+    oh, ow = spec.out_size(h, w)
+    ty, tx = (np.float32(t).astype(np.float64) for t in (spec.taps_y, spec.taps_x))
+    ky, kx = len(ty), len(tx)
+    py0, _, px0, _ = spec.pads
+    tw = ((256 - kx) // 4 + 1) & ~1
+    padded = np.zeros((planes, h + 2 * 300, w + 2 * 300))
+    padded[:, 300:300 + h, 300:300 + w] = x
+    out = np.full((planes, oh, ow), np.nan)
+    for u0 in range(0, ow, tw):
+        n_out = min(tw, (ow - u0 + 1) & ~1)
+        nc = 4 * (n_out - 1) + kx
+        assert nc <= 256
+        cols = 4 * u0 - px0 + np.arange(nc) + 300
+        for v0 in range(0, oh, 16):
+            vert = np.full((planes, 16, 256), np.nan)
+            for a in range(16):
+                rows = 4 * (v0 + a) - py0 + np.arange(ky) + 300
+                vert[:, a, :nc] = np.einsum("i,pic->pc", ty, padded[:, rows][:, :, cols])
+            for r in range(min(16, oh - v0)):
+                for q in range(n_out // 2):
+                    u = u0 + 2 * q
+                    out[:, v0 + r, u] = vert[:, r, 8 * q:8 * q + kx] @ tx
+                    if u + 1 < ow:
+                        out[:, v0 + r, u + 1] = vert[:, r, 8 * q + 4:8 * q + 4 + kx] @ tx
+    return out
+
+
+DOWN4_TILINGS = [
+    # The ↓4 adjoints of StyleGAN3-T's ×4 layers at reduced size (pads 29;
+    # several row and column tiles, ragged), the generic tap loop, and a
+    # cropping pad.
+    (fir.FirSpec("down4", _T24, _T24, (29, 29, 29, 30)), (2, 80, 270)),
+    (fir.FirSpec("down4", _T24, _T24[::-1], (29, 29, 29, 29)), (1, 70, 35)),
+    (fir.FirSpec("down4", (0.1, 0.3, 0.5, 0.2, 0.4), _T12, (2, 1, 5, 3)), (1, 71, 300)),
+    (fir.FirSpec("down4", _T24 + _T4 + _T4, _T24 + _T4 + _T4, (-2, 3, 30, -1)), (1, 90, 150)),
+]
+
+
+@pytest.mark.parametrize("spec,shape", DOWN4_TILINGS,
+                         ids=[f"{len(s.taps_y)}x{len(s.taps_x)}-{s.pads}"
+                              for s, _ in DOWN4_TILINGS])
+def test_down4_kernel_tiling_model_rebuilds_plain(spec, shape):
+    """The tiles, vertical sums and output pairs of the ↓4 kernel (the
+    model above) cover every output exactly from written sums, and
+    rebuild ``fir_plain`` in float64 at 1e-6."""
+    x = np.random.default_rng(13).standard_normal(shape)
+    got = _down4_kernel_model(x, spec)
     want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
     assert got.shape == want.shape and not np.isnan(got).any()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())

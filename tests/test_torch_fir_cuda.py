@@ -1,5 +1,5 @@
-"""The FIR CUDA kernels (K5 same, K6 down2, K7 up2) against their plain
-PyTorch version.
+"""The FIR CUDA kernels (K5 same, K6 down2, K7 up2 and up4, and the ↓4
+kernel) against their plain PyTorch version.
 
 Needs an NVIDIA card and ``nvcc``; skips without a card.  Imports no JAX,
 so it runs on a machine that has none:
@@ -31,6 +31,8 @@ SYM6 = ufd.setup_filter(WAVELETS["sym6"])
 F5 = ufd.setup_filter([1, 4, 6, 4, 1])  # generic tap count (not unrolled)
 # A 12-tap StyleGAN3 low-pass (Kaiser; numtaps, cutoff, width, sampling rate).
 SG3 = ufd.setup_filter(scipy.signal.firwin(numtaps=12, cutoff=32.0, width=16.0, fs=128.0))
+# A 24-tap one of StyleGAN3-T's ×4 layers (L10's design).
+SG3X4 = ufd.setup_filter(scipy.signal.firwin(numtaps=24, cutoff=45.25, width=37.49, fs=512.0))
 
 # (filter, up, down, padding [px0, px1, py0, py1], flip, gain, shape)
 CASES = [
@@ -64,6 +66,26 @@ CASES = [
     (SG3, 1, 2, 0, False, 1.0, (1, 2, 83, 131)),
     (SG3, 1, 2, 0, False, 1.0, (2, 3, 30, 27)),
     (SG3, 1, 1, [3, -2, -1, 4], False, 1.0, (1, 2, 45, 150)),
+    # The ×4 kernel at StyleGAN3-T's four ×4 layers (24 taps, gain 16, the
+    # cropping pads; fewer planes): canvases 38², 54², 86², 150² -> 114²,
+    # 178², 306², 562² (tiles of 64 rows x 128 columns at bf16, 64 at f32,
+    # ragged), and the ↓4 kernel at their adjoints (pads 29).
+    (SG3X4, 4, 1, [-6, -9, -6, -9], False, 16.0, (2, 3, 38, 38)),
+    (SG3X4, 4, 1, [-6, -9, -6, -9], False, 16.0, (1, 3, 54, 54)),
+    (SG3X4, 4, 1, [-6, -9, -6, -9], False, 16.0, (1, 2, 86, 86)),
+    (SG3X4, 4, 1, [-6, -9, -6, -9], False, 16.0, (1, 1, 150, 150)),
+    (SG3X4, 1, 4, 29, True, 16.0, (2, 3, 114, 114)),
+    (SG3X4, 1, 4, 29, True, 16.0, (1, 3, 178, 178)),
+    (SG3X4, 1, 4, 29, True, 16.0, (1, 2, 306, 306)),
+    (SG3X4, 1, 4, 29, True, 16.0, (1, 1, 562, 562)),
+    # Every residue of the low pad, odd output widths (unaligned rows), the
+    # generic tap loop (F4, F5), and outputs smaller than one tile.
+    (SG3X4, 4, 1, [-5, -7, 3, 2], False, 16.0, (1, 2, 33, 29)),
+    (SG3X4, 4, 1, [4, 2, -7, 1], True, 16.0, (2, 1, 20, 41)),
+    (F5, 4, 1, [2, 1, -1, 3], False, 16.0, (1, 2, 25, 19)),
+    (F4, 4, 1, [0, 0, 1, 2], False, 16.0, (1, 1, 5, 3)),
+    (SG3X4, 1, 4, [29, 30, 27, 28], False, 1.0, (1, 2, 131, 97)),
+    (F5, 1, 4, [3, -1, 0, 2], False, 1.0, (2, 2, 70, 301)),
 ]
 
 
@@ -98,7 +120,7 @@ def test_fir_kernel_matches_plain_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == torch.float32
     assert _max_err(got, ref) <= 1e-5 * float(ref.abs().max())
-    form = "up2" if up == 2 else "down2" if down == 2 else "same"
+    form = f"up{up}" if up > 1 else f"down{down}" if down > 1 else "same"
     assert rec.under("fir.launch").get(form) == 1
 
     xb = x.bfloat16()
@@ -142,15 +164,15 @@ def test_fir_kernel_walks_more_planes_than_one_grid(cuda_device):
 
 @pytest.mark.cuda
 def test_upfirdn2d_outside_the_contract_takes_the_counted_plain_route_on_card(cuda_device):
-    # A factor of 4 is outside the contract by the call's static spec: the
+    # A factor of 3 is outside the contract by the call's static spec: the
     # plain version runs, counted; no kernel is launched for it.
     x = torch.randn((1, 2, 8, 8), device=cuda_device)
     with profiling.recording() as rec:
-        got = ufd.upfirdn2d(x, F4.to(cuda_device), up=4, taps=ufd.filter_taps(F4))
-    torch.testing.assert_close(got, ufd.upfirdn2d_plain(x, F4.to(cuda_device), up=4),
+        got = ufd.upfirdn2d(x, F4.to(cuda_device), up=3, taps=ufd.filter_taps(F4))
+    torch.testing.assert_close(got, ufd.upfirdn2d_plain(x, F4.to(cuda_device), up=3),
                                rtol=0, atol=0)
     assert rec.under("fir.launch") == {}
-    assert rec.under("upfirdn2d.plain_route") == {"up=4, down=1": 1}
+    assert rec.under("upfirdn2d.plain_route") == {"up=3, down=1": 1}
     with pytest.raises(ValueError, match="host taps"):
         ufd.upfirdn2d(x, F4.to(cuda_device))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -228,3 +250,76 @@ def test_fir_grid_size_leaves_the_bits_unchanged(cuda_device, form, dtype):
             assert torch.equal(fir.fir_planes(x, spec, blocks_per_sm=bps), want)
     with pytest.raises(RuntimeError):
         fir.fir_planes(x, spec, blocks_per_sm=-1)
+
+
+def _x4_specs():
+    t = ufd.filter_taps(SG3X4)[0]
+    return t, fir.FirSpec("up4", t, t, (-6, -9, -6, -9)), fir.FirSpec("down4", t, t,
+                                                                      (29, 29, 29, 29))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fir_x4_walks_more_planes_than_its_grid(cuda_device, dtype):
+    """The ×4 kernel and the ↓4 kernel walk the planes p, p + gridDim.z,
+    ...: 24 taps on 6000 planes of 38² (up4, StyleGAN3-T's smallest ×4
+    canvas) and of 114² (its ↓4 adjoint), and 70000 planes (above the
+    65535 blocks of gridDim.z) of small canvases."""
+    t, up4, down4 = _x4_specs()
+    for planes, hw, spec in ((6000, 38, up4), (6000, 114, down4),
+                             (70000, 10, fir.FirSpec("up4", t, t, (-2, -3, -2, -3))),
+                             (70000, 24, fir.FirSpec("down4", t, t, (1, 1, 1, 1)))):
+        x = torch.randn((planes, hw, hw), device=cuda_device).to(dtype)
+        ref = fir.fir_plain(x.float(), spec)
+        got = fir.fir_planes(x, spec)
+        assert got.dtype == dtype and got.shape == ref.shape
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        assert _max_err(got, ref) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["up4", "down4"])
+def test_fir_x4_grid_size_leaves_the_bits_unchanged(cuda_device, form, dtype):
+    """The grid of the ×4 and ↓4 kernels only spreads the planes over
+    blocks (no atomics): every grid size gives the same bits as the
+    kernel's own choice, at 24 taps and on the generic tap loop, and a
+    negative one is refused."""
+    t, up4, down4 = _x4_specs()
+    t5 = ufd.filter_taps(F5)[0]
+    specs = ((up4, fir.FirSpec("up4", t5, t5, (1, 2, 3, 0))) if form == "up4"
+             else (down4, fir.FirSpec("down4", t5, t5, (1, 2, 3, 0))))
+    for spec in specs:
+        hw = (45, 38) if form == "up4" else (131, 150)
+        x = torch.randn((300, *hw), device=cuda_device).to(dtype)
+        want = fir.fir_planes(x, spec)
+        for bps in (1, 4, 64, 1024):
+            assert torch.equal(fir.fir_planes(x, spec, blocks_per_sm=bps), want)
+        assert torch.equal(fir.fir_planes(x, spec), want)  # the same launch again
+    with pytest.raises(RuntimeError):
+        fir.fir_planes(x, spec, blocks_per_sm=-1)
+
+
+@pytest.mark.cuda
+def test_stylegan3_t_x4_layer_takes_the_x4_kernels(cuda_device):
+    """A StyleGAN3-T ×4 layer's ``filtered_lrelu`` (L3's geometry, bf16)
+    takes the kernels both ways: no plain-route call; the forward counts
+    one up4 launch (and one down2), the backward one down4 (and one
+    up2)."""
+    from gantrack_tpu_torch.ops import filtered_lrelu
+
+    fu = SG3X4.to(cuda_device)
+    fd = SG3.to(cuda_device)
+    x = torch.randn((2, 8, 38, 38), device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.zeros(8, device=cuda_device, dtype=torch.bfloat16)
+    with profiling.recording() as rec:
+        y = filtered_lrelu(x, fu, fd, b, up=4, down=2, padding=[-6, -9, -6, -9],
+                           fu_taps=ufd.filter_taps(SG3X4), fd_taps=ufd.filter_taps(SG3))
+        assert y.shape == (2, 8, 52, 52)
+        launched = dict(rec.under("fir.launch"))
+        (g,) = torch.autograd.grad(y.float().square().sum(), x)
+    torch.cuda.synchronize()
+    assert launched == {"up4": 1, "down2": 1}
+    assert rec.under("fir.launch") == {"up4": 1, "down2": 1, "up2": 1, "down4": 1}
+    assert rec.under("upfirdn2d.plain_route") == {}
+    assert bool(torch.isfinite(g).all())

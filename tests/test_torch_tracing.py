@@ -220,15 +220,18 @@ def _route_case(case):
     f = setup_filter([1, 3, 3, 1])
     if case == "kernel":
         return f, filter_taps(f), dict(up=2, padding=[2, 1, 2, 1]), "upfirdn2d.kernel_route"
-    if case == "factor 4":
-        return f, filter_taps(f), dict(up=4, padding=[2, 1, 2, 1]), \
-            "upfirdn2d.plain_route/up=4, down=1"
+    if case == "x4 kernel":
+        return f, filter_taps(f), dict(up=4, padding=[2, 1, 2, 1]), "upfirdn2d.kernel_route"
+    if case == "factor 4":  # a factor 4 outside the kernels' contract: 33 taps
+        f33 = setup_filter(np.hanning(35)[1:-1])
+        return f33, filter_taps(f33), dict(up=4, padding=[17, 16, 17, 16]), \
+            "upfirdn2d.plain_route/33 x 33 taps (at most 32 per axis)"
     radial = torch.outer(torch.arange(1.0, 5.0), torch.arange(1.0, 5.0)) + torch.eye(4)
     return radial, NOT_SEPARABLE, dict(padding=[1, 2, 1, 2]), \
         "upfirdn2d.plain_route/2-D filter, not separable"
 
 
-@pytest.mark.parametrize("case", ["kernel", "factor 4", "radial"])
+@pytest.mark.parametrize("case", ["kernel", "factor 4", "radial", "x4 kernel"])
 def test_upfirdn2d_counts_its_route_where_it_decides(case):
     f, taps, kw, key = _route_case(case)
     x = torch.randn((2, 3, 8, 8), generator=torch.Generator().manual_seed(3))
