@@ -1753,6 +1753,17 @@ def _profile_step(stepper, state, real_img, real_c, flags, card: str, label: str
               for (n, parent, a, b, _, _), us in zip(rec.spans, device) if parent is None]
     print(f"  phases of one {label} step, host / device ms (the device's by launch; "
           f"{share!r} of its busy time launched in them): {', '.join(phases)}")
+    blur: dict = {}
+    for (n, parent, a, b, _, _), us in zip(rec.spans, device):
+        if n == "d_blur":  # StyleGAN3-R's D input blur, by the phase it ran in
+            while rec.spans[parent][1] is not None:
+                parent = rec.spans[parent][1]
+            phase = rec.spans[parent][0]
+            host_ms, device_ms = blur.get(phase, (0.0, 0.0))
+            blur[phase] = (host_ms + (b - a) / 1e6, device_ms + us / 1e3)
+    if blur:
+        print(f"  D's blur (the d_blur spans) of one {label} step by phase, host / device ms: "
+              + ", ".join(f"{n} {h:.2f} / {d:.2f}" for n, (h, d) in blur.items()))
     rows = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:

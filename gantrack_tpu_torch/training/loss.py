@@ -18,7 +18,8 @@ so nothing is read back from the device), which is the same filter.
 
 Each phase returns its loss and a moments dict (``stats.report``); the
 stepper takes the gradients.  The inner ``create_graph`` passes are the
-spans ``pl_grads`` and ``r1_grads`` (:mod:`..utils.profiling`).  Random draws come from the explicit
+spans ``pl_grads`` and ``r1_grads``, D's input blur the span ``d_blur``
+(:mod:`..utils.profiling`).  Random draws come from the explicit
 ``torch.Generator`` a phase is given; the path-length noise can be
 handed in instead (``pl_noise``), which the parity tests do.
 
@@ -39,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.upfirdn2d import filter2d
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import stats
 
 
@@ -106,15 +107,20 @@ class StyleGAN2Loss:
         return img, ws
 
     def _blur(self, img, blur_sigma: float):
+        """D's input blur: the span ``d_blur`` (its forward launches; the
+        backward's run in the phase's ``backward``) and the counter
+        ``loss.blur/<taps of one axis>``."""
         blur_size = int(np.floor(blur_sigma * 3))
         if blur_size <= 0:
             return img
-        # Built on the host, so the FIR kernel gets its taps without a sync.
-        t = np.arange(-blur_size, blur_size + 1, dtype=np.float32)
-        f = np.exp2(-np.square(t / np.float32(blur_sigma)))
-        f = f / f.sum()
-        taps = tuple(f.tolist())
-        return filter2d(img, torch.from_numpy(f).to(img.device), taps=(taps, taps))
+        count(f"loss.blur/{2 * blur_size + 1}")
+        with span("d_blur", sigma=blur_sigma):
+            # Built on the host, so the FIR kernel gets its taps without a sync.
+            t = np.arange(-blur_size, blur_size + 1, dtype=np.float32)
+            f = np.exp2(-np.square(t / np.float32(blur_sigma)))
+            f = f / f.sum()
+            taps = tuple(f.tolist())
+            return filter2d(img, torch.from_numpy(f).to(img.device), taps=(taps, taps))
 
     def blur_sigma(self, cur_nimg: float) -> float:
         if self.cfg.blur_fade_kimg <= 0:
