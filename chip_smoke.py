@@ -159,6 +159,9 @@ KERNELS = {
     # StyleGAN3's factor 4: XLA convolutions in the JAX package, no TPU kernel.
     "fir_up4": ("fir.cu", "gantrack_tpu/ops/upfirdn2d.py:146 (XLA)"),
     "fir_down4": ("fir.cu", "gantrack_tpu/ops/upfirdn2d.py:146 (XLA)"),
+    # StyleGAN3-R's radial 2-D filters: XLA convolutions there too.
+    "fir_down2_2d": ("fir.cu", "gantrack_tpu/ops/upfirdn2d.py:146 (XLA)"),
+    "fir_up2_2d": ("fir.cu", "gantrack_tpu/ops/upfirdn2d.py:146 (XLA)"),
     "warp": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:87"),
     "splat": ("warp.cu", "gantrack_tpu/ops/pallas/warp.py:114"),
     "conv3x3": ("conv3x3.cu", "gantrack_tpu/ops/attic/conv3x3.py:145"),
@@ -208,11 +211,11 @@ SG3_ARGS = [
 # as ``fir.fir_spec`` words it): none, since its x4 up-filters and their
 # adjoints take the x4 kernels.
 SG3_T_PLAIN_REASONS = ()
-# Those of StyleGAN3-R: its radial (2-D) down-filters and D's input blur at
-# its initial sigma of 10 (61 taps; it fades over 200 kimg) (``fir.fir_spec``'s
-# words; a step of -r at 256^2 and narrow widths on the CPU takes these two
-# and no other).
-SG3_R_PLAIN_REASONS = ("2-D filter, not separable", "61 x 61 taps (at most 32 per axis)")
+# Those of StyleGAN3-R: D's input blur at its initial sigma of 10 (61 taps;
+# it fades over 200 kimg) (``fir.fir_spec``'s words; its radial (2-D)
+# down-filters take the 2-D kernels; a step of -r at 256^2 and narrow
+# widths on the CPU takes this one and no other).
+SG3_R_PLAIN_REASONS = ("61 x 61 taps (at most 32 per axis)",)
 # The FIR calls of phase 1: name, [N, C, H, W], dtype of the step, then
 # the upfirdn2d arguments.  The first of each form is the one the kernel
 # report quotes: for K5 the claro step's, for K6 and K7 StyleGAN3-T's
@@ -267,6 +270,20 @@ FIR_SHAPES = [
                          ("306² -> 86²", (16, 512, 306, 306)),
                          ("178² -> 54²", (16, 512, 178, 178)),
                          ("114² -> 38²", (16, 512, 114, 114)))
+] + [
+    # StyleGAN3-R's radial 12 x 12 down-filters at L10 and L7 (batch 8 a
+    # chunk, ``sg3r-256``: the filtered lrelu's ↓2, pads 0) and their ×2
+    # adjoints (the generator's backward: pads 11, 10, the taps unflipped).
+    (f"StyleGAN3-R {label}", shape, "bf16", dict(filter=f"sg3r_{layer}", **kw))
+    for layer, label, shape, kw in (
+        ("L10", "L10 562² -> 276² (down2, 12 x 12 taps)", (8, 512, 562, 562),
+         dict(down=2, padding=0)),
+        ("L7", "L7 306² -> 148² (down2, 12 x 12 taps)", (8, 1024, 306, 306),
+         dict(down=2, padding=0)),
+        ("L10", "L10 276² -> 562² (up2, 12 x 12 taps)", (8, 512, 276, 276),
+         dict(up=2, padding=[11, 10, 11, 10], flip_filter=True)),
+        ("L7", "L7 148² -> 306² (up2, 12 x 12 taps)", (8, 1024, 148, 148),
+         dict(up=2, padding=[11, 10, 11, 10], flip_filter=True)))
 ]
 # Grid sizes of the FIR kernels (blocks an SM) timed beside their own
 # choice (``kBlocksPerSM``, ``kUpBlocksPerSM`` of csrc/fir.cu).
@@ -401,8 +418,8 @@ def _launch_counts() -> dict:
 
     rec = _recorder()
     counts = dict.fromkeys(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2", "fir_up4",
-                            "fir_down4", "warp", "splat", "conv3x3", "wgrad3x3", *c3.VARIANTS,
-                            *PROBES), 0)
+                            "fir_down4", "fir_down2_2d", "fir_up2_2d", "warp", "splat",
+                            "conv3x3", "wgrad3x3", *c3.VARIANTS, *PROBES), 0)
     for prefix, head in (("upwarp.launch", ""), ("fir.launch", "fir_"), ("warp.launch", ""),
                          ("conv3x3.launch", ""), ("conv3x3.variant", ""), ("probes.launch", "")):
         counts.update({head + k: n for k, n in rec.under(prefix).items()})
@@ -666,10 +683,21 @@ def check_kernels(card: str) -> dict:
     }
 
 
+def _sg3r_filters() -> dict:
+    """StyleGAN3-R's radial down-filters of L10 and L7 as ``sg3r-256``'s
+    synthesis network designs them (host tensors)."""
+    from gantrack_tpu_torch.models.stylegan3 import SynthesisNetwork
+
+    net = SynthesisNetwork(w_dim=512, img_resolution=256, img_channels=1, channel_base=65536,
+                           channel_max=1024, conv_kernel=1, use_radial_filters=True)
+    return {f"sg3r_{name.split('_')[0]}": getattr(net, name).down_filter
+            for name in net.layer_names if name.startswith(("L10_", "L7_"))}
+
+
 def check_fir(card: str) -> dict:
-    """Phase 1 (FIR): K5–K7 and the ↓4 kernel against the plain
-    ``upfirdn2d`` at the step's FIR shapes, and at StyleGAN3-T's ↓2, ×2,
-    ×4 and ↓4 shapes.  Each shape is timed
+    """Phase 1 (FIR): K5–K7, the ↓4 kernel and the 2-D forms against the
+    plain ``upfirdn2d`` at the step's FIR shapes, at StyleGAN3-T's ↓2, ×2,
+    ×4 and ↓4 shapes and at StyleGAN3-R's radial ↓2 and ×2 shapes.  Each shape is timed
     forward alone and forward + backward, one call at a time, back to back
     and (forward) on a cold L2, beside its bound and the one library call
     that computes it, and the kernel is also timed at the grid sizes of
@@ -691,16 +719,17 @@ def check_fir(card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     filters = {"f4": ufd.setup_filter([1, 3, 3, 1]), "sym6": ufd.setup_filter(WAVELETS["sym6"]),
                "sg3": torch.from_numpy(design_lowpass_filter(*SG3_FILTER)),
-               "sg3x4": torch.from_numpy(design_lowpass_filter(*SG3X4_FILTER))}
+               "sg3x4": torch.from_numpy(design_lowpass_filter(*SG3X4_FILTER)),
+               **_sg3r_filters()}
     report = {}
     for label, shape, step_dtype, call in FIR_SHAPES:
         kw = dict(call)
         f_host = filters[kw.pop("filter")]
-        f, taps = f_host.to(dev), ufd.filter_taps(f_host)
+        f, taps = f_host.to(dev), ufd.host_taps(f_host)
         spec, _ = fir.fir_spec(f_host, taps, kw.get("up", 1), kw.get("down", 1),
                                kw.get("padding", 0), kw.get("flip_filter", False),
                                kw.get("gain", 1))
-        name = f"fir_{spec.form}"
+        name = f"fir_{spec.kernel}"
 
         def kernel(x):
             return ufd.upfirdn2d(x, f, taps=taps, **kw)
@@ -768,10 +797,11 @@ def check_fir(card: str) -> dict:
                       "lib fb b2b": _b2b_ms(lambda: torch.autograd.grad(lib(xt), xt, gt), slow)})
         # Bound of the forward: x and the output once; a separable pass of
         # ky then kx taps per output (a half or a quarter of them for the
-        # polyphase up2 and up4), 2 flops a tap.  Forward + backward: twice
-        # that.
+        # polyphase up2 and up4), or the ky * kx taps of a 2-D filter (a
+        # quarter at up2), 2 flops a tap.  Forward + backward: twice that.
         ky, kx = len(spec.taps_y), len(spec.taps_x)
-        taps_per_out = (ky + kx) / fir.FACTORS[spec.form][0]
+        up = fir.FACTORS[spec.form][0]
+        taps_per_out = ky * kx / up ** 2 if spec.taps_2d else (ky + kx) / up
         bound_f = _bound(_nbytes(xt, gt), gt.numel() * 2 * taps_per_out)
         bound = _bound(2 * _nbytes(xt, gt), 2 * gt.numel() * 2 * taps_per_out)
 
@@ -824,7 +854,8 @@ def _fir_library_call(spec, channels: int, dev, dtype):
 
     ty = torch.tensor(spec.taps_y, dtype=torch.float64)
     tx = torch.tensor(spec.taps_x, dtype=torch.float64)
-    w2 = torch.outer(ty, tx)  # correlation taps, gain folded in
+    # Correlation taps, gain folded in.
+    w2 = torch.tensor(spec.taps_2d, dtype=torch.float64) if spec.taps_2d else torch.outer(ty, tx)
     py0, py1, px0, px1 = spec.pads
     ky, kx = len(ty), len(tx)
     up, stride = fir.FACTORS[spec.form]
@@ -1705,14 +1736,21 @@ def kernel_label(name: str) -> str:
     """A profiler row named by what it computes where it is a FIR kernel
     (``fir_kernel<T, form, taps>``: form 0 same, 1 down2, 2 up2; the
     polyphase ``fir_up_kernel<T, factor, taps>``; ``fir_down4_kernel<T,
-    taps>``; taps 0 is the generic tap loop) or a warp kernel (K1–K4),
-    else the kernel's own name."""
+    taps>``; the 2-D forms ``fir_kernel<T, 1, KY, KX>`` and
+    ``fir_up_kernel<T, 2, KY, KX>``; taps 0 is the generic tap loop) or a
+    warp kernel (K1–K4), else the kernel's own name."""
     import re
 
     m = re.search(r"\b(" + "|".join(_WARP_ROWS) + r")<([\w:]+)", name)
     if m:
         kind, dtype = m.groups()
         return f"{_WARP_ROWS[kind]}, {_DTYPES.get(dtype, dtype)} [{kind}]"
+    m = re.search(r"\b(fir_kernel|fir_up_kernel)<([\w:]+), (\d+), (\d+), (\d+)>", name)
+    if m:  # a 2-D filter: (form or factor), KY, KX
+        kind, dtype, form, ky, kx = m.groups()
+        what = "down2 2-D" if kind == "fir_kernel" else f"up{form} 2-D"
+        size = f"{ky} x {kx}" if ky != "0" else "any"
+        return f"FIR {what}, {size} taps, {_DTYPES.get(dtype, dtype)} [{kind}]"
     m = re.search(r"\b(fir_down4_kernel)<([\w:]+), (\d+)>", name)
     if m:
         kind, dtype, taps = m.groups()
@@ -2204,7 +2242,7 @@ def check_fir_calls(card: str, calls: dict, path: str) -> None:
         ref = fir.fir_plain(x.float(), spec)
         err = _max_err(fir.fir_planes(x, spec), ref)
         limit = (1e-2 if dtype == torch.bfloat16 else 1e-5) * float(ref.abs().max())
-        name = f"fir_{spec.form}"
+        name = f"fir_{spec.kernel}"
         label = f"{list(shape)} {str(dtype)[6:]} pads {spec.pads}, {len(spec.taps_y)} taps"
         if err > limit:
             raise AssertionError(f"{path}: {name} {label}: error {err} above limit {limit}")
@@ -3414,8 +3452,8 @@ def train_stylegan3r(card: str, tmp: str, data: str, args=SG3_R_ARGS, res: int =
         counts[label] = {k: (n - before[k]) / reps for k, n in _launch_counts().items()
                          if n > before[k]}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2"),
-                              SG3_R_PLAIN_REASONS)
+    launches = _read_launches(("upwarp", "upsplat", "fir_same", "fir_down2", "fir_up2",
+                               "fir_down2_2d", "fir_up2_2d"), SG3_R_PLAIN_REASONS)
     plain = _plain_route()
     blur = f"{2 * int(3 * SG3_R_BLUR_SIGMA) + 1} x {2 * int(3 * SG3_R_BLUR_SIGMA) + 1} taps"
     if not any(reason.startswith(blur) for reason in plain):

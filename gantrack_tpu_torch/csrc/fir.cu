@@ -1,5 +1,6 @@
 // Separable resample FIR in five forms (K5 same, K6 down2, K7 up2 and up4,
-// and down4) for NVIDIA Hopper (sm_90a).
+// and down4), and down2 and up2 with a 2-D filter, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernels ``_fir_same_kernel``, ``_fir_down2_kernel``
 // and ``_fir_up2_kernel`` (launched by ``_call_same``, ``_call_down2`` and
@@ -123,6 +124,33 @@
 // with 16-byte words at step 4.  Neither uses atomics: the bits do not
 // depend on the grid.
 //
+// The 2-D forms (``fir_kernel<T, kDown2, KY, KX>``, ``fir_up_kernel<T, 2,
+// KY, KX>``) take StyleGAN3-R's radial 12 x 12 down-filters and their x2
+// adjoints, which the JAX package computes with XLA convolutions (no TPU
+// kernel): the same contracts with one 2-D tap array f[i][j] for fy[i]
+// fx[j], and up2 polyphase over 2 x 2 output phases.  With no channel
+// reduction, a tensor-core product would need a banded operand that is
+// over 90 % zeros, so they run as f32 FMAs on the CUDA cores: 144
+// multiply-adds an output (36 at x2, a quarter of the taps landing on
+// input samples) against a read and a write, about 1.4x the byte bound at
+// StyleGAN3-R's largest call, so operations bound them.  A block walks
+// the planes of one output tile; each plane's input window comes into
+// shared memory by bulk copies (the copy engine, one a row of the words
+// that hold it: the rows are only element-aligned) while the last plane
+// is computed, and is unpacked as f32 (the ↓2 form's even and odd columns
+// apart); a thread walks the window rows of a block of outputs from
+// registers, so that a sample loaded feeds up to 6 output rows' taps, and
+// the taps are kernel parameters, read by the FMAs directly.  The x2
+// form's output, four times its input, leaves through a tile in shared
+// memory in whole rows.  The separable forms and these share no inner
+// loop: a vertical then a horizontal pass against one 2-D window.  The
+// first form of both staged the window with loads from every thread,
+// whose latency the few blocks an SM (a 24-KB window each) could not
+// hide, and stored the x2 outputs from registers, a lane's 16 bytes four
+// words apart: 5.74 (↓2) and 6.14 ms (x2) at StyleGAN3-R's L10 on an
+// H100, back to back, against 4.97 and 4.30 ms now (chip_smoke.py's
+// phase 1 times them).
+//
 // Tap counts 4 and 12 (24 at x4) are unrolled at compile time; other
 // counts up to kMaxTaps take a generic loop (K5, K6, down4: the vertical
 // pass then reads each tap's sample from device memory, not from a
@@ -134,6 +162,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -650,8 +679,8 @@ __device__ __forceinline__ void up4_rows(const float (*vert)[Up4Tile<T>::kVertPi
 }
 
 // One row of the staged tile to device memory in the widest words its
-// address allows (16 bytes where the row is so aligned), lanes on
-// neighbouring words.
+// and the source's addresses allow (16 bytes where both are so aligned),
+// lanes on neighbouring words.
 template <typename W, typename T>
 __device__ __forceinline__ void copy_words(T* dst, const T* src, int n, int lane) {
   constexpr int E = sizeof(W) / sizeof(T);
@@ -664,7 +693,7 @@ __device__ __forceinline__ void copy_words(T* dst, const T* src, int n, int lane
 
 template <typename T>
 __device__ __forceinline__ void copy_row(T* dst, const T* src, int n, int lane) {
-  const size_t a = reinterpret_cast<size_t>(dst);
+  const size_t a = reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src);
   if (a % 16 == 0) {
     copy_words<uint4>(dst, src, n, lane);
   } else if (a % 8 == 0) {
@@ -966,6 +995,464 @@ void launch_down4_taps(const T* x, T* out, int P, int H, int W, int OH, int OW, 
   }
 }
 
+// ------------------------------------ 2-D taps at factor 2: down2 and up2 (StyleGAN3-R)
+
+constexpr int k2dMaxTaps = 12;                 // the largest square filter of the 2-D forms
+constexpr int k2dPhaseTaps = k2dMaxTaps / 2;   // taps of a slot of the x2 form, at most
+constexpr int k2dThreads = 64;                 // threads of a block: 2 warps
+constexpr int kD2Tx = 8, kD2Ty = 8;            // down2: threads of a block across and down
+constexpr int kD2Rows = 4, kD2Cols = 4;        // down2: outputs of a thread
+constexpr int kD2Stages = 1;                   // down2: planes whose words are in flight
+constexpr int kD2TileH = kD2Ty * kD2Rows, kD2TileW = kD2Tx * kD2Cols;
+constexpr int kU2Tx = 16, kU2Ty = 4;           // up2: threads of a block across and down
+constexpr int kU2Rows = 2, kU2Cols = 4;        // up2: output pairs of a thread (2 x 2 phases each)
+constexpr int kU2Stages = 2;                   // up2: planes whose words are in flight
+constexpr int kU2TileH = kU2Ty * kU2Rows, kU2TileW = kU2Tx * kU2Cols;
+// Blocks of a launch an SM: on an H100 the fastest of 2 .. 1024 at
+// StyleGAN3-R's shapes, which chip_smoke.py times on every run.
+constexpr int k2dBlocksPerSM = 64;
+constexpr int k2dUpBlocksPerSM = 128;
+
+// Correlation taps [i][j] (flipped unless flip_filter, gain folded in);
+// zero beyond ky, kx.
+struct Taps2D {
+  float t[k2dMaxTaps][k2dMaxTaps];
+};
+
+// The x2 form's static polyphase split of a 2-D filter: along each axis
+// the output pair (2a + e, 2a + e + 1) reads the input samples a + d + t
+// (ops/fir.py ``up_phases``; slot s is residue (e + s) mod 2), so the 2 x 2
+// outputs of pair (a, b) are sum_ts t[sy][sx][t][s] * X[a + dy + t][b + dx + s]
+// with t < ny[sy], s < nx[sx].
+struct Phases2D {
+  float t[2][2][k2dPhaseTaps][k2dPhaseTaps];
+  int ny[2], nx[2];
+  int ey, dy, ex, dx;
+};
+
+// The input window of a 2-D kernel's block: NR x NC samples, unpacked as
+// f32 in shared memory (row pitch PITCH; with SPLIT each row's even
+// columns in its first HALF floats and its odd ones in the next HALF,
+// which the ↓2 form reads apart) from the 16-byte words of device memory
+// that hold it, NW a row at most, which a bulk copy brings into shared
+// memory a row at a time.
+template <typename T, int NR_, int NC_, bool SPLIT_>
+struct Win2d {
+  static constexpr int NR = NR_, NC = NC_;
+  static constexpr bool SPLIT = SPLIT_;
+  static constexpr int HALF = SPLIT ? ((NC + 1) / 2 + 3) & ~3 : 0;
+  static constexpr int PITCH = SPLIT ? 2 * HALF : (NC + 3) & ~3;
+  static constexpr int E = 16 / sizeof(T);        // samples a word
+  static constexpr int NW = (NC + 2 * E - 2) / E;
+  __device__ static int index(int r, int c) {
+    return r * PITCH + (SPLIT ? (c & 1) * HALF + (c >> 1) : c);
+  }
+};
+
+// The window's rows [r_lo, r_hi) and columns [c_lo, c_hi) lie inside the
+// image; the window's sample (0, 0) is image sample (iy0, ix0).  A block's
+// window lies at the same place in every plane.
+struct Window {
+  int iy0, ix0, r_lo, r_hi, c_lo, c_hi;
+  template <int NR, int NC>
+  __device__ static Window of(int iy0, int ix0, int H, int W) {
+    Window w{iy0, ix0, 0, 0, 0, 0};
+    w.r_lo = min(max(-iy0, 0), NR);
+    w.r_hi = max(min(H - iy0, NR), w.r_lo);
+    w.c_lo = min(max(-ix0, 0), NC);
+    w.c_hi = max(min(W - ix0, NC), w.c_lo);
+    return w;
+  }
+  // The first sample inside the image of window row r.
+  template <typename T>
+  __device__ const T* first(const T* plane, int W, int r) const {
+    return plane + (size_t)(iy0 + r) * W + (ix0 + c_lo);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ const char* word_of(const void* p) {
+  return reinterpret_cast<const char*>(reinterpret_cast<size_t>(p) & ~(size_t)15);
+}
+
+// Zero the window's samples outside the image, once a block.
+template <typename B>
+__device__ __forceinline__ void zero_window(float* win, const Window& w) {
+  for (int it = threadIdx.x; it < B::NR * B::NC; it += k2dThreads) {
+    const int r = it / B::NC, c = it % B::NC;
+    if (r < w.r_lo || r >= w.r_hi || c < w.c_lo || c >= w.c_hi) win[B::index(r, c)] = 0.f;
+  }
+}
+
+// Start bringing one plane's rows of the window into ``raw`` (the words
+// that hold each row's samples inside the image, one bulk copy a row, by
+// the copy engine), completing on ``bar``: each row's thread arrives there
+// with the row's bytes.
+template <typename B, typename T>
+__device__ __forceinline__ void fetch_window(uint4* raw, uint64_t* bar, const Window& w,
+                                             const T* plane, int W) {
+  for (int r = w.r_lo + threadIdx.x; r < w.r_hi; r += k2dThreads) {
+    const T* first = w.first(plane, W, r);
+    const char* lo = word_of(first);
+    const uint32_t bytes = (uint32_t)(word_of(first + (w.c_hi - w.c_lo - 1)) + 16 - lo);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the last reads of raw
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(raw + r * B::NW)), "l"(lo), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+  }
+}
+
+// Wait for the phase of ``bar`` of parity ``parity`` to complete.
+__device__ __forceinline__ void wait_bar(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The fetched words of one plane into the window as f32: whole words as
+// two runs of even and odd samples, each row's first and last word in
+// part.
+template <typename B, typename T>
+__device__ __forceinline__ void unpack_window(float* win, const uint4* raw, const Window& w,
+                                              const T* plane, int W) {
+  constexpr int E = B::E;
+  for (int it = threadIdx.x; it < (w.r_hi - w.r_lo) * B::NW; it += k2dThreads) {
+    const int r = w.r_lo + it / B::NW, k = it % B::NW;
+    const T* first = w.first(plane, W, r);
+    // Window column of the word's first sample (negative: before the row's first).
+    const int c0 = w.c_lo + (int)((word_of(first) + 16 * k - reinterpret_cast<const char*>(first)) /
+                                  (int)sizeof(T));
+    if (c0 >= w.c_hi) continue;
+    const uint4 v = raw[r * B::NW + k];
+    float f[E];
+    if constexpr (sizeof(T) == 2) {
+      const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[2 * j] = __uint_as_float(u[j] << 16);
+        f[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+      }
+    } else {
+      f[0] = __uint_as_float(v.x);
+      f[1] = __uint_as_float(v.y);
+      f[2] = __uint_as_float(v.z);
+      f[3] = __uint_as_float(v.w);
+    }
+    if (c0 >= w.c_lo && c0 + E <= w.c_hi) {
+      float* even = win + B::index(r, c0);
+      float* odd = win + B::index(r, c0 + 1);
+#pragma unroll
+      for (int e = 0; e < E; ++e) (e % 2 ? odd : even)[B::SPLIT ? e / 2 : e - e % 2] = f[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int c = c0 + e;
+        if (c >= w.c_lo && c < w.c_hi) win[B::index(r, c)] = f[e];
+      }
+    }
+  }
+}
+
+// One block's staging of the planes it walks: the window, S buffers of the
+// words that fill it, and a barrier for each buffer's copies (a phase a
+// plane).  The n-th plane of the block comes in buffer n mod S, its copies
+// started S planes ahead.
+template <typename B, typename T, int S>
+struct Stage2d {
+  float* win;
+  uint4* raw;     // [S][NR * NW]
+  uint64_t* bar;  // [S]
+  Window w;
+  bool rows;  // the window has samples inside the image
+  // Zero the window's part outside the image and start the first S planes' copies.
+  __device__ void begin(const T* x, int H, int W, int P) {
+    rows = w.r_hi > w.r_lo && w.c_hi > w.c_lo;
+    if (threadIdx.x == 0 && rows) {
+      for (int b = 0; b < S; ++b) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar + b)),
+                     "r"(w.r_hi - w.r_lo) : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    zero_window<B>(win, w);
+    __syncthreads();
+    for (int b = 0; b < S; ++b) fetch(x, H, W, P, b);
+  }
+  // Start the copies of the block's n-th plane, if there is one.
+  __device__ void fetch(const T* x, int H, int W, int P, uint32_t n) {
+    const int p = blockIdx.z + n * gridDim.z;
+    if (p < P && rows) {
+      fetch_window<B>(raw + (n % S) * B::NR * B::NW, bar + n % S, w, x + (size_t)p * H * W, W);
+    }
+  }
+  // The block's n-th plane (p) into the window, then the copies of its
+  // (n + S)-th started; a barrier between.
+  __device__ void next(const T* x, int H, int W, int P, int p, uint32_t n) {
+    if (rows) {
+      wait_bar(bar + n % S, (n / S) & 1);
+      unpack_window<B>(win, raw + (n % S) * B::NR * B::NW, w, x + (size_t)p * H * W, W);
+    }
+    __syncthreads();  // the window is in; its words are free
+    fetch(x, H, W, P, n + S);
+  }
+};
+
+// N consecutive floats of shared memory (16-byte aligned) into registers.
+template <int N>
+__device__ __forceinline__ void load_run(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j + 4 <= N; j += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p + j);
+    v[j] = f.x;
+    v[j + 1] = f.y;
+    v[j + 2] = f.z;
+    v[j + 3] = f.w;
+  }
+#pragma unroll
+  for (int j = N & ~3; j < N; ++j) v[j] = p[j];
+}
+
+// One output row's run of N outputs from column u (even), rounded once:
+// in pairs where the row allows, else one at a time; columns from OW on
+// are skipped.
+template <typename T, int N>
+__device__ __forceinline__ void store_run(T* row, int u, int OW, const float (&o)[N]) {
+  const bool pair_ok = reinterpret_cast<size_t>(row + u) % (2 * sizeof(T)) == 0;
+#pragma unroll
+  for (int k = 0; k < N; k += 2) {
+    const int c = u + k;
+    if (c >= OW) break;
+    if (pair_ok && c + 1 < OW) {
+      store2(row + c, o[k], o[k + 1]);
+    } else {
+      store(row + c, o[k]);
+      if (c + 1 < OW) store(row + c + 1, o[k + 1]);
+    }
+  }
+}
+
+// N outputs, rounded once, into the output tile at ``dst`` (aligned to
+// 4 * sizeof(T)).
+template <typename T, int N>
+__device__ __forceinline__ void put_run(T* dst, const float (&o)[N]) {
+  static_assert(N % 4 == 0, "whole runs of 4");
+#pragma unroll
+  for (int k = 0; k < N; k += 4) {
+    if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<uint2*>(dst + k) =
+          make_uint2(bf16x2_bits(o[k], o[k + 1]), bf16x2_bits(o[k + 2], o[k + 3]));
+    } else {
+      *reinterpret_cast<float4*>(dst + k) = make_float4(o[k], o[k + 1], o[k + 2], o[k + 3]);
+    }
+  }
+}
+
+// An output tile of OH_T x OW_T in shared memory to device memory: tile
+// row r is output row oy0 + r, tile column c output column ox0 + c; a
+// warp a row, in the widest words the addresses allow, lanes on
+// neighbouring words (the rows are only element-aligned).
+template <int OH_T, int OW_T, typename T>
+__device__ __forceinline__ void put_tile(const T* tile, T* plane, int oy0, int ox0, int OH, int OW) {
+  const int lane = threadIdx.x & 31;
+  const int c_lo = max(-ox0, 0), n = min(OW - ox0, OW_T) - c_lo;
+  if (n <= 0) return;
+  for (int r = threadIdx.x >> 5; r < OH_T; r += k2dThreads / 32) {
+    const int oy = oy0 + r;
+    if (oy >= 0 && oy < OH) {
+      copy_row(plane + (size_t)oy * OW + ox0 + c_lo, tile + r * OW_T + c_lo, n, lane);
+    }
+  }
+}
+
+template <typename T, int KY, int KX>
+using Down2d = Win2d<T, 2 * (kD2TileH - 1) + (KY > 0 ? KY : k2dMaxTaps),
+                     2 * (kD2TileW - 1) + (KX > 0 ? KX : k2dMaxTaps), true>;
+template <typename T, int KY, int KX>
+using Up2d = Win2d<T, kU2TileH + (KY > 0 ? KY / 2 : k2dPhaseTaps) - 1,
+                   kU2TileW + (KX > 0 ? KX / 2 : k2dPhaseTaps) - 1, false>;
+
+// ↓2 with a 2-D filter: one block (kD2Tx x kD2Ty threads) per output tile
+// of kD2TileH x kD2TileW; the z dimension of the grid walks the planes.
+// Each plane's input window (2 * (tile - 1) + k samples each way) comes in
+// by bulk copies while the last plane is computed and is unpacked as f32,
+// its even and odd columns apart; a thread owns kD2Rows x kD2Cols outputs
+// and walks the window rows of its outputs once, each row's 2 * (kD2Cols
+// - 1) + kx samples loaded from shared memory in 16-byte words and
+// feeding the up to 6 output rows whose taps reach it.  Each output sums
+// its taps (i, j) in ascending order, i first, as FMAs into one f32
+// accumulator, rounded once.  KY, KX > 0 fix the filter's size at compile
+// time (the tap loops unroll with the taps as kernel parameters, no
+// guard); 0 reads ky, kx (<= k2dMaxTaps) at run time.
+template <typename T, int FORM, int KY, int KX>
+__global__ void __launch_bounds__(k2dThreads)
+fir_kernel(const T* __restrict__ x, T* __restrict__ out, int P, int H, int W, int OH, int OW,
+           int py0, int px0, int ky_rt, int kx_rt, Taps2D t) {
+  static_assert(FORM == kDown2, "the 2-D filter runs at ↓2 (↑2 is fir_up_kernel)");
+  using B = Down2d<T, KY, KX>;
+  constexpr int MY = KY > 0 ? KY : k2dMaxTaps, MX = KX > 0 ? KX : k2dMaxTaps;
+  constexpr int NE = kD2Cols + (MX + 1) / 2 - 1;  // even window columns of a thread's outputs
+  constexpr int NO = kD2Cols + MX / 2 - 1;        // odd ones
+  __shared__ __align__(16) float win[B::NR * B::PITCH];
+  __shared__ __align__(16) uint4 raw[kD2Stages * B::NR * B::NW];
+  __shared__ __align__(8) uint64_t bar[kD2Stages];
+  const int ky = KY > 0 ? KY : ky_rt, kx = KX > 0 ? KX : kx_rt;
+  const int v0 = blockIdx.y * kD2TileH, u0 = blockIdx.x * kD2TileW;
+  Stage2d<B, T, kD2Stages> st{win, raw, bar,
+                              Window::of<B::NR, B::NC>(2 * v0 - py0, 2 * u0 - px0, H, W)};
+  st.begin(x, H, W, P);
+  const int tx = threadIdx.x % kD2Tx, ty = threadIdx.x / kD2Tx;
+  const int v = v0 + kD2Rows * ty, u = u0 + kD2Cols * tx;  // the thread's first output
+  const float* run = win + 2 * kD2Rows * ty * B::PITCH + kD2Cols * tx;  // even; odd at + HALF
+  uint32_t n = 0;
+  for (int p = blockIdx.z; p < P; p += gridDim.z, ++n) {
+    st.next(x, H, W, P, p, n);
+    if (v < OH && u < OW) {
+      float acc[kD2Rows][kD2Cols];
+#pragma unroll
+      for (int a = 0; a < kD2Rows; ++a) {
+#pragma unroll
+        for (int c = 0; c < kD2Cols; ++c) acc[a][c] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 2 * (kD2Rows - 1) + MY; ++r) {
+        float e[NE], o[NO];
+        load_run(run + r * B::PITCH, e);
+        load_run(run + r * B::PITCH + B::HALF, o);
+#pragma unroll
+        for (int a = 0; a < kD2Rows; ++a) {
+          const int i = r - 2 * a;  // the tap row that window row r is to output row a
+          if (i < 0 || i >= MY || (KY == 0 && i >= ky)) continue;
+#pragma unroll
+          for (int j = 0; j < MX; ++j) {
+            if (KX == 0 && j >= kx) break;
+#pragma unroll
+            for (int c = 0; c < kD2Cols; ++c) {
+              acc[a][c] += t.t[i][j] * (j % 2 ? o[c + j / 2] : e[c + j / 2]);
+            }
+          }
+        }
+      }
+      T* plane = out + (size_t)p * OH * OW;
+#pragma unroll
+      for (int a = 0; a < kD2Rows; ++a) {
+        if (v + a < OH) store_run(plane + (size_t)(v + a) * OW, u, OW, acc[a]);
+      }
+    }
+    __syncthreads();  // the window has been read
+  }
+}
+
+// ×2 with a 2-D filter, polyphase: one block (kU2Tx x kU2Ty threads) per
+// tile of kU2TileH x kU2TileW output pairs along each axis (2 kU2TileH x
+// 2 kU2TileW outputs); the z dimension of the grid walks the planes.  Each
+// plane's input window (tile + slot taps - 1 samples each way) comes in by
+// bulk copies while the last plane is computed and is unpacked as f32; a
+// thread owns kU2Rows x kU2Cols output pairs, whose 2 x 2 phases each read
+// the same slot-tap window of input samples, and walks its window rows
+// once, each row's kU2Cols + nx - 1 samples in 16-byte words feeding every
+// phase of the pairs its taps reach.  The zero-stuffed grid is never
+// built.  Each output sums its slot taps (t, s) in ascending order, t
+// first, as the per-output form over the zero-stuffed grid does without
+// the zero terms, and goes to the output tile in shared memory, rounded
+// once; the tile leaves in whole rows (the output is four times the
+// input: its writes are the most bytes).  KY, KX > 0 (even) fix the
+// filter's size (KY / 2 taps in each slot); 0 reads the slots' counts at
+// run time.
+template <typename T, int UP, int KY, int KX>
+__global__ void __launch_bounds__(k2dThreads)
+fir_up_kernel(const T* __restrict__ x, T* __restrict__ out, int P, int H, int W, int OH, int OW,
+              Phases2D ph) {
+  static_assert(UP == 2, "the 2-D filter runs at x2 (↓2 is fir_kernel)");
+  static_assert(KY % 2 == 0 && KX % 2 == 0, "a fixed size is even: the same taps in each slot");
+  using B = Up2d<T, KY, KX>;
+  constexpr int NY = KY > 0 ? KY / 2 : k2dPhaseTaps, NX = KX > 0 ? KX / 2 : k2dPhaseTaps;
+  constexpr int NWIN = kU2Cols + NX - 1;  // window columns of a thread's pairs
+  constexpr int TH = 2 * kU2TileH, TW = 2 * kU2TileW;  // the output tile
+  __shared__ __align__(16) float win[B::NR * B::PITCH];
+  __shared__ __align__(16) uint4 raw[kU2Stages * B::NR * B::NW];
+  __shared__ __align__(16) T tile[TH * TW];
+  __shared__ __align__(8) uint64_t bar[kU2Stages];
+  const int a0 = blockIdx.y * kU2TileH - ph.ey, b0 = blockIdx.x * kU2TileW - ph.ex;
+  Stage2d<B, T, kU2Stages> st{win, raw, bar, Window::of<B::NR, B::NC>(a0 + ph.dy, b0 + ph.dx, H, W)};
+  st.begin(x, H, W, P);
+  const int tx = threadIdx.x % kU2Tx, ty = threadIdx.x / kU2Tx;
+  const int pa = kU2Rows * ty, pb = kU2Cols * tx;     // the thread's first pair in the tile
+  const int oy0 = 2 * a0 + ph.ey, ox0 = 2 * b0 + ph.ex;  // the tile's first output
+  const bool active = oy0 + 2 * pa < OH && ox0 + 2 * pb < OW;
+  const float* run = win + pa * B::PITCH + pb;
+  uint32_t n = 0;
+  for (int p = blockIdx.z; p < P; p += gridDim.z, ++n) {
+    st.next(x, H, W, P, p, n);  // also: the last plane's tile has left
+    if (active) {
+      float acc[kU2Rows][2][2 * kU2Cols];  // [pair row][y phase][column: pair, x phase]
+#pragma unroll
+      for (int a = 0; a < kU2Rows; ++a) {
+#pragma unroll
+        for (int k = 0; k < 2 * kU2Cols; ++k) acc[a][0][k] = acc[a][1][k] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kU2Rows + NY - 1; ++r) {
+        float v[NWIN];
+        load_run(run + r * B::PITCH, v);
+#pragma unroll
+        for (int a = 0; a < kU2Rows; ++a) {
+          const int tt = r - a;  // the slot tap that window row r is to pair row a
+          if (tt < 0 || tt >= NY) continue;
+#pragma unroll
+          for (int sy = 0; sy < 2; ++sy) {
+            if (KY == 0 && tt >= ph.ny[sy]) continue;
+#pragma unroll
+            for (int s = 0; s < NX; ++s) {
+#pragma unroll
+              for (int sx = 0; sx < 2; ++sx) {
+                if (KX == 0 && s >= ph.nx[sx]) continue;
+#pragma unroll
+                for (int c = 0; c < kU2Cols; ++c) {
+                  acc[a][sy][2 * c + sx] += ph.t[sy][sx][tt][s] * v[c + s];
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kU2Rows; ++a) {
+#pragma unroll
+        for (int sy = 0; sy < 2; ++sy) put_run(tile + (2 * (pa + a) + sy) * TW + 2 * pb, acc[a][sy]);
+      }
+    }
+    __syncthreads();  // the tile is whole; the window has been read
+    put_tile<TH, TW>(tile, out + (size_t)p * OH * OW, oy0, ox0, OH, OW);
+  }
+}
+
+template <typename T, int K>
+void launch_2d(const T* x, T* out, int P, int H, int W, int OH, int OW, int up, int py0, int px0,
+               int ky, int kx, const Taps2D& t, const Phases2D& ph, int bps, cudaStream_t s) {
+  if (up == 1) {
+    const dim3 grid = plane_grid((OW + kD2TileW - 1) / kD2TileW, (OH + kD2TileH - 1) / kD2TileH,
+                                 P, bps > 0 ? bps : k2dBlocksPerSM);
+    fir_kernel<T, kDown2, K, K><<<grid, k2dThreads, 0, s>>>(x, out, P, H, W, OH, OW, py0, px0,
+                                                            ky, kx, t);
+  } else {
+    const dim3 grid = plane_grid((OW + ph.ex + 2 * kU2TileW - 1) / (2 * kU2TileW),
+                                 (OH + ph.ey + 2 * kU2TileH - 1) / (2 * kU2TileH), P,
+                                 bps > 0 ? bps : k2dUpBlocksPerSM);
+    fir_up_kernel<T, 2, K, K><<<grid, k2dThreads, 0, s>>>(x, out, P, H, W, OH, OW, ph);
+  }
+}
+
 bool read_phases(Phases& ph, const float* taps, const int* geom) {
   for (int r = 0; r < 2; ++r) {
     ph.n[r] = geom[r];
@@ -1079,6 +1566,72 @@ extern "C" int gantrack_fir_down4(const void* x, void* out, int P, int H, int W,
   } else {
     launch_down4_taps<float>((const float*)x, (float*)out, P, H, W, OH, OW, py0, px0, ky, kx, t,
                              bps, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The 2-D forms (StyleGAN3-R's radial filters): ``up`` 1 is down2 with
+// ``taps`` the ky x kx correlation taps, row-major, and ``geom`` = {ky, kx,
+// py0, px0}; ``up`` 2 is up2 with ``taps`` [2 slots y][2 slots x][6][6]
+// floats and ``geom`` = {ny0, ny1, nx0, nx1, ey, dy, ex, dx}, the polyphase
+// split that ops/fir.py ``_c_2d`` makes of the filter and the low pads.
+// ky, kx <= 12 (slot counts <= 6).  ``blocks_per_sm`` sizes the grid (0:
+// k2dBlocksPerSM or k2dUpBlocksPerSM).  Launches on ``stream`` and returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments outside the
+// kernels' contract).
+extern "C" int gantrack_fir_2d(const void* x, void* out, int P, int H, int W, int OH, int OW,
+                               int up, const float* taps, const int* geom, int is_bf16,
+                               int blocks_per_sm, void* stream) {
+  if (P < 1 || H < 1 || W < 1 || OH < 1 || OW < 1 || blocks_per_sm < 0 || (up != 1 && up != 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Taps2D t = {};
+  Phases2D ph = {};
+  int ky = 0, kx = 0, py0 = 0, px0 = 0, fixed = 0;
+  if (up == 1) {
+    ky = geom[0];
+    kx = geom[1];
+    py0 = geom[2];
+    px0 = geom[3];
+    if (ky < 1 || kx < 1 || ky > k2dMaxTaps || kx > k2dMaxTaps) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < ky; ++i) {
+      for (int j = 0; j < kx; ++j) t.t[i][j] = taps[i * kx + j];
+    }
+    fixed = ky == k2dMaxTaps && kx == k2dMaxTaps;
+  } else {
+    fixed = 1;
+    for (int s = 0; s < 2; ++s) {
+      ph.ny[s] = geom[s];
+      ph.nx[s] = geom[2 + s];
+      if (ph.ny[s] < 0 || ph.ny[s] > k2dPhaseTaps || ph.nx[s] < 0 || ph.nx[s] > k2dPhaseTaps) {
+        return (int)cudaErrorInvalidValue;
+      }
+      fixed &= ph.ny[s] == k2dPhaseTaps && ph.nx[s] == k2dPhaseTaps;
+    }
+    ph.ey = geom[4];
+    ph.dy = geom[5];
+    ph.ex = geom[6];
+    ph.dx = geom[7];
+    if ((ph.ey != 0 && ph.ey != 1) || (ph.ex != 0 && ph.ex != 1)) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < 2 * 2 * k2dPhaseTaps * k2dPhaseTaps; ++i) (&ph.t[0][0][0][0])[i] = taps[i];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    auto xb = (const __nv_bfloat16*)x;
+    auto ob = (__nv_bfloat16*)out;
+    if (fixed) {
+      launch_2d<__nv_bfloat16, k2dMaxTaps>(xb, ob, P, H, W, OH, OW, up, py0, px0, ky, kx, t, ph,
+                                           blocks_per_sm, s);
+    } else {
+      launch_2d<__nv_bfloat16, 0>(xb, ob, P, H, W, OH, OW, up, py0, px0, ky, kx, t, ph,
+                                  blocks_per_sm, s);
+    }
+  } else if (fixed) {
+    launch_2d<float, k2dMaxTaps>((const float*)x, (float*)out, P, H, W, OH, OW, up, py0, px0, ky,
+                                 kx, t, ph, blocks_per_sm, s);
+  } else {
+    launch_2d<float, 0>((const float*)x, (float*)out, P, H, W, OH, OW, up, py0, px0, ky, kx, t, ph,
+                        blocks_per_sm, s);
   }
   return (int)cudaGetLastError();
 }

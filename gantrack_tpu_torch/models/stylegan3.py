@@ -35,7 +35,7 @@ import torch.nn as nn
 
 from ..ops.conv2d_gradfix import conv2d
 from ..ops.filtered_lrelu import filtered_lrelu
-from ..ops.upfirdn2d import NOT_SEPARABLE, filter_taps
+from ..ops.upfirdn2d import host_taps
 from .stylegan2 import FullyConnected, MappingNetwork
 
 
@@ -99,7 +99,7 @@ def _lowpass_buffer(module: nn.Module, name: str, f: Optional[np.ndarray]) -> No
         setattr(module, f"{name}_taps", None)
         return
     module.register_buffer(name, torch.from_numpy(f), persistent=False)
-    setattr(module, f"{name}_taps", filter_taps(f) or NOT_SEPARABLE)
+    setattr(module, f"{name}_taps", host_taps(f))
 
 
 class SynthesisInput(nn.Module):

@@ -7,9 +7,9 @@ FIR ``fd`` → keep every ``down``-th sample, on NCHW tensors.
 It is composed from the port's ops, as the JAX function is composed from
 XLA ops (it is no Pallas kernel there): the two FIR passes go through
 :func:`.upfirdn2d.upfirdn2d`, so a pass with a separable filter of at
-most 32 taps and a factor of 1, 2 or 4 launches the FIR kernels on the
-card, and a radial pass takes the plain version (counted as
-``upfirdn2d.plain_route/<why>``).
+most 32 taps and a factor of 1, 2 or 4, or a radial (2-D) one of at most
+12 x 12 taps at ↓2, launches the FIR kernels on the card; any other takes
+the plain version (counted as ``upfirdn2d.plain_route/<why>``).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .bias_act import bias_act
-from .upfirdn2d import Taps, _get_filter_size, _parse_padding, upfirdn2d
+from .upfirdn2d import HostTaps, _get_filter_size, _parse_padding, upfirdn2d
 
 __all__ = ["filtered_lrelu"]
 
@@ -36,14 +36,14 @@ def filtered_lrelu(
     gain: float = float(np.sqrt(2)),
     slope: float = 0.2,
     clamp: Optional[float] = None,
-    fu_taps: Optional[Taps] = None,
-    fd_taps: Optional[Taps] = None,
+    fu_taps: Optional[HostTaps] = None,
+    fd_taps: Optional[HostTaps] = None,
 ) -> torch.Tensor:
     """Apply the filtered leaky ReLU to ``x [N, C, H, W]``.
 
     ``fu`` / ``fd`` are the upsampling / downsampling FIR filters (None
     for identity) with their host taps ``fu_taps`` / ``fd_taps``
-    (``filter_taps``, or ``NOT_SEPARABLE``) beside them; ``b`` an optional
+    (``host_taps``) beside them; ``b`` an optional
     ``[C]`` bias; ``padding`` is relative to the upsampled image, negative
     crops.
     """

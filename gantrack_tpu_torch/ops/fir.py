@@ -1,27 +1,32 @@
-"""Separable resample FIR: same rate, ↓2, ↑2, ↑4 (polyphase) and ↓4.
+"""Resample FIR: same rate, ↓2, ↑2, ↑4 (polyphase) and ↓4, separable; ↓2
+and ↑2 with a 2-D filter.
 
 Port of ``gantrack_tpu/ops/attic/fir.py`` (``fir2d``, kernels K5–K7) on
 ``[P, H, W]`` planes, widened to StyleGAN3's factor 4 (the ×4 up-filters
-of its layers and their ↓4 adjoints, which the JAX kernels never
-covered).  A :class:`FirSpec` names the form and holds the
-correlation taps per axis (flipped unless ``flip_filter``, √gain per
-axis, as ``fir2d`` prepares them) and the pads ``(py0, py1, px0, px1)``
-of the up-rate grid, with the ``upfirdn2d`` contract: pad or crop, run
-the taps, keep every ``down``-th sample.
+of its layers and their ↓4 adjoints) and to StyleGAN3-R's radial 2-D
+down-filters at ↓2 and their ×2 adjoints, which the JAX kernels never
+covered.  A :class:`FirSpec` names the form and holds the correlation
+taps per axis (flipped unless ``flip_filter``, √gain per axis, as
+``fir2d`` prepares them), or one 2-D array of them (``taps_2d``: flipped
+on both axes unless ``flip_filter``, gain folded in), and the pads
+``(py0, py1, px0, px1)`` of the up-rate grid, with the ``upfirdn2d``
+contract: pad or crop, run the taps, keep every ``down``-th sample.
 
 * :class:`Fir` is the autograd Function.  On a CUDA tensor its forward
   launches the kernel of ``csrc/fir.cu`` (same and down2: ``fir_kernel``;
   up2 and up4: ``fir_up_kernel``, which takes the static polyphase split
-  of :func:`up_phases`; down4: ``fir_down4_kernel``); on a CPU tensor it
-  computes the plain form with :func:`.upfirdn2d.upfirdn2d_plain`.  Its
-  backward is :class:`Fir` again with the adjoint spec (``_fir_bwd`` of
-  the JAX module): adjoint(same) is same with reversed taps and pads
-  ``(k-1-p0, k-1-p1)``, adjoint(down2) is up2 and adjoint(up2) is down2,
-  and likewise down4 and up4, with the high pads solved so the output has
-  the input's size.  So every order of gradient, as R1 and path length
-  take, stays on the kernels.
-* Each kernel launch counts ``fir.launch/<form>`` in the installed
-  recorder (:mod:`..utils.profiling`).  :func:`.upfirdn2d.upfirdn2d`
+  of :func:`up_phases`; down4: ``fir_down4_kernel``; the 2-D forms:
+  ``fir_kernel`` and ``fir_up_kernel`` with the filter's two sizes); on a
+  CPU tensor it computes the plain form with
+  :func:`.upfirdn2d.upfirdn2d_plain`.  Its backward is :class:`Fir` again
+  with the adjoint spec (``_fir_bwd`` of the JAX module): adjoint(same) is
+  same with reversed taps and pads ``(k-1-p0, k-1-p1)``, adjoint(down2) is
+  up2 and adjoint(up2) is down2, and likewise down4 and up4 and the 2-D
+  forms (taps reversed on both axes), with the high pads solved so the
+  output has the input's size.  So every order of gradient, as R1 and
+  path length take, stays on the kernels.
+* Each kernel launch counts ``fir.launch/<form>`` (``<form>_2d`` for a
+  2-D filter) in the installed recorder (:mod:`..utils.profiling`).  :func:`.upfirdn2d.upfirdn2d`
   counts its routing: ``upfirdn2d.kernel_route`` for a call that takes
   :class:`Fir`, ``upfirdn2d.plain_route/<why>`` for one whose static spec
   lies outside the kernels' contract and which took the plain version.
@@ -34,12 +39,13 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import profiling
 from ._nvcc import check_planes, check_rc, load_library
-from .upfirdn2d import (NOT_SEPARABLE, Taps, _parse_padding, _parse_scaling, filter_taps,
-                        upfirdn2d_plain)
+from .upfirdn2d import (NOT_SEPARABLE, HostTaps, Taps2D, _parse_padding, _parse_scaling,
+                        host_taps, upfirdn2d_plain)
 
 __all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "up_phases"]
 
@@ -48,17 +54,27 @@ FACTORS = {"same": (1, 1), "down2": (1, 2), "up2": (2, 1), "up4": (4, 1), "down4
 FORMS = tuple(FACTORS)
 _FORM_OF = {factors: form for form, factors in FACTORS.items()}
 MAX_TAPS = 32  # kMaxTaps of csrc/fir.cu
+MAX_TAPS_2D = 12  # k2dMaxTaps of csrc/fir.cu: the largest square 2-D filter
 
 
 @dataclasses.dataclass(frozen=True)
 class FirSpec:
     """One FIR call: ``form`` in :data:`FORMS`, correlation taps per
-    axis, and the pads ``(py0, py1, px0, px1)`` of the up-rate grid."""
+    axis, and the pads ``(py0, py1, px0, px1)`` of the up-rate grid.  A
+    2-D filter (down2 or up2) holds its correlation taps in ``taps_2d``
+    (rows) and only its sizes in ``taps_y``, ``taps_x`` (zeros), so that
+    what sizes a call by its form and tap counts reads it as any other."""
 
     form: str
     taps_y: Tuple[float, ...]
     taps_x: Tuple[float, ...]
     pads: Tuple[int, int, int, int]
+    taps_2d: Tuple[Tuple[float, ...], ...] = ()
+
+    @property
+    def kernel(self) -> str:
+        """The kernel's form as ``fir.launch/<kernel>`` counts it."""
+        return f"{self.form}_2d" if self.taps_2d else self.form
 
     def _axis_out(self, n: int, k: int, p0: int, p1: int) -> int:
         up, down = FACTORS[self.form]
@@ -85,14 +101,15 @@ class FirSpec:
         qy = self._axis_adjoint(h, oh, len(self.taps_y), py0, py1)
         qx = self._axis_adjoint(w, ow, len(self.taps_x), px0, px1)
         return FirSpec(_FORM_OF[FACTORS[self.form][::-1]], self.taps_y[::-1], self.taps_x[::-1],
-                       (*qy, *qx))
+                       (*qy, *qx), tuple(row[::-1] for row in self.taps_2d[::-1]))
 
 
-def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
+def fir_spec(f: Optional[torch.Tensor], taps: Optional[HostTaps], up, down, padding,
              flip_filter: bool, gain: float) -> Tuple[Optional[FirSpec], str]:
     """The :class:`FirSpec` of an ``upfirdn2d`` call, or ``(None, why)``
     when the call is outside the kernels' contract.  A filter on the
-    device with no host taps beside it is the caller's fault and raises."""
+    device with no host taps beside it is the caller's fault and raises,
+    as does a 2-D one inside the contract given only as ``NOT_SEPARABLE``."""
     upx, upy = _parse_scaling(up)
     downx, downy = _parse_scaling(down)
     if upx != upy or downx != downy:
@@ -106,12 +123,12 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
             taps = ((1.0,), (1.0,))
         elif f.device.type != "cpu":
             raise ValueError("upfirdn2d: the filter lies on the device and no host taps were "
-                             "given (pass taps=filter_taps(f), computed when the filter is "
-                             "set up, or NOT_SEPARABLE)")
+                             "given (pass taps=host_taps(f), computed when the filter is "
+                             "set up)")
         else:
-            taps = filter_taps(f) or NOT_SEPARABLE
-    if taps == NOT_SEPARABLE:
-        return None, "2-D filter, not separable"
+            taps = host_taps(f)
+    if isinstance(taps, Taps2D) or taps == NOT_SEPARABLE:
+        return _spec_2d(f, taps, upx, downx, padding, flip_filter, gain)
     ty, tx = taps
     if not (1 <= len(ty) <= MAX_TAPS and 1 <= len(tx) <= MAX_TAPS):
         return None, f"{len(ty)} x {len(tx)} taps (at most {MAX_TAPS} per axis)"
@@ -121,6 +138,30 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[Taps], up, down, padding,
     px0, px1, py0, py1 = _parse_padding(padding)
     return FirSpec(_FORM_OF[(upx, downx)], tuple(float(t) * ga for t in ty),
                    tuple(float(t) * ga for t in tx), (py0, py1, px0, px1)), ""
+
+
+def _spec_2d(f, taps, up: int, down: int, padding, flip_filter: bool,
+             gain: float) -> Tuple[Optional[FirSpec], str]:
+    """``fir_spec`` of a 2-D filter: down2 or up2 with at most
+    ``MAX_TAPS_2D`` taps each way, else outside the contract."""
+    ky, kx = ((len(taps.rows), len(taps.rows[0])) if isinstance(taps, Taps2D)
+              else tuple(f.shape) if f is not None and f.ndim == 2 else (0, 0))
+    if (up, down) not in ((1, 2), (2, 1)) or not (1 <= ky <= MAX_TAPS_2D and
+                                                  1 <= kx <= MAX_TAPS_2D):
+        return None, "2-D filter, not separable"
+    if isinstance(taps, Taps2D):
+        rows = taps.rows
+    elif f.device.type == "cpu":
+        rows = f.detach().double().tolist()
+    else:
+        raise ValueError("upfirdn2d: a 2-D filter on the device needs its rows as host "
+                         "taps (taps=host_taps(f), computed when the filter is set up)")
+    a = np.asarray(rows, dtype=np.float64) * float(gain)
+    if not flip_filter:
+        a = a[::-1, ::-1]
+    px0, px1, py0, py1 = _parse_padding(padding)
+    return FirSpec(_FORM_OF[(up, down)], (0.0,) * ky, (0.0,) * kx, (py0, py1, px0, px1),
+                   tuple(tuple(row) for row in a.tolist())), ""
 
 
 def up_phases(taps: Tuple[float, ...], p0: int, u: int):
@@ -154,6 +195,8 @@ def _lib() -> ctypes.CDLL:
             up.restype = i
         lib.gantrack_fir_down4.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p, i, i, p]
         lib.gantrack_fir_down4.restype = i
+        lib.gantrack_fir_2d.argtypes = [p, p, i, i, i, i, i, i, p, p, i, i, p]
+        lib.gantrack_fir_2d.restype = i
         lib._gantrack_typed = True
     return lib
 
@@ -169,6 +212,36 @@ def _c_phases(taps_y: Tuple[float, ...], taps_x: Tuple[float, ...], py0: int, px
         for tr, _ in phases:
             taps += list(tr) + [0.0] * (MAX_TAPS // u - len(tr))
         geom += [len(tr) for tr, _ in phases] + [d for _, d in phases]
+    return (ctypes.c_float * len(taps))(*taps), (ctypes.c_int * len(geom))(*geom)
+
+
+@functools.lru_cache(maxsize=256)
+def _c_2d(spec: FirSpec):
+    """``gantrack_fir_2d``'s arrays: down2, the ky x kx taps and {ky, kx,
+    py0, px0}; up2, the taps [slot y][slot x][6][6] and {ny0, ny1, nx0,
+    nx1, ey, dy, ex, dx} of the static polyphase split, per axis in the
+    kernel's slot order: slot s holds the filter indices of output residue
+    (e + s) mod 2 (:func:`up_phases`), and the output pair (2a + e, 2a + e
+    + 1) reads the input samples a + d + t, t < the slot's count."""
+    ky, kx = len(spec.taps_y), len(spec.taps_x)
+    if spec.form == "down2":
+        taps = [t for row in spec.taps_2d for t in row]
+        geom = [ky, kx, spec.pads[0], spec.pads[2]]
+    else:
+        n = MAX_TAPS_2D // 2
+        axes = []
+        for k, p0 in ((ky, spec.pads[0]), (kx, spec.pads[2])):
+            (i0, d0), (i1, d1) = up_phases(tuple(range(k)), p0, 2)
+            e = d1 - d0
+            axes.append(((i0, i1) if e == 0 else (i1, i0), e, (d0, d1)[e]))
+        (sy, ey, dy), (sx, ex, dx) = axes
+        taps = [0.0] * (4 * n * n)
+        for a in range(2):
+            for b in range(2):
+                for t, i in enumerate(sy[a]):
+                    for u, j in enumerate(sx[b]):
+                        taps[((a * 2 + b) * n + t) * n + u] = spec.taps_2d[i][j]
+        geom = [len(sy[0]), len(sy[1]), len(sx[0]), len(sx[1]), ey, dy, ex, dx]
     return (ctypes.c_float * len(taps))(*taps), (ctypes.c_int * len(geom))(*geom)
 
 
@@ -193,7 +266,11 @@ def fir_planes(x: torch.Tensor, spec: FirSpec, *, blocks_per_sm: int = 0) -> tor
     is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if spec.form in ("up2", "up4"):
+        if spec.taps_2d:
+            rc = _lib().gantrack_fir_2d(x.data_ptr(), out.data_ptr(), p, h, w, oh, ow,
+                                        FACTORS[spec.form][0], *_c_2d(spec), is_bf16,
+                                        blocks_per_sm, stream)
+        elif spec.form in ("up2", "up4"):
             up = FACTORS[spec.form][0]
             launch = _lib().gantrack_fir_up2 if up == 2 else _lib().gantrack_fir_up4
             rc = launch(x.data_ptr(), out.data_ptr(), p, h, w, oh, ow,
@@ -209,8 +286,8 @@ def fir_planes(x: torch.Tensor, spec: FirSpec, *, blocks_per_sm: int = 0) -> tor
                 x.data_ptr(), out.data_ptr(), p, h, w, oh, ow, FORMS.index(spec.form), py0, px0,
                 len(spec.taps_y), len(spec.taps_x), _c_taps(spec.taps_y), _c_taps(spec.taps_x),
                 is_bf16, blocks_per_sm, stream)
-    check_rc(rc, f"FIR {spec.form} kernel")
-    profiling.count(f"fir.launch/{spec.form}")
+    check_rc(rc, f"FIR {spec.kernel} kernel")
+    profiling.count(f"fir.launch/{spec.kernel}")
     return out
 
 
@@ -218,7 +295,8 @@ def fir_plain(x: torch.Tensor, spec: FirSpec) -> torch.Tensor:
     """The plain PyTorch version of :func:`fir_planes`, on any device."""
     ty = torch.tensor(spec.taps_y, dtype=torch.float32, device=x.device)
     tx = torch.tensor(spec.taps_x, dtype=torch.float32, device=x.device)
-    f = ty if spec.taps_y == spec.taps_x else torch.outer(ty, tx)
+    f = (torch.tensor(spec.taps_2d, dtype=torch.float32, device=x.device) if spec.taps_2d
+         else ty if spec.taps_y == spec.taps_x else torch.outer(ty, tx))
     py0, py1, px0, px1 = spec.pads
     up, down = FACTORS[spec.form]
     return upfirdn2d_plain(x[:, None], f, up=up, down=down, padding=[px0, px1, py0, py1],

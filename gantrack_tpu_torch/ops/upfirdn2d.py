@@ -6,12 +6,14 @@ tensors.
 
 * :func:`upfirdn2d` runs every call that fits the FIR kernels' contract
   (a separable filter of at most 32 taps an axis; ``up`` or ``down`` in
-  {1, 2, 4}, the same on both axes, not both above 1; any padding) through
-  :class:`.fir.Fir`: on a CUDA tensor that launches the hand-written
-  kernels of ``csrc/fir.cu`` (K5–K7, K7 at ×4 and the ↓4 kernel), on a CPU
-  tensor it computes the plain form.  A call outside the contract
-  (StyleGAN3-R's radial 2-D filters, more than 32 taps an axis, other
-  factors) takes :func:`upfirdn2d_plain` on any device.  That is decided
+  {1, 2, 4}, the same on both axes, not both above 1; any padding; or a
+  2-D filter of at most 12 x 12 taps at ``up`` or ``down`` 2, StyleGAN3-R's
+  radial down-filters and their adjoints) through :class:`.fir.Fir`: on a
+  CUDA tensor that launches the hand-written kernels of ``csrc/fir.cu``
+  (K5–K7, K7 at ×4, the ↓4 kernel and the 2-D forms), on a CPU tensor it
+  computes the plain form.  A call outside the contract (a 2-D filter at
+  another factor or larger, more than 32 taps an axis, other factors)
+  takes :func:`upfirdn2d_plain` on any device.  That is decided
   from the call's static spec before anything is launched, and counted in the
   installed recorder (:mod:`..utils.profiling`): ``upfirdn2d.kernel_route``,
   or ``upfirdn2d.plain_route/<why>`` by reason; a kernel that fails to
@@ -22,11 +24,12 @@ tensors.
   :mod:`.conv2d_gradfix`'s, so its double backward never forms a weight
   gradient for the constant filter.
 
-The kernels take the filter's taps from the host: :func:`filter_taps`
+The kernels take the filter's taps from the host: :func:`host_taps`
 computes them once, when a filter is set up, and callers pass them as
 ``taps=`` beside the filter tensor, so no call reads a device filter
-back (which would synchronise the stream); a 2-D filter that has no
-separable factors passes ``taps=NOT_SEPARABLE``.  The JAX module's
+back (which would synchronise the stream): the separable factors of
+:func:`filter_taps`, or, for a 2-D filter that has none, its rows as
+:class:`Taps2D`.  The JAX module's
 banded-matrix lowerings are a TPU layout device and are not carried.
 
 Numerics contract (as the JAX module): 1. zero-insert upsample by
@@ -37,6 +40,7 @@ with ``f * gain**(f.ndim/2)``; 4. keep every ``down``-th pixel.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -48,8 +52,21 @@ from .conv2d_gradfix import conv2d
 
 IntOrPair = Union[int, Sequence[int]]
 Taps = Tuple[Tuple[float, ...], Tuple[float, ...]]
-# ``taps=`` of a 2-D filter that :func:`filter_taps` could not factor.
+# ``taps=`` of a 2-D filter that :func:`filter_taps` could not factor,
+# given without its rows: the kernels can take it only from a host filter.
 NOT_SEPARABLE: Taps = ((), ())
+
+
+@dataclasses.dataclass(frozen=True)
+class Taps2D:
+    """``taps=`` of a 2-D filter that :func:`filter_taps` could not
+    factor: its rows, as :func:`setup_filter` made it (before flip and
+    gain), in host floats."""
+
+    rows: Tuple[Tuple[float, ...], ...]
+
+
+HostTaps = Union[Taps, Taps2D]
 
 
 def _parse_scaling(scaling: IntOrPair) -> Tuple[int, int]:
@@ -139,6 +156,16 @@ def filter_taps(f) -> Optional[Taps]:
     return tuple(ty.tolist()), tuple(tx.tolist())
 
 
+def host_taps(f) -> HostTaps:
+    """What a filter set up on the host passes as ``taps=``: its separable
+    factors (:func:`filter_taps`), else its rows (:class:`Taps2D`)."""
+    taps = filter_taps(f)
+    if taps is not None:
+        return taps
+    a = f.detach().numpy() if isinstance(f, torch.Tensor) else f
+    return Taps2D(tuple(tuple(row) for row in np.asarray(a, dtype=np.float64).tolist()))
+
+
 def _depthwise(x: torch.Tensor, f2d: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
     """VALID strided cross-correlation of every channel with one [fh, fw] filter."""
     c = x.shape[1]
@@ -154,14 +181,14 @@ def upfirdn2d(
     padding: IntOrPair = 0,
     flip_filter: bool = False,
     gain: float = 1,
-    taps: Optional[Taps] = None,
+    taps: Optional[HostTaps] = None,
 ) -> torch.Tensor:
     """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
 
     Returns ``[N, C, out_h, out_w]`` with
     ``out_h = (H*upy + pady0 + pady1 - fh) // downy + 1`` (same for w).
-    ``taps`` is ``filter_taps(f)`` (or ``NOT_SEPARABLE``), computed when
-    ``f`` was set up; a filter on the device needs it.
+    ``taps`` is ``host_taps(f)``, computed when ``f`` was set up; a filter
+    on the device needs it.
     """
     from . import fir  # here: fir.py imports this module
 
@@ -218,7 +245,7 @@ def upfirdn2d_plain(
 
 
 def filter2d(x, f, padding: IntOrPair = 0, flip_filter: bool = False, gain: float = 1,
-             taps: Optional[Taps] = None):
+             taps: Optional[HostTaps] = None):
     """FIR-filter NCHW images, output shape-matched to input."""
     px0, px1, py0, py1 = _parse_padding(padding)
     fw, fh = _get_filter_size(f)
@@ -242,7 +269,7 @@ def upsample2d_args(f, up: IntOrPair = 2, padding: IntOrPair = 0, gain: float = 
 
 
 def upsample2d(x, f, up: IntOrPair = 2, padding: IntOrPair = 0,
-               flip_filter: bool = False, gain: float = 1, taps: Optional[Taps] = None):
+               flip_filter: bool = False, gain: float = 1, taps: Optional[HostTaps] = None):
     """Upsample NCHW images with output-centred padding and
     ``gain * up_x * up_y`` DC compensation."""
     return upfirdn2d(x, f, flip_filter=flip_filter, taps=taps,
@@ -250,7 +277,7 @@ def upsample2d(x, f, up: IntOrPair = 2, padding: IntOrPair = 0,
 
 
 def downsample2d(x, f, down: IntOrPair = 2, padding: IntOrPair = 0,
-                 flip_filter: bool = False, gain: float = 1, taps: Optional[Taps] = None):
+                 flip_filter: bool = False, gain: float = 1, taps: Optional[HostTaps] = None):
     """Downsample NCHW images with the given FIR filter."""
     downx, downy = _parse_scaling(down)
     px0, px1, py0, py1 = _parse_padding(padding)

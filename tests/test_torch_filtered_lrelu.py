@@ -4,8 +4,8 @@ Same numpy inputs on both sides; NHWC there, NCHW here.  Filters are the
 StyleGAN3 designs (Kaiser, separable 1-D; jinc, radial 2-D).  Tolerance
 1e-5 of the largest reference value: both sides run the same float32
 sums (a zero-stuffed, padded depthwise convolution) in another order.
-The radial passes are counted as ``upfirdn2d.plain_route/<why>``; the
-factor-4 ones, separable, take the FIR kernels' route.
+Every pass takes the FIR kernels' route (on the CPU their plain form):
+the radial ↓2 ones (2-D filters) and the separable factor-4 ones too.
 """
 
 import numpy as np
@@ -60,8 +60,9 @@ def test_filtered_lrelu_matches_jax(up, down, radial):
     _close(got.permute(0, 2, 3, 1).numpy(), want)
     if down == 1:  # nothing filters after the clamp: it is active
         assert np.abs(want).max() == pytest.approx(1.5)
-    outside = int(radial and down > 1)
-    assert sum(rec.under("upfirdn2d.plain_route").values()) == outside
+    # Both passes take the FIR kernels' route, a radial ↓2 one too.
+    assert sum(rec.under("upfirdn2d.plain_route").values()) == 0
+    assert rec.counters["upfirdn2d.kernel_route"] == 2
 
 
 def test_designed_filters_equal_the_jax_designs():

@@ -114,6 +114,24 @@ SPECS = [
 ]
 
 
+def _spec_2d(form, ky, kx, pads, seed=8):
+    """A 2-D spec with random correlation taps (a radial filter's kind:
+    no separable factors)."""
+    rows = np.random.default_rng(seed).standard_normal((ky, kx)) / (ky * kx) ** 0.5
+    return fir.FirSpec(form, (0.0,) * ky, (0.0,) * kx, pads, tuple(map(tuple, rows.tolist())))
+
+
+# StyleGAN3-R's radial down-filter (12 x 12, ↓2, pads 0) and its ×2
+# adjoint's pads, other pads, and odd and unequal sizes.
+SPECS_2D = [
+    _spec_2d("down2", 12, 12, (0, 0, 0, 0)),
+    _spec_2d("up2", 12, 12, (11, 10, 11, 10)),
+    _spec_2d("down2", 5, 7, (2, -1, 3, 1)),
+    _spec_2d("up2", 7, 4, (-2, 3, 4, 0)),
+]
+SPECS += SPECS_2D
+
+
 @pytest.mark.parametrize("spec", SPECS, ids=[f"{s.form}-{i}" for i, s in enumerate(SPECS)])
 def test_fir_function_to_second_order_matches_plain_autograd(spec):
     rng = np.random.default_rng(2)
@@ -572,5 +590,205 @@ def test_down4_kernel_tiling_model_rebuilds_plain(spec, shape):
     x = np.random.default_rng(13).standard_normal(shape)
     got = _down4_kernel_model(x, spec)
     want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+# ---- 2-D filters at factor 2 (StyleGAN3-R's radial down-filters and
+# their ×2 adjoints): the static spec, and float64 models of the two
+# kernels' tiles, windows and the host's polyphase split.
+
+
+def _radial():
+    from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
+
+    # A radial 12-tap jinc of StyleGAN3-R's layers (numtaps, cutoff, width, rate).
+    return torch.from_numpy(design_lowpass_filter(12, 22.6, 17.25, 128.0, radial=True))
+
+
+@pytest.mark.parametrize("up,down", [(1, 2), (2, 1)])
+def test_fir_spec_admits_2d_taps_at_factor_2(up, down):
+    """A 2-D filter of at most 12 x 12 taps at ↓2 or ×2 is inside the
+    kernels' contract: correlation taps flipped on both axes (unless
+    ``flip_filter``), the gain folded in, the sizes on ``taps_y``,
+    ``taps_x``; from ``Taps2D`` (a filter on any device) or from a host
+    filter given as ``NOT_SEPARABLE`` or no taps, the same spec."""
+    f = _radial()
+    taps = ufd.host_taps(f)
+    assert isinstance(taps, ufd.Taps2D) and ufd.filter_taps(f) is None
+    spec, why = fir.fir_spec(torch.empty(12, 12, device="meta"), taps, up, down, [1, 2, 3, 4],
+                             False, 4.0)
+    assert why == "" and spec.form == ("down2" if down == 2 else "up2")
+    assert spec.kernel == spec.form + "_2d" and spec.pads == (3, 4, 1, 2)
+    assert spec.taps_y == spec.taps_x == (0.0,) * 12
+    np.testing.assert_array_equal(np.asarray(spec.taps_2d), 4.0 * f.double().numpy()[::-1, ::-1])
+    for other in (ufd.NOT_SEPARABLE, None):
+        assert fir.fir_spec(f, other, up, down, [1, 2, 3, 4], False, 4.0) == (spec, "")
+    flipped, _ = fir.fir_spec(f, taps, up, down, 0, True, 1.0)
+    np.testing.assert_array_equal(np.asarray(flipped.taps_2d), f.double().numpy())
+    with pytest.raises(ValueError, match="host taps"):  # no rows: would read the device
+        fir.fir_spec(torch.empty(12, 12, device="meta"), ufd.NOT_SEPARABLE, up, down, 0, False, 1)
+
+
+@pytest.mark.parametrize("up,down,size", [(1, 1, 12), (4, 1, 12), (1, 4, 12), (1, 2, 13),
+                                          (2, 1, (12, 13))])
+def test_fir_spec_keeps_other_2d_calls_on_the_plain_route(up, down, size):
+    """A 2-D filter at factor 1 or 4, or larger than 12 x 12 either way,
+    stays outside the contract under its reason; the plain version runs."""
+    ky, kx = (size, size) if isinstance(size, int) else size
+    f = torch.from_numpy(np.random.default_rng(1).standard_normal((ky, kx)).astype(np.float32))
+    taps = ufd.host_taps(f)
+    assert fir.fir_spec(f, taps, up, down, 0, False, 1) == (None, "2-D filter, not separable")
+    assert fir.fir_spec(f.to("meta"), taps, up, down, 0, False, 1) == (
+        None, "2-D filter, not separable")
+    x = torch.randn((1, 2, 30, 30), generator=torch.Generator().manual_seed(2))
+    kw = dict(up=up, down=down, padding=[6, 6, 6, 6])
+    torch.testing.assert_close(ufd.upfirdn2d(x, f, taps=taps, **kw),
+                               ufd.upfirdn2d_plain(x, f, **kw), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("spec", SPECS_2D, ids=[f"{s.kernel}-{len(s.taps_y)}x{len(s.taps_x)}"
+                                                for s in SPECS_2D])
+def test_2d_adjoint_is_the_transpose_and_keeps_the_input_size(spec):
+    """<A x, y> = <x, Aᵀ y> through ``fir_plain`` in float64, for odd and
+    even input sizes, with Aᵀ the other 2-D form (taps reversed on both
+    axes) and its output the input's size."""
+    for h, w in ((27, 25), (30, 41), (562, 20)):
+        rng = np.random.default_rng(h)
+        x = torch.from_numpy(rng.standard_normal((2, h, w)))
+        oh, ow = spec.out_size(h, w)
+        y = torch.from_numpy(rng.standard_normal((2, oh, ow)))
+        adj = spec.adjoint(h, w)
+        assert adj.kernel == ("up2_2d" if spec.form == "down2" else "down2_2d")
+        assert adj.taps_2d == tuple(row[::-1] for row in spec.taps_2d[::-1])
+        aty = fir.fir_plain(y, adj)
+        assert aty.shape == x.shape
+        lhs, rhs = float((fir.fir_plain(x, spec) * y).sum()), float((x * aty).sum())
+        assert abs(lhs - rhs) <= 1e-10 * max(abs(lhs), 1.0)
+
+
+def _staged(x, iy0, ix0, nr, nc):
+    """The window the 2-D kernels stage, in float64: samples outside the
+    image zero (``zero_window``), those inside from the image
+    (``Window::of``'s ranges)."""
+    planes, h, w = x.shape
+    win = np.zeros((planes, nr, nc))
+    r_lo, c_lo = min(max(-iy0, 0), nr), min(max(-ix0, 0), nc)
+    r_hi, c_hi = max(min(h - iy0, nr), r_lo), max(min(w - ix0, nc), c_lo)
+    win[:, r_lo:r_hi, c_lo:c_hi] = x[:, iy0 + r_lo:iy0 + r_hi, ix0 + c_lo:ix0 + c_hi]
+    return win
+
+
+def _down2_2d_model(x, spec):
+    """``fir_kernel<T, kDown2, KY, KX>`` in float64: 32 x 32 output tiles;
+    per tile the staged window (74 x 74 at 12 taps) split into its even
+    and odd columns; 8 x 8 threads of 4 x 4 outputs, each output the sum
+    over its window rows of the taps times the even and odd runs at the
+    thread's offsets.  Unwritten outputs stay NaN."""
+    planes, h, w = x.shape
+    oh, ow = spec.out_size(h, w)
+    t = np.float32(spec.taps_2d).astype(np.float64)  # the kernel's taps: float32
+    ky, kx = t.shape
+    nr, nc = 2 * 31 + 12, 2 * 31 + 12  # the window at the compiled 12 x 12
+    half = ((nc + 1) // 2 + 3) & ~3
+    ne, no = 4 + 6 - 1, 4 + 6 - 1
+    py0, _, px0, _ = spec.pads
+    out = np.full((planes, oh, ow), np.nan)
+    for v0 in range(0, oh, 32):
+        for u0 in range(0, ow, 32):
+            win = _staged(x, 2 * v0 - py0, 2 * u0 - px0, nr, nc)
+            even, odd = win[:, :, 0::2], win[:, :, 1::2]
+            for ty in range(8):
+                for tx in range(8):
+                    v, u = v0 + 4 * ty, u0 + 4 * tx
+                    if v >= oh or u >= ow:
+                        continue
+                    assert 4 * tx + ne <= half and 4 * tx + no <= half
+                    for a in range(4):
+                        for c in range(4):
+                            if v + a >= oh or u + c >= ow:
+                                continue
+                            acc = 0.0
+                            for i in range(ky):
+                                rr = 8 * ty + 2 * a + i
+                                for j in range(kx):
+                                    run = odd if j % 2 else even
+                                    acc += t[i, j] * run[:, rr, 4 * tx + c + j // 2]
+                            assert np.isnan(out[:, v + a, u + c]).all()  # written once
+                            out[:, v + a, u + c] = acc
+    return out
+
+
+def _up2_2d_model(x, spec):
+    """``fir_up_kernel<T, 2, KY, KX>`` in float64, from the host's arrays
+    (``_c_2d``): 8 x 64 output-pair tiles from pair (by·8 − ey, bx·64 −
+    ex); the staged window (13 x 69 at 6 slot taps) from input sample (a0
+    + dy, b0 + dx); 16 x 4 threads of 2 x 4 pairs, each of their 2 x 2
+    phases the sum of its slot taps times the window at the thread's
+    offsets.  Unwritten outputs stay NaN."""
+    planes, h, w = x.shape
+    oh, ow = spec.out_size(h, w)
+    taps, geom = fir._c_2d(spec)
+    ph = np.float32(list(taps)).astype(np.float64).reshape(2, 2, 6, 6)
+    ny0, ny1, nx0, nx1, ey, dy, ex, dx = list(geom)
+    ny, nx = (ny0, ny1), (nx0, nx1)
+    out = np.full((planes, oh, ow), np.nan)
+    for by in range((oh + ey + 15) // 16):
+        for bx in range((ow + ex + 127) // 128):
+            a0, b0 = by * 8 - ey, bx * 64 - ex
+            win = _staged(x, a0 + dy, b0 + dx, 8 + 5, 64 + 5)
+            for ty in range(4):
+                for tx in range(16):
+                    at, bt = 2 * ty, 4 * tx
+                    for a in range(2):
+                        for sy in range(2):
+                            oy = 2 * (a0 + at + a) + ey + sy
+                            if not 0 <= oy < oh:
+                                continue
+                            for c in range(4):
+                                for sx in range(2):
+                                    ox = 2 * (b0 + bt + c) + ex + sx
+                                    if not 0 <= ox < ow:
+                                        continue
+                                    acc = 0.0
+                                    for tt in range(ny[sy]):
+                                        for ss in range(nx[sx]):
+                                            acc += (ph[sy, sx, tt, ss]
+                                                    * win[:, at + a + tt, bt + c + ss])
+                                    assert np.isnan(out[:, oy, ox]).all()  # written once
+                                    out[:, oy, ox] = acc
+    return out
+
+
+# StyleGAN3-R's geometries (↓2 pads 0 and the ×2 adjoint's pads 11, 10 at a
+# 74² canvas), several tiles each way with ragged edges, odd pads (e = 1:
+# the first tile starts a pair early), smaller filters (the generic
+# path), and a canvas smaller than one tile.
+TILINGS_2D = [
+    (_spec_2d("down2", 12, 12, (0, 0, 0, 0)), (1, 74, 74)),
+    (_spec_2d("down2", 12, 12, (0, 0, 0, 0)), (2, 83, 137)),
+    (_spec_2d("down2", 12, 12, (3, -2, -1, 4)), (1, 70, 91)),
+    (_spec_2d("down2", 5, 7, (2, 1, 3, 3)), (1, 40, 75)),
+    (_spec_2d("down2", 12, 12, (0, 0, 0, 0)), (1, 14, 13)),
+    (_spec_2d("up2", 12, 12, (11, 10, 11, 10)), (1, 32, 32)),
+    (_spec_2d("up2", 12, 12, (11, 10, 11, 10)), (2, 37, 45)),
+    (_spec_2d("up2", 12, 12, (10, 9, -2, 3)), (1, 21, 70)),
+    (_spec_2d("up2", 7, 4, (-2, 3, 4, 0)), (1, 19, 38)),
+    (_spec_2d("up2", 12, 12, (5, 6, 6, 5)), (1, 4, 5)),
+]
+
+
+@pytest.mark.parametrize("spec,shape", TILINGS_2D,
+                         ids=[f"{s.kernel}-{len(s.taps_y)}x{len(s.taps_x)}-{s.pads}-{sh[1]}x{sh[2]}"
+                              for s, sh in TILINGS_2D])
+def test_2d_kernel_tiling_models_rebuild_plain(spec, shape):
+    """The tiles, staged windows, thread offsets and, at ×2, the host's
+    polyphase split of the two 2-D kernels (the models above) write every
+    output once from staged samples and rebuild ``fir_plain`` in float64
+    at 1e-6 (``fir_plain`` rounds the taps to float32)."""
+    x = np.random.default_rng(17).standard_normal(shape)
+    want = fir.fir_plain(torch.from_numpy(x), spec).numpy()
+    model = _down2_2d_model if spec.form == "down2" else _up2_2d_model
+    got = model(x, spec)
     assert got.shape == want.shape and not np.isnan(got).any()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())

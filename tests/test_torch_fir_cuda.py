@@ -1,5 +1,6 @@
-"""The FIR CUDA kernels (K5 same, K6 down2, K7 up2 and up4, and the ↓4
-kernel) against their plain PyTorch version.
+"""The FIR CUDA kernels (K5 same, K6 down2, K7 up2 and up4, the ↓4
+kernel, and down2 and up2 with a 2-D filter) against their plain PyTorch
+version.
 
 Needs an NVIDIA card and ``nvcc``; skips without a card.  Imports no JAX,
 so it runs on a machine that has none:
@@ -321,5 +322,166 @@ def test_stylegan3_t_x4_layer_takes_the_x4_kernels(cuda_device):
     torch.cuda.synchronize()
     assert launched == {"up4": 1, "down2": 1}
     assert rec.under("fir.launch") == {"up4": 1, "down2": 1, "up2": 1, "down4": 1}
+    assert rec.under("upfirdn2d.plain_route") == {}
+    assert bool(torch.isfinite(g).all())
+
+
+def _radial(numtaps=12, cutoff=22.6, width=17.25, rate=128.0):
+    """A radial (2-D) jinc low-pass of StyleGAN3-R's layers, with its host taps."""
+    from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
+
+    f = torch.from_numpy(design_lowpass_filter(numtaps, cutoff, width, rate, radial=True))
+    return f, ufd.host_taps(f)
+
+
+# (numtaps, up, down, padding [px0, px1, py0, py1], gain, [N, C, H, W]):
+# StyleGAN3-R's radial down-filter (12 x 12, ↓2, pads 0: the filtered
+# lrelu's second pass) at L10's and L0's canvases (fewer planes) and its
+# ×2 adjoint (pads 11, 10); ragged tiles both ways, odd canvases and
+# widths (unaligned rows), odd low pads (the ×2 form's pairs start at an
+# odd output), cropping pads, a canvas smaller than one tile, and smaller
+# filters (the generic path).
+CASES_2D = [
+    (12, 1, 2, 0, 1.0, (1, 2, 562, 562)),
+    (12, 1, 2, 0, 1.0, (2, 3, 82, 82)),
+    (12, 2, 1, [11, 10, 11, 10], 4.0, (1, 2, 276, 276)),
+    (12, 2, 1, [11, 10, 11, 10], 1.0, (2, 3, 36, 36)),
+    (12, 1, 2, [3, -2, -1, 4], 1.0, (1, 2, 71, 93)),
+    (12, 1, 2, 0, 1.0, (1, 1, 13, 15)),
+    (12, 2, 1, [10, 9, -2, 3], 1.0, (1, 2, 37, 45)),
+    (12, 2, 1, [5, 6, 6, 5], 1.0, (1, 1, 4, 5)),
+    (5, 1, 2, [2, 1, 3, 3], 1.0, (1, 2, 40, 75)),
+    (7, 2, 1, [4, 0, -2, 3], 1.0, (1, 2, 19, 38)),
+]
+
+
+def _run_2d(x, case, kernel):
+    numtaps, up, down, padding, gain, _ = CASES_2D[case]
+    f, taps = _radial(numtaps)
+    fn = ufd.upfirdn2d if kernel else ufd.upfirdn2d_plain
+    kw = dict(taps=taps) if kernel else {}
+    return fn(x, f.to(x.device), up=up, down=down, padding=padding, gain=gain, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(CASES_2D)))
+def test_2d_fir_kernels_match_plain_on_card(cuda_device, case):
+    """Both 2-D forms against the plain version: float32 at 1e-5, bf16
+    input at 1e-2 against the plain version in float32 on the same
+    rounded input; one launch of the 2-D form, no plain-route call."""
+    shape = CASES_2D[case][-1]
+    rng = np.random.default_rng(300 + case)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    with profiling.recording() as rec:
+        got = _run_2d(x, case, kernel=True)
+    ref = _run_2d(x, case, kernel=False)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert _max_err(got, ref) <= 1e-5 * float(ref.abs().max())
+    form = "up2_2d" if CASES_2D[case][1] == 2 else "down2_2d"
+    assert rec.under("fir.launch") == {form: 1}
+    assert rec.under("upfirdn2d.plain_route") == {}
+
+    xb = x.bfloat16()
+    got_b = _run_2d(xb, case, kernel=True)
+    ref_b = _run_2d(xb.float(), case, kernel=False)
+    assert got_b.dtype == torch.bfloat16
+    assert _max_err(got_b, ref_b) <= 1e-2 * float(ref_b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [1, 3, 4, 6, 8, 9])
+def test_2d_fir_autograd_to_second_order_on_card(cuda_device, case):
+    """Gradient and gradient of gradient through the 2-D kernels (each
+    backward the other 2-D form) equal autograd of the plain version."""
+    shape = CASES_2D[case][-1]
+    x = torch.from_numpy(np.random.default_rng(400 + case).standard_normal(shape)
+                         .astype(np.float32)).to(cuda_device)
+
+    def r1_like(kernel):
+        xs = x.clone().requires_grad_(True)
+        y = _run_2d(xs, case, kernel)
+        w = torch.from_numpy(np.random.default_rng(7).standard_normal(y.shape).astype(np.float32))
+        (gx,) = torch.autograd.grad((F.softplus(y) * w.to(y.device)).sum(), xs, create_graph=True)
+        (ggx,) = torch.autograd.grad(gx.square().sum(), xs)
+        return gx.detach(), ggx
+
+    with profiling.recording() as rec:
+        gk, ggk = r1_like(True)
+    gp, ggp = r1_like(False)
+    assert _max_err(gk, gp) <= 1e-5 * float(gp.abs().max())
+    assert _max_err(ggk, ggp) <= 1e-5 * float(ggp.abs().max())
+    assert set(rec.under("fir.launch")) == {"down2_2d", "up2_2d"}
+
+
+def _specs_2d():
+    f, taps = _radial()
+    down, _ = fir.fir_spec(f, taps, 1, 2, 0, False, 1.0)
+    up, _ = fir.fir_spec(f, taps, 2, 1, [11, 10, 11, 10], False, 4.0)
+    small, _ = fir.fir_spec(*_radial(5), 1, 2, [1, 2, 0, 1], False, 1.0)
+    return down, up, small
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_2d_fir_walks_more_planes_than_its_grid(cuda_device, dtype):
+    """The 2-D kernels walk the planes p, p + gridDim.z, ...: 6000 planes
+    of StyleGAN3-R's smallest canvases (82² ↓2, 36² ×2), and 70000 planes
+    (above the 65535 blocks of gridDim.z) of small ones."""
+    down, up, small = _specs_2d()
+    for planes, hw, spec in ((6000, 82, down), (6000, 36, up), (70000, 14, down),
+                             (70000, 6, up), (70000, 9, small)):
+        x = torch.randn((planes, hw, hw), device=cuda_device).to(dtype)
+        ref = fir.fir_plain(x.float(), spec)
+        got = fir.fir_planes(x, spec)
+        assert got.dtype == dtype and got.shape == ref.shape
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        assert _max_err(got, ref) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_2d_fir_grid_size_leaves_the_bits_unchanged(cuda_device, dtype):
+    """The grid of the 2-D kernels only spreads the planes over blocks (no
+    atomics, a fixed order of sums): every grid size gives the bits of the
+    kernel's own choice, at 12 x 12 and on the generic path, and a
+    negative one is refused."""
+    for spec in _specs_2d():
+        hw = (45, 38) if spec.form == "up2" else (131, 150)
+        x = torch.randn((300, *hw), device=cuda_device).to(dtype)
+        want = fir.fir_planes(x, spec)
+        for bps in (1, 4, 64, 1024):
+            assert torch.equal(fir.fir_planes(x, spec, blocks_per_sm=bps), want)
+        with pytest.raises(RuntimeError):
+            fir.fir_planes(x, spec, blocks_per_sm=-1)
+
+
+@pytest.mark.cuda
+def test_stylegan3_r_layer_takes_the_2d_kernels(cuda_device):
+    """One StyleGAN3-R layer (L4 of ``sg3r-256``: bf16, 1024 channels,
+    52² at batch 2, its radial filter and pads as ``SynthesisLayer`` sets
+    them) takes the kernels both ways: the forward launches down2_2d
+    (after the ×2 up-filter), the backward up2_2d (and down2), with no
+    plain-route call."""
+    from gantrack_tpu_torch.models import stylegan3 as sg3
+
+    net = sg3.SynthesisNetwork(w_dim=512, img_resolution=256, img_channels=1,
+                               channel_base=65536, channel_max=1024, num_layers=14,
+                               num_critical=2, conv_kernel=1, use_radial_filters=True)
+    layer = getattr(net, net.layer_names[4]).to(cuda_device)
+    assert isinstance(layer.down_filter_taps, ufd.Taps2D)
+    assert layer.down_filter.shape == (12, 12) and layer.down_factor == 2
+    spec = layer.spec
+    x = torch.randn((2, spec.in_channels, spec.in_size, spec.in_size), device=cuda_device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn((2, 512), device=cuda_device)
+    with profiling.recording() as rec:
+        y = layer(x, w)
+        assert y.shape == (2, spec.out_channels, spec.out_size, spec.out_size)
+        launched = dict(rec.under("fir.launch"))
+        (g,) = torch.autograd.grad(y.float().square().sum(), x)
+    torch.cuda.synchronize()
+    assert launched == {"up2": 1, "down2_2d": 1}
+    assert rec.under("fir.launch") == {"up2": 1, "down2_2d": 1, "up2_2d": 1, "down2": 1}
     assert rec.under("upfirdn2d.plain_route") == {}
     assert bool(torch.isfinite(g).all())
