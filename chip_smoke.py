@@ -310,11 +310,13 @@ def reference_stand_in(net, init_kwargs=None):
 
     import torch
 
+    from gantrack_tpu_torch.ops.upfirdn2d import Filter
+
     net = copy.deepcopy(net).cpu()
     for module in list(net.modules()):
         for name in ("resample_filter", "up_filter", "down_filter"):
-            if module._buffers.get(name) is not None:
-                module._non_persistent_buffers_set.discard(name)
+            if isinstance(module.__dict__.get(name), Filter):
+                module.register_buffer(name, module.__dict__.pop(name).host.clone())
         weight = getattr(module, "weight", None)
         if isinstance(weight, torch.nn.Parameter) and weight.ndim == 4:
             module.out_channels, module.in_channels = int(weight.shape[0]), int(weight.shape[1])
@@ -543,7 +545,7 @@ def _upwarp_case(n: int, seed: int = 0):
     mx0, mx1, my0, my1 = pipe.margin
     h1, w1 = 256 + my0 + my1, 256 + mx0 + mx1
     coeffs = uw.warp_coefficients(theta, 2 * h1, 2 * w1, oh, ow)
-    return coeffs, pipe.hz_geom_taps, pipe.hz_geom.to(dev), (h1, w1, oh, ow), gen
+    return coeffs, pipe.hz_geom.taps[0], pipe.hz_geom.on(dev), (h1, w1, oh, ow), gen
 
 
 def time_upwarp(card: str) -> dict:
@@ -690,7 +692,7 @@ def _sg3r_filters() -> dict:
 
     net = SynthesisNetwork(w_dim=512, img_resolution=256, img_channels=1, channel_base=65536,
                            channel_max=1024, conv_kernel=1, use_radial_filters=True)
-    return {f"sg3r_{name.split('_')[0]}": getattr(net, name).down_filter
+    return {f"sg3r_{name.split('_')[0]}": getattr(net, name).down_filter.host
             for name in net.layer_names if name.startswith(("L10_", "L7_"))}
 
 
@@ -725,17 +727,17 @@ def check_fir(card: str) -> dict:
     for label, shape, step_dtype, call in FIR_SHAPES:
         kw = dict(call)
         f_host = filters[kw.pop("filter")]
-        f, taps = f_host.to(dev), ufd.host_taps(f_host)
-        spec, _ = fir.fir_spec(f_host, taps, kw.get("up", 1), kw.get("down", 1),
+        f = ufd.Filter(f_host)
+        spec, _ = fir.fir_spec(f_host, f.taps, kw.get("up", 1), kw.get("down", 1),
                                kw.get("padding", 0), kw.get("flip_filter", False),
                                kw.get("gain", 1))
         name = f"fir_{spec.kernel}"
 
         def kernel(x):
-            return ufd.upfirdn2d(x, f, taps=taps, **kw)
+            return ufd.upfirdn2d(x, f, **kw)
 
         def plain(x):
-            return ufd.upfirdn2d_plain(x, f, **kw)
+            return ufd.upfirdn2d_plain(x, f.on(dev), **kw)
 
         x = torch.randn(shape, device=dev, generator=gen)
         ref = plain(x)

@@ -24,21 +24,12 @@ import torch.nn as nn
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.modulated_conv2d import modulated_conv2d
-from ..ops.upfirdn2d import downsample2d, filter_taps, setup_filter, upsample2d
+from ..ops.upfirdn2d import Filter, downsample2d, setup_filter, upsample2d
 from ..precision import high
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> torch.Tensor:
     return x * (x.square().mean(dim=dim, keepdim=True) + eps).rsqrt()
-
-
-def _filter_buffer(module: nn.Module, taps: Sequence[int]) -> None:
-    # Non-persistent: a constant, not part of the state dict.  Its host
-    # taps go to upfirdn2d beside it, so the FIR kernels never read the
-    # device filter back.
-    f = setup_filter(list(taps))
-    module.register_buffer("resample_filter", f, persistent=False)
-    module.resample_taps = filter_taps(f)
 
 
 class FullyConnected(nn.Module):
@@ -86,14 +77,13 @@ class Conv2dLayer(nn.Module):
         self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size],
                                                dtype=high()))
         self.bias = nn.Parameter(torch.zeros([out_channels], dtype=high())) if bias else None
-        _filter_buffer(self, resample_filter)
+        self.resample_filter = Filter(setup_filter(resample_filter))  # not in the state dict
 
     def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
         w = (self.weight * self.weight_gain).to(x.dtype)
         f = self.resample_filter if (self.up > 1 or self.down > 1) else None
         x = conv2d_resample(x, w, f=f, up=self.up, down=self.down, padding=self.padding,
-                            flip_weight=(self.up == 1), taps=self.resample_taps,
-                            conv_impl=self.conv_impl)
+                            flip_weight=(self.up == 1), conv_impl=self.conv_impl)
         act_gain = self.act_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
@@ -166,7 +156,7 @@ class SynthesisLayer(nn.Module):
         self.conv_clamp = conv_clamp
         self.padding = kernel_size // 2
         self.act_gain = activation_funcs[activation].def_gain
-        _filter_buffer(self, resample_filter)
+        self.resample_filter = Filter(setup_filter(resample_filter))  # not in the state dict
         self.affine = FullyConnected(w_dim, in_channels, bias_init=1)
         self.weight = nn.Parameter(torch.randn([out_channels, in_channels, kernel_size, kernel_size],
                                                dtype=high()))
@@ -187,8 +177,7 @@ class SynthesisLayer(nn.Module):
             noise = self.noise_const * self.noise_strength
         f = self.resample_filter if self.up > 1 else None
         x = modulated_conv2d(x, self.weight.to(x.dtype), styles, noise=noise, up=self.up,
-                             padding=self.padding, resample_filter=f,
-                             resample_taps=self.resample_taps, flip_weight=(self.up == 1),
+                             padding=self.padding, resample_filter=f, flip_weight=(self.up == 1),
                              fused_modconv=fused_modconv, conv_impl=self.conv_impl)
         act_gain = self.act_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
@@ -230,7 +219,7 @@ class SynthesisBlock(nn.Module):
         self.is_last = is_last
         self.architecture = architecture
         self.use_bf16 = use_bf16
-        _filter_buffer(self, resample_filter)
+        self.resample_filter = Filter(setup_filter(resample_filter))  # not in the state dict
         self.num_conv = 0
         self.num_torgb = 0
         common = dict(w_dim=w_dim, resolution=resolution, resample_filter=resample_filter,
@@ -270,7 +259,7 @@ class SynthesisBlock(nn.Module):
             x = self.conv0(x, next(w_iter), **kw)
             x = self.conv1(x, next(w_iter), **kw)
         if img is not None:
-            img = upsample2d(img, self.resample_filter, taps=self.resample_taps)
+            img = upsample2d(img, self.resample_filter)
         if self.is_last or self.architecture == "skip":
             y = self.torgb(x, next(w_iter), fused_modconv=fused_modconv).to(high())
             img = img + y if img is not None else y
@@ -365,7 +354,7 @@ class DiscriminatorBlock(nn.Module):
         self.in_channels = in_channels
         self.architecture = architecture
         self.use_bf16 = use_bf16
-        _filter_buffer(self, resample_filter)
+        self.resample_filter = Filter(setup_filter(resample_filter))  # not in the state dict
         if in_channels == 0 or architecture == "skip":
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
                                        activation=activation, conv_clamp=conv_clamp)
@@ -388,7 +377,7 @@ class DiscriminatorBlock(nn.Module):
             img = img.to(dtype)
             y = self.fromrgb(img)
             x = x + y if x is not None else y
-            img = (downsample2d(img, self.resample_filter, taps=self.resample_taps)
+            img = (downsample2d(img, self.resample_filter)
                    if self.architecture == "skip" else None)
         if self.architecture == "resnet":
             y = self.skip(x, gain=np.sqrt(0.5))

@@ -13,8 +13,8 @@ Parameter and buffer names follow the NVIDIA state dict
 so ``gantrack_tpu.models.torch_compat.sg3_generator_params_from_torch``
 converts these modules to JAX variables unchanged and ``bridge``
 converts back.  The low-pass filters are designed on the host with scipy
-when a layer is built; they are constants (non-persistent float32
-buffers) with their host taps beside them, as the StyleGAN2 filters are.
+when a layer is built; they are constants (``upfirdn2d.Filter``s, not in
+the state dict), as the StyleGAN2 filters are.
 
 As in the JAX package, layers with ``use_bf16`` run in **bfloat16**
 (parameters stay float32; the weight and style pre-normalisations run in
@@ -35,7 +35,7 @@ import torch.nn as nn
 
 from ..ops.conv2d_gradfix import conv2d
 from ..ops.filtered_lrelu import filtered_lrelu
-from ..ops.upfirdn2d import host_taps
+from ..ops.upfirdn2d import Filter
 from .stylegan2 import FullyConnected, MappingNetwork
 
 
@@ -89,17 +89,6 @@ def design_lowpass_filter(numtaps: int, cutoff: float, width: float, fs: float,
     f = f * np.outer(wnd, wnd)
     f = f / np.sum(f)
     return f.astype(np.float32)
-
-
-def _lowpass_buffer(module: nn.Module, name: str, f: Optional[np.ndarray]) -> None:
-    """Register a designed filter as a constant with its host taps
-    (``<name>_taps``) beside it, so ``upfirdn2d`` never reads it back."""
-    if f is None:
-        setattr(module, name, None)
-        setattr(module, f"{name}_taps", None)
-        return
-    module.register_buffer(name, torch.from_numpy(f), persistent=False)
-    setattr(module, f"{name}_taps", host_taps(f))
 
 
 class SynthesisInput(nn.Module):
@@ -202,10 +191,11 @@ class SynthesisLayer(nn.Module):
         down_taps = (filter_size * self.down_factor
                      if self.down_factor > 1 and not spec.is_torgb else 1)
         down_radial = use_radial_filters and not spec.is_critically_sampled
-        _lowpass_buffer(self, "up_filter", design_lowpass_filter(
-            up_taps, spec.in_cutoff, spec.in_half_width * 2, tmp_rate))
-        _lowpass_buffer(self, "down_filter", design_lowpass_filter(
-            down_taps, spec.out_cutoff, spec.out_half_width * 2, tmp_rate, radial=down_radial))
+        fu = design_lowpass_filter(up_taps, spec.in_cutoff, spec.in_half_width * 2, tmp_rate)
+        fd = design_lowpass_filter(down_taps, spec.out_cutoff, spec.out_half_width * 2, tmp_rate,
+                                   radial=down_radial)
+        self.up_filter = None if fu is None else Filter(fu)
+        self.down_filter = None if fd is None else Filter(fd)
 
         pad_total = (spec.out_size - 1) * self.down_factor + 1
         pad_total -= (spec.in_size + self.conv_kernel - 1) * self.up_factor
@@ -240,8 +230,7 @@ class SynthesisLayer(nn.Module):
         slope = 1.0 if spec.is_torgb else 0.2
         x = filtered_lrelu(x, fu=self.up_filter, fd=self.down_filter, b=self.bias.to(x.dtype),
                            up=self.up_factor, down=self.down_factor, padding=self.padding,
-                           gain=gain, slope=slope, clamp=self.conv_clamp,
-                           fu_taps=self.up_filter_taps, fd_taps=self.down_filter_taps)
+                           gain=gain, slope=slope, clamp=self.conv_clamp)
         assert x.shape[2] == spec.out_size and x.shape[3] == spec.out_size
         assert x.dtype == dtype
         return x

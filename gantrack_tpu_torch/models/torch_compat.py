@@ -8,8 +8,9 @@ reference network's weights into one is a ``load_state_dict`` with
 checks, not a key map.  The reference keeps its resample filters as
 buffers in the state dict (``resample_filter``, and StyleGAN3's
 ``up_filter`` / ``down_filter``); the port designs them itself and keeps
-them out of its state dict, so :func:`load_weights` holds each against
-the port's own and loads none of them.
+them out of its state dict, as ``upfirdn2d.Filter``s by the same names,
+so :func:`load_weights` holds each against the port's own and loads none
+of them.
 
 :func:`architecture_from_pickle` reads the architecture from the pickled
 objects: the sizes from their attributes, ``channel_base``,
@@ -35,7 +36,9 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-# The reference's persistent filter buffers, which the port does not persist.
+from ..ops.upfirdn2d import Filter
+
+# The reference's persistent filter buffers, the port's Filters by these names.
 FILTER_BUFFERS = ("resample_filter", "up_filter", "down_filter")
 # The flags of the port's CLIs that fix the networks' tensor shapes.
 ARCH_FLAGS = "--cfg/--cbase/--cmax/--map-depth (and the dataset's resolution and channels)"
@@ -101,8 +104,8 @@ def load_weights(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], name: 
     tensor and the flags that fix the architecture.
     """
     own = module.state_dict()
-    filters = {k: v for k, v in module.named_buffers()
-               if k.rsplit(".", 1)[-1] in FILTER_BUFFERS and k not in own}
+    filters = {f"{prefix}.{n}" if prefix else n: f.host for prefix, sub in module.named_modules()
+               for n in FILTER_BUFFERS if isinstance(f := getattr(sub, n, None), Filter)}
     for key, want in own.items():
         if key not in sd:
             raise ValueError(f"{name}: the pickle has no tensor {key}; the architecture flags "

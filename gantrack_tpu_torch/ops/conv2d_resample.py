@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import conv2d_gradfix, conv3x3
-from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
+from .upfirdn2d import Filter, _get_filter_size, _parse_padding, upfirdn2d
 
 __all__ = ["conv2d_resample"]
 
@@ -70,20 +70,19 @@ def _conv2d_up(x, w, up: int, padding, groups: int, flip_weight: bool):
 def conv2d_resample(
     x: torch.Tensor,
     w: torch.Tensor,
-    f: Optional[torch.Tensor] = None,
+    f: Optional[Filter] = None,
     up: int = 1,
     down: int = 1,
     padding=0,
     groups: int = 1,
     flip_weight: bool = True,
     flip_filter: bool = False,
-    taps=None,
     conv_impl: str = "library",
 ) -> torch.Tensor:
     """Convolve ``[N, I, H, W]`` by ``[O, I//groups, kh, kw]`` with optional
     FIR-filtered up/downsampling (see the JAX module for the contract).
-    ``taps`` are the filter's host taps (``upfirdn2d.filter_taps(f)``);
-    ``conv_impl`` is ``"library"`` or ``"kernel"`` (see the module)."""
+    ``f`` is an :class:`.upfirdn2d.Filter` (or what :func:`.upfirdn2d.upfirdn2d`
+    takes); ``conv_impl`` is ``"library"`` or ``"kernel"`` (see the module)."""
     assert x.ndim == 4 and w.ndim == 4
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
@@ -104,16 +103,15 @@ def conv2d_resample(
     pad = [px0, px1, py0, py1]
 
     if kw == 1 and kh == 1 and down > 1 and up == 1:
-        x = upfirdn2d(x, f, down=down, padding=pad, flip_filter=flip_filter, taps=taps)
+        x = upfirdn2d(x, f, down=down, padding=pad, flip_filter=flip_filter)
         return _conv2d(x, w, groups=groups, flip_weight=flip_weight, conv_impl=conv_impl)
 
     if kw == 1 and kh == 1 and up > 1 and down == 1:
         x = _conv2d(x, w, groups=groups, flip_weight=flip_weight, conv_impl=conv_impl)
-        return upfirdn2d(x, f, up=up, padding=pad, gain=up**2, flip_filter=flip_filter,
-                         taps=taps)
+        return upfirdn2d(x, f, up=up, padding=pad, gain=up**2, flip_filter=flip_filter)
 
     if down > 1 and up == 1:
-        x = upfirdn2d(x, f, padding=pad, flip_filter=flip_filter, taps=taps)
+        x = upfirdn2d(x, f, padding=pad, flip_filter=flip_filter)
         return _conv2d(x, w, stride=down, groups=groups, flip_weight=flip_weight,
                        conv_impl=conv_impl)
 
@@ -121,9 +119,9 @@ def conv2d_resample(
         if conv_impl == "kernel":
             conv3x3.count_library_route(f"up={up}, down={down}")
         x = _conv2d_up(x, w, up, pad, groups, flip_weight)
-        x = upfirdn2d(x, f, gain=up**2, flip_filter=flip_filter, taps=taps)
+        x = upfirdn2d(x, f, gain=up**2, flip_filter=flip_filter)
         if down > 1:
-            x = upfirdn2d(x, f, down=down, flip_filter=flip_filter, taps=taps)
+            x = upfirdn2d(x, f, down=down, flip_filter=flip_filter)
         return x
 
     return _conv2d(x, w, padding=pad, groups=groups, flip_weight=flip_weight,

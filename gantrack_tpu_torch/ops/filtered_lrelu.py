@@ -20,15 +20,15 @@ import numpy as np
 import torch
 
 from .bias_act import bias_act
-from .upfirdn2d import HostTaps, _get_filter_size, _parse_padding, upfirdn2d
+from .upfirdn2d import Filter, _get_filter_size, _parse_padding, upfirdn2d
 
 __all__ = ["filtered_lrelu"]
 
 
 def filtered_lrelu(
     x: torch.Tensor,
-    fu: Optional[torch.Tensor] = None,
-    fd: Optional[torch.Tensor] = None,
+    fu: Optional[Filter] = None,
+    fd: Optional[Filter] = None,
     b: Optional[torch.Tensor] = None,
     up: int = 1,
     down: int = 1,
@@ -36,14 +36,11 @@ def filtered_lrelu(
     gain: float = float(np.sqrt(2)),
     slope: float = 0.2,
     clamp: Optional[float] = None,
-    fu_taps: Optional[HostTaps] = None,
-    fd_taps: Optional[HostTaps] = None,
 ) -> torch.Tensor:
     """Apply the filtered leaky ReLU to ``x [N, C, H, W]``.
 
-    ``fu`` / ``fd`` are the upsampling / downsampling FIR filters (None
-    for identity) with their host taps ``fu_taps`` / ``fd_taps``
-    (``host_taps``) beside them; ``b`` an optional
+    ``fu`` / ``fd`` are the upsampling / downsampling FIR filters
+    (:class:`.upfirdn2d.Filter`; None for identity); ``b`` an optional
     ``[C]`` bias; ``padding`` is relative to the upsampled image, negative
     crops.
     """
@@ -59,9 +56,9 @@ def filtered_lrelu(
     out_h = (in_h * up + (py0 + py1) - (fu_h - 1) - (fd_h - 1) + (down - 1)) // down
 
     x = bias_act(x, b)
-    x = upfirdn2d(x, fu, up=up, padding=[px0, px1, py0, py1], gain=up ** 2, taps=fu_taps)
+    x = upfirdn2d(x, fu, up=up, padding=[px0, px1, py0, py1], gain=up ** 2)
     x = bias_act(x, act="lrelu", alpha=slope, gain=gain, clamp=clamp)
-    x = upfirdn2d(x, fd, down=down, taps=fd_taps)
+    x = upfirdn2d(x, fd, down=down)
 
     assert x.shape[2] == out_h and x.shape[3] == out_w, (tuple(x.shape), out_h, out_w)
     return x

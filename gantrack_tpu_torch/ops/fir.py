@@ -44,8 +44,7 @@ import torch
 
 from ..utils import profiling
 from ._nvcc import check_planes, check_rc, load_library
-from .upfirdn2d import (NOT_SEPARABLE, HostTaps, Taps2D, _parse_padding, _parse_scaling,
-                        host_taps, upfirdn2d_plain)
+from .upfirdn2d import Filter, HostTaps, Taps2D, _parse_padding, _parse_scaling, upfirdn2d_plain
 
 __all__ = ["FirSpec", "Fir", "fir_spec", "fir_planes", "fir_plain", "up_phases"]
 
@@ -104,12 +103,13 @@ class FirSpec:
                        (*qy, *qx), tuple(row[::-1] for row in self.taps_2d[::-1]))
 
 
-def fir_spec(f: Optional[torch.Tensor], taps: Optional[HostTaps], up, down, padding,
-             flip_filter: bool, gain: float) -> Tuple[Optional[FirSpec], str]:
+def fir_spec(f, taps: Optional[HostTaps], up, down, padding, flip_filter: bool,
+             gain: float) -> Tuple[Optional[FirSpec], str]:
     """The :class:`FirSpec` of an ``upfirdn2d`` call, or ``(None, why)``
-    when the call is outside the kernels' contract.  A filter on the
-    device with no host taps beside it is the caller's fault and raises,
-    as does a 2-D one inside the contract given only as ``NOT_SEPARABLE``."""
+    when the call is outside the kernels' contract.  ``taps`` are the
+    filter's host taps (:attr:`.upfirdn2d.Filter.taps`); without them they
+    are computed from a host filter, and a filter on the device is the
+    caller's fault and raises."""
     upx, upy = _parse_scaling(up)
     downx, downy = _parse_scaling(down)
     if upx != upy or downx != downy:
@@ -122,13 +122,12 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[HostTaps], up, down, padd
         if f is None:
             taps = ((1.0,), (1.0,))
         elif f.device.type != "cpu":
-            raise ValueError("upfirdn2d: the filter lies on the device and no host taps were "
-                             "given (pass taps=host_taps(f), computed when the filter is "
-                             "set up)")
+            raise ValueError("upfirdn2d: the filter lies on the device without its host taps "
+                             "(pass an upfirdn2d.Filter, made before the filter moves)")
         else:
-            taps = host_taps(f)
-    if isinstance(taps, Taps2D) or taps == NOT_SEPARABLE:
-        return _spec_2d(f, taps, upx, downx, padding, flip_filter, gain)
+            taps = Filter(f).taps
+    if isinstance(taps, Taps2D):
+        return _spec_2d(taps, upx, downx, padding, flip_filter, gain)
     ty, tx = taps
     if not (1 <= len(ty) <= MAX_TAPS and 1 <= len(tx) <= MAX_TAPS):
         return None, f"{len(ty)} x {len(tx)} taps (at most {MAX_TAPS} per axis)"
@@ -140,23 +139,14 @@ def fir_spec(f: Optional[torch.Tensor], taps: Optional[HostTaps], up, down, padd
                    tuple(float(t) * ga for t in tx), (py0, py1, px0, px1)), ""
 
 
-def _spec_2d(f, taps, up: int, down: int, padding, flip_filter: bool,
+def _spec_2d(taps: Taps2D, up: int, down: int, padding, flip_filter: bool,
              gain: float) -> Tuple[Optional[FirSpec], str]:
     """``fir_spec`` of a 2-D filter: down2 or up2 with at most
     ``MAX_TAPS_2D`` taps each way, else outside the contract."""
-    ky, kx = ((len(taps.rows), len(taps.rows[0])) if isinstance(taps, Taps2D)
-              else tuple(f.shape) if f is not None and f.ndim == 2 else (0, 0))
-    if (up, down) not in ((1, 2), (2, 1)) or not (1 <= ky <= MAX_TAPS_2D and
-                                                  1 <= kx <= MAX_TAPS_2D):
+    ky, kx = len(taps.rows), len(taps.rows[0])
+    if (up, down) not in ((1, 2), (2, 1)) or not (ky <= MAX_TAPS_2D and kx <= MAX_TAPS_2D):
         return None, "2-D filter, not separable"
-    if isinstance(taps, Taps2D):
-        rows = taps.rows
-    elif f.device.type == "cpu":
-        rows = f.detach().double().tolist()
-    else:
-        raise ValueError("upfirdn2d: a 2-D filter on the device needs its rows as host "
-                         "taps (taps=host_taps(f), computed when the filter is set up)")
-    a = np.asarray(rows, dtype=np.float64) * float(gain)
+    a = np.asarray(taps.rows, dtype=np.float64) * float(gain)
     if not flip_filter:
         a = a[::-1, ::-1]
     px0, px1, py0, py1 = _parse_padding(padding)

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from .conv2d_resample import conv2d_resample
+from .upfirdn2d import Filter
 
 __all__ = ["modulated_conv2d"]
 
@@ -27,8 +28,7 @@ def modulated_conv2d(
     up: int = 1,
     down: int = 1,
     padding: int = 0,
-    resample_filter: Optional[torch.Tensor] = None,
-    resample_taps=None,                  # upfirdn2d.filter_taps(resample_filter)
+    resample_filter: Optional[Filter] = None,
     demodulate: bool = True,
     flip_weight: bool = True,
     fused_modconv: bool = False,
@@ -48,8 +48,7 @@ def modulated_conv2d(
     if not fused_modconv:
         x = x * styles[:, :, None, None].to(x.dtype)
         x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up, down=down,
-                            padding=padding, flip_weight=flip_weight, taps=resample_taps,
-                            conv_impl=conv_impl)
+                            padding=padding, flip_weight=flip_weight, conv_impl=conv_impl)
         if demodulate:
             x = x * dcoefs[:, :, None, None].to(x.dtype)
         if noise is not None:
@@ -61,8 +60,7 @@ def modulated_conv2d(
     w = w.to(x.dtype).reshape(batch * out_ch, in_ch, kh, kw)
     xg = x.reshape(1, batch * in_ch, *x.shape[2:])
     xg = conv2d_resample(xg, w, f=resample_filter, up=up, down=down, padding=padding,
-                         groups=batch, flip_weight=flip_weight, taps=resample_taps,
-                         conv_impl=conv_impl)
+                         groups=batch, flip_weight=flip_weight, conv_impl=conv_impl)
     x = xg.reshape(batch, out_ch, *xg.shape[2:])
     if noise is not None:
         x = x + noise.to(x.dtype)

@@ -24,13 +24,14 @@ tensors.
   :mod:`.conv2d_gradfix`'s, so its double backward never forms a weight
   gradient for the constant filter.
 
-The kernels take the filter's taps from the host: :func:`host_taps`
-computes them once, when a filter is set up, and callers pass them as
-``taps=`` beside the filter tensor, so no call reads a device filter
-back (which would synchronise the stream): the separable factors of
-:func:`filter_taps`, or, for a 2-D filter that has none, its rows as
-:class:`Taps2D`.  The JAX module's
-banded-matrix lowerings are a TPU layout device and are not carried.
+A filter is a :class:`Filter`: made once on the host from what
+:func:`setup_filter` returns, it holds the tensor, its host taps (the
+separable factors of :func:`filter_taps`, or, for a 2-D filter that has
+none, its rows as :class:`Taps2D`), computed once, which the kernels take
+so that no call reads a device filter back (which would synchronise the
+stream), and a copy per device, made on first use, for the plain route.
+The JAX module's banded-matrix lowerings are a TPU layout device and are
+not carried.
 
 Numerics contract (as the JAX module): 1. zero-insert upsample by
 ``up``; 2. zero-pad/crop by ``padding`` (relative to the upsampled
@@ -52,14 +53,11 @@ from .conv2d_gradfix import conv2d
 
 IntOrPair = Union[int, Sequence[int]]
 Taps = Tuple[Tuple[float, ...], Tuple[float, ...]]
-# ``taps=`` of a 2-D filter that :func:`filter_taps` could not factor,
-# given without its rows: the kernels can take it only from a host filter.
-NOT_SEPARABLE: Taps = ((), ())
 
 
 @dataclasses.dataclass(frozen=True)
 class Taps2D:
-    """``taps=`` of a 2-D filter that :func:`filter_taps` could not
+    """The host taps of a 2-D filter that :func:`filter_taps` could not
     factor: its rows, as :func:`setup_filter` made it (before flip and
     gain), in host floats."""
 
@@ -88,9 +86,11 @@ def _parse_padding(padding: IntOrPair) -> Tuple[int, int, int, int]:
     return px0, px1, py0, py1
 
 
-def _get_filter_size(f: Optional[torch.Tensor]) -> Tuple[int, int]:
+def _get_filter_size(f) -> Tuple[int, int]:
     if f is None:
         return 1, 1
+    if isinstance(f, Filter):
+        f = f.host
     assert f.ndim in (1, 2)
     return int(f.shape[-1]), int(f.shape[0])
 
@@ -156,14 +156,43 @@ def filter_taps(f) -> Optional[Taps]:
     return tuple(ty.tolist()), tuple(tx.tolist())
 
 
-def host_taps(f) -> HostTaps:
-    """What a filter set up on the host passes as ``taps=``: its separable
-    factors (:func:`filter_taps`), else its rows (:class:`Taps2D`)."""
-    taps = filter_taps(f)
-    if taps is not None:
-        return taps
-    a = f.detach().numpy() if isinstance(f, torch.Tensor) else f
-    return Taps2D(tuple(tuple(row) for row in np.asarray(a, dtype=np.float64).tolist()))
+class Filter:
+    """A FIR filter, made once on the host: ``host``, the tensor as
+    :func:`setup_filter` made it; ``taps``, its host taps (the separable
+    factors of :func:`filter_taps`, else its rows as :class:`Taps2D`),
+    computed here once; :meth:`on`, its copy on a device, made on first
+    use.  Immutable, so a copied module shares it."""
+
+    def __init__(self, f):
+        host = torch.as_tensor(f)
+        taps = filter_taps(host)  # raises for a filter on the device
+        self.host = host
+        self.taps: HostTaps = taps if taps is not None else Taps2D(
+            tuple(tuple(row) for row in host.double().tolist()))
+        self._copies = {}
+
+    def on(self, device) -> torch.Tensor:
+        """The filter on ``device`` (the host tensor itself on the CPU)."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return self.host
+        copy = self._copies.get(device)
+        if copy is None:  # two threads may each make one: either serves
+            copy = self._copies[device] = self.host.to(device)
+        return copy
+
+    def __deepcopy__(self, memo) -> "Filter":
+        return self
+
+
+def _as_filter(f):
+    """``f`` as :func:`upfirdn2d` takes it: a :class:`Filter` or None as
+    it is, a host tensor or array wrapped (its taps computed for this call),
+    a tensor on a device as it is (the kernels raise for want of its taps)."""
+    if f is None or isinstance(f, Filter) or (isinstance(f, torch.Tensor)
+                                              and f.device.type != "cpu"):
+        return f
+    return Filter(f)
 
 
 def _depthwise(x: torch.Tensor, f2d: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
@@ -175,26 +204,27 @@ def _depthwise(x: torch.Tensor, f2d: torch.Tensor, stride=(1, 1)) -> torch.Tenso
 
 def upfirdn2d(
     x: torch.Tensor,
-    f: Optional[torch.Tensor],
+    f,
     up: IntOrPair = 1,
     down: IntOrPair = 1,
     padding: IntOrPair = 0,
     flip_filter: bool = False,
     gain: float = 1,
-    taps: Optional[HostTaps] = None,
 ) -> torch.Tensor:
     """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
 
     Returns ``[N, C, out_h, out_w]`` with
     ``out_h = (H*upy + pady0 + pady1 - fh) // downy + 1`` (same for w).
-    ``taps`` is ``host_taps(f)``, computed when ``f`` was set up; a filter
-    on the device needs it.
+    ``f`` is a :class:`Filter`, a host filter or None (see :func:`_as_filter`).
     """
     from . import fir  # here: fir.py imports this module
 
-    spec, why = fir.fir_spec(f, taps, up, down, padding, flip_filter, gain)
+    f = _as_filter(f)
+    spec, why = fir.fir_spec(f, getattr(f, "taps", None), up, down, padding, flip_filter, gain)
     if spec is None:  # outside the kernels' contract: the plain version, counted
         profiling.count(f"upfirdn2d.plain_route/{why}")
+        if isinstance(f, Filter):
+            f = f.on(x.device)
         return upfirdn2d_plain(x, f, up, down, padding, flip_filter, gain)
     profiling.count("upfirdn2d.kernel_route")
     n, c, h, w = x.shape
@@ -244,13 +274,12 @@ def upfirdn2d_plain(
     return _depthwise(x, f[None, :], (1, downx))
 
 
-def filter2d(x, f, padding: IntOrPair = 0, flip_filter: bool = False, gain: float = 1,
-             taps: Optional[HostTaps] = None):
+def filter2d(x, f, padding: IntOrPair = 0, flip_filter: bool = False, gain: float = 1):
     """FIR-filter NCHW images, output shape-matched to input."""
     px0, px1, py0, py1 = _parse_padding(padding)
     fw, fh = _get_filter_size(f)
     p = [px0 + fw // 2, px1 + (fw - 1) // 2, py0 + fh // 2, py1 + (fh - 1) // 2]
-    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain, taps=taps)
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
 
 
 def upsample2d_args(f, up: IntOrPair = 2, padding: IntOrPair = 0, gain: float = 1) -> dict:
@@ -269,15 +298,14 @@ def upsample2d_args(f, up: IntOrPair = 2, padding: IntOrPair = 0, gain: float = 
 
 
 def upsample2d(x, f, up: IntOrPair = 2, padding: IntOrPair = 0,
-               flip_filter: bool = False, gain: float = 1, taps: Optional[HostTaps] = None):
+               flip_filter: bool = False, gain: float = 1):
     """Upsample NCHW images with output-centred padding and
     ``gain * up_x * up_y`` DC compensation."""
-    return upfirdn2d(x, f, flip_filter=flip_filter, taps=taps,
-                     **upsample2d_args(f, up, padding, gain))
+    return upfirdn2d(x, f, flip_filter=flip_filter, **upsample2d_args(f, up, padding, gain))
 
 
 def downsample2d(x, f, down: IntOrPair = 2, padding: IntOrPair = 0,
-                 flip_filter: bool = False, gain: float = 1, taps: Optional[HostTaps] = None):
+                 flip_filter: bool = False, gain: float = 1):
     """Downsample NCHW images with the given FIR filter."""
     downx, downy = _parse_scaling(down)
     px0, px1, py0, py1 = _parse_padding(padding)
@@ -288,4 +316,4 @@ def downsample2d(x, f, down: IntOrPair = 2, padding: IntOrPair = 0,
         py0 + (fh - downy + 1) // 2,
         py1 + (fh - downy) // 2,
     ]
-    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain, taps=taps)
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)

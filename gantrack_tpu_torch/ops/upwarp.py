@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,7 +38,7 @@ from ._nvcc import check_planes as _check_planes
 from ._nvcc import check_rc as _check_rc
 from ._nvcc import load_library
 from .grid_sample import bilinear_gather, sample_positions, warp_coefficients
-from .upfirdn2d import upfirdn2d_plain, upsample2d_args
+from .upfirdn2d import Filter, upfirdn2d_plain, upsample2d_args
 
 __all__ = ["up_affine_warp", "up_affine_warp_plain", "warp_coefficients", "upwarp_planes",
            "upwarp_blocks", "upsplat_planes", "upsplat_blocks", "UpWarp", "UpSplat"]
@@ -180,21 +180,20 @@ def up_affine_warp_plain(img: torch.Tensor, coeffs: torch.Tensor, fir: torch.Ten
     return bilinear_gather(up, fx, fy)
 
 
-def up_affine_warp(img: torch.Tensor, theta: torch.Tensor, fir: Sequence[float],
+def up_affine_warp(img: torch.Tensor, theta: torch.Tensor, fir: Filter,
                    out_h: int, out_w: int) -> torch.Tensor:
     """Warp ``img [N, C, H1, W1]`` (1x, already reflect-padded) by
     ``theta [N, 2, 3]``, the normalised inverse transform of the virtual
-    2x image, with the ``fir`` taps as the upsampling filter.
+    2x image, with the 1-D filter ``fir`` as the upsampling filter.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernels (or raises).
     """
     n, ch, h1, w1 = img.shape
-    taps = tuple(float(v) for v in fir)
+    taps, _ = fir.taps  # a 1-D filter's taps, the same on both axes
     coeffs = warp_coefficients(theta.to(img.device), 2 * h1, 2 * w1, out_h, out_w)
     if img.device.type == "cpu":
-        fir_t = torch.tensor(taps, dtype=torch.float32)
-        return up_affine_warp_plain(img, coeffs, fir_t, out_h, out_w)
+        return up_affine_warp_plain(img, coeffs, fir.host, out_h, out_w)
     dt = img.dtype if img.dtype in (torch.bfloat16, torch.float32) else torch.float32
     planes = img.reshape(n * ch, h1, w1).to(dt).contiguous()
     coeffs_planes = coeffs.repeat_interleave(ch, dim=0).contiguous()

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import conv2d_gradfix
-from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..ops.upfirdn2d import Filter, downsample2d, setup_filter, upsample2d
 from ..ops.upwarp import up_affine_warp
 from ..ops.warp import affine_warp
 
@@ -332,14 +332,13 @@ class AugmentPipe:
         self.width = width
         self.num_channels = num_channels
         self.compute_dtype = compute_dtype
-        self.hz_geom = setup_filter(WAVELETS["sym6"])  # float32, CPU
-        self.hz_geom_taps = tuple(float(v) for v in self.hz_geom)
+        self.hz_geom = Filter(setup_filter(WAVELETS["sym6"]))
         self.hz_fbank = torch.from_numpy(filter_bank())  # float32, CPU
         self.margin = compute_static_margin(cfg, height, width)
         self._filters = {}
 
     def _on(self, name: str, device) -> torch.Tensor:
-        """The constant ``hz_geom`` or ``hz_fbank`` on ``device``."""
+        """The constant ``hz_fbank`` on ``device``."""
         key = (name, str(device))
         if key not in self._filters:
             self._filters[key] = getattr(self, name).to(device)
@@ -429,7 +428,7 @@ class AugmentPipe:
         normalised ``theta [n, 2, 3]`` of the warp and its output size."""
         n = g_inv.shape[0]
         dev = g_inv.device
-        hz_pad = len(self.hz_geom_taps) // 4
+        hz_pad = self.hz_geom.host.shape[0] // 4
         mx0, mx1, my0, my1 = self.margin
         h1, w1 = self.height + my0 + my1, self.width + mx0 + mx1
         g_inv = translate2d(_const(n, (mx0 - mx1) / 2, dev), _const(n, (my0 - my1) / 2, dev)) @ g_inv
@@ -453,17 +452,15 @@ class AugmentPipe:
         """Reflect-pad, warp at 2x (upsample + affine bilinear, fused or
         not), and FIR-downsample back to the input size."""
         mx0, mx1, my0, my1 = self.margin
-        hz_pad = len(self.hz_geom_taps) // 4
+        hz_pad = self.hz_geom.host.shape[0] // 4
         x = _reflect_pad(x, my0, my1, mx0, mx1)
         theta, out_h, out_w = self.warp_geometry(g_inv)
-        taps = (self.hz_geom_taps, self.hz_geom_taps)
         if self.impl == "fused":
-            x = up_affine_warp(x, theta, self.hz_geom_taps, out_h, out_w)
+            x = up_affine_warp(x, theta, self.hz_geom, out_h, out_w)
         else:
-            x = upsample2d(x, self._on("hz_geom", x.device), up=2, taps=taps)
+            x = upsample2d(x, self.hz_geom, up=2)
             x = affine_warp(x, theta, out_h, out_w)
-        return downsample2d(x, self._on("hz_geom", x.device), down=2, padding=-hz_pad * 2,
-                            flip_filter=True, taps=taps)
+        return downsample2d(x, self.hz_geom, down=2, padding=-hz_pad * 2, flip_filter=True)
 
     def _color(self, x: torch.Tensor, draws: "_Draws") -> torch.Tensor:
         """Brightness, contrast, luma flip, hue and saturation as one 4×4

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.upfirdn2d import filter2d
+from ..ops.upfirdn2d import Filter, filter2d
 from ..utils.profiling import count, span
 from . import stats
 
@@ -118,9 +118,7 @@ class StyleGAN2Loss:
             # Built on the host, so the FIR kernel gets its taps without a sync.
             t = np.arange(-blur_size, blur_size + 1, dtype=np.float32)
             f = np.exp2(-np.square(t / np.float32(blur_sigma)))
-            f = f / f.sum()
-            taps = tuple(f.tolist())
-            return filter2d(img, torch.from_numpy(f).to(img.device), taps=(taps, taps))
+            return filter2d(img, Filter(f / f.sum()))
 
     def blur_sigma(self, cur_nimg: float) -> float:
         if self.cfg.blur_fade_kimg <= 0:

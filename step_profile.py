@@ -141,8 +141,7 @@ def kernel_digests() -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     f_host = torch.from_numpy(design_lowpass_filter(*cs.SG3_FILTER))
     x = torch.randn((16, 128, 278, 278), device=dev, generator=gen).bfloat16()
-    y = ufd.upfirdn2d(x, f_host.to(dev), taps=ufd.filter_taps(f_host), up=2,
-                      padding=[9, 8, 9, 8], gain=4)
+    y = ufd.upfirdn2d(x, f_host, up=2, padding=[9, 8, 9, 8], gain=4)
     out = {"fir_up2 bf16 [16,128,278,278] -> 562²": _digest(y)}
     del x, y
     cpu = torch.Generator().manual_seed(4)
@@ -157,12 +156,12 @@ def kernel_digests() -> dict:
     out["splat bf16 64 x 812x806 <- 524²"] = _digest(adj)
     del g, adj
     x = torch.randn((16, 256, 562, 562), device=dev, generator=gen).bfloat16()
-    y = ufd.upfirdn2d(x, f_host.to(dev), taps=ufd.filter_taps(f_host), down=2)
+    y = ufd.upfirdn2d(x, f_host, down=2)
     out["fir_down2 bf16 [16,256,562,562] -> 276²"] = _digest(y)
     del x, y
     f4 = ufd.setup_filter([1, 3, 3, 1])
     x = torch.randn((32, 64, 259, 259), device=dev, generator=gen).bfloat16()
-    y = ufd.upfirdn2d(x, f4.to(dev), taps=ufd.filter_taps(f4), gain=4)
+    y = ufd.upfirdn2d(x, f4, gain=4)
     out["fir_same bf16 [32,64,259,259] -> 256²"] = _digest(y)
     del x, y
     coeffs, taps, _, (h1, w1, oh, ow), gen_k = cs._upwarp_case(64, seed=5)

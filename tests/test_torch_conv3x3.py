@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from gantrack_tpu.ops.attic import conv3x3 as jc3
 from gantrack_tpu_torch.ops import conv3x3 as c3
 from gantrack_tpu_torch.ops.conv2d_resample import conv2d_resample
-from gantrack_tpu_torch.ops.upfirdn2d import filter_taps, setup_filter
+from gantrack_tpu_torch.ops.upfirdn2d import Filter, setup_filter
 from gantrack_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -215,12 +215,11 @@ def test_conv2d_resample_kernel_route_equals_library(case):
     rng = np.random.default_rng(case)
     x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).requires_grad_(True)
     w = torch.from_numpy(rng.standard_normal(w_shape).astype(np.float32)).requires_grad_(True)
-    f = setup_filter([1, 3, 3, 1]) if ("up" in kw or "down" in kw) else None
-    taps = filter_taps(f) if f is not None else None
+    f = Filter(setup_filter([1, 3, 3, 1])) if ("up" in kw or "down" in kw) else None
     outs = []
     with profiling.recording() as rec:
         for impl in ("library", "kernel"):
-            y = conv2d_resample(x, w, f=f, taps=taps, conv_impl=impl, **kw)
+            y = conv2d_resample(x, w, f=f, conv_impl=impl, **kw)
             outs.append((y, *torch.autograd.grad(y.square().sum(), (x, w))))
     for a, b in zip(*outs):
         scale = max(1.0, float(a.detach().abs().max()))

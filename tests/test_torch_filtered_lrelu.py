@@ -19,7 +19,7 @@ from gantrack_tpu.models.stylegan3 import design_lowpass_filter as j_design
 from gantrack_tpu.ops.filtered_lrelu import filtered_lrelu as j_filtered_lrelu
 from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
 from gantrack_tpu_torch.ops import filtered_lrelu
-from gantrack_tpu_torch.ops.upfirdn2d import NOT_SEPARABLE, filter_taps
+from gantrack_tpu_torch.ops.upfirdn2d import Filter, filter_taps
 from gantrack_tpu_torch.utils import profiling
 
 
@@ -30,8 +30,8 @@ def _filters(up, down, radial):
     return fu, fd
 
 
-def _taps(f):
-    return None if f is None else (filter_taps(f) or NOT_SEPARABLE)
+def _filter(f):
+    return None if f is None else Filter(f)
 
 
 def _close(got, want):
@@ -53,10 +53,9 @@ def test_filtered_lrelu_matches_jax(up, down, radial):
     want = np.asarray(j_filtered_lrelu(
         jnp.asarray(x), None if fu is None else jnp.asarray(fu),
         None if fd is None else jnp.asarray(fd), jnp.asarray(b), **kw))
-    t = lambda a: None if a is None else torch.from_numpy(a)
     with profiling.recording() as rec:
-        got = filtered_lrelu(torch.from_numpy(x).permute(0, 3, 1, 2), t(fu), t(fd), t(b),
-                             fu_taps=_taps(fu), fd_taps=_taps(fd), **kw)
+        got = filtered_lrelu(torch.from_numpy(x).permute(0, 3, 1, 2), _filter(fu), _filter(fd),
+                             torch.from_numpy(b), **kw)
     _close(got.permute(0, 2, 3, 1).numpy(), want)
     if down == 1:  # nothing filters after the clamp: it is active
         assert np.abs(want).max() == pytest.approx(1.5)
@@ -86,8 +85,7 @@ def test_filtered_lrelu_gradient_matches_jax(up, down, radial):
         argnums=(0, 1))(jnp.asarray(x), jnp.asarray(b))
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_(True)
     bt = torch.from_numpy(b).requires_grad_(True)
-    out = filtered_lrelu(xt, torch.from_numpy(fu), torch.from_numpy(fd), bt,
-                         fu_taps=_taps(fu), fd_taps=_taps(fd), **kw)
+    out = filtered_lrelu(xt, Filter(fu), Filter(fd), bt, **kw)
     gx, gb = torch.autograd.grad(torch.sin(out).sum(), [xt, bt])
     _close(gx.permute(0, 2, 3, 1).numpy(), np.asarray(gx_want))
     _close(gb.numpy(), np.asarray(gb_want))

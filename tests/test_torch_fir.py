@@ -75,7 +75,7 @@ def test_fir_matches_jax_fir2d(_interpret, shape, up, down, padding, gain, flip)
     f = torch.from_numpy(np.outer(F4, F4).astype(np.float32))
     kw = dict(up=up, down=down, padding=[px0, px1, py0, py1], flip_filter=flip, gain=gain)
     plain = ufd.upfirdn2d_plain(_nchw(x), f, **kw)
-    via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(F4), tuple(F4)), **kw)
+    via_fn = ufd.upfirdn2d(_nchw(x), ufd.Filter(f), **kw)
     np.testing.assert_allclose(_nhwc(plain), want, **TOL)
     np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)
 
@@ -87,9 +87,8 @@ def test_augment_crop_downsample_matches_jax_conv():
     fj = jops.setup_filter(WAVELETS["sym6"])
     want = np.asarray(jops.upfirdn2d(jnp.asarray(x), fj, down=2, padding=-1, flip_filter=True,
                                      impl="conv"))
-    ft = ufd.setup_filter(WAVELETS["sym6"])
-    got = ufd.downsample2d(_nchw(x), ft, down=2, padding=-6, flip_filter=True,
-                           taps=ufd.filter_taps(ft))
+    ft = ufd.Filter(ufd.setup_filter(WAVELETS["sym6"]))
+    got = ufd.downsample2d(_nchw(x), ft, down=2, padding=-6, flip_filter=True)
     assert got.shape == (2, 1, 14, 13)
     np.testing.assert_allclose(_nhwc(got), want, **TOL)
 
@@ -310,7 +309,7 @@ def test_12_tap_up2_matches_jax_fir2d(_interpret, padding):
     f = torch.tensor(taps, dtype=torch.float32)
     kw = dict(up=2, padding=[px0, px1, py0, py1], gain=4.0)
     plain = ufd.upfirdn2d_plain(_nchw(x), f, **kw)
-    via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(taps), tuple(taps)), **kw)
+    via_fn = ufd.upfirdn2d(_nchw(x), ufd.Filter(f), **kw)
     np.testing.assert_allclose(_nhwc(plain), want, **TOL)
     np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)
 
@@ -330,7 +329,7 @@ def test_12_tap_down2_matches_jax_fir2d(_interpret, shape):
     assert want.shape == (n, (h - 12) // 2 + 1, (w - 12) // 2 + 1, c)
     f = torch.tensor(taps, dtype=torch.float32)
     plain = ufd.upfirdn2d_plain(_nchw(x), f, down=2)
-    via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(taps), tuple(taps)), down=2)
+    via_fn = ufd.upfirdn2d(_nchw(x), ufd.Filter(f), down=2)
     np.testing.assert_allclose(_nhwc(plain), want, **TOL)
     np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)
 
@@ -443,7 +442,7 @@ def test_24_tap_up4_matches_jax_upfirdn2d():
     assert want.shape == (2, 4 * 13 - 38, 4 * 15 - 38, 3)
     f = torch.tensor(taps, dtype=torch.float32)
     plain = ufd.upfirdn2d_plain(_nchw(x), f, **kw)
-    via_fn = ufd.upfirdn2d(_nchw(x), f, taps=(tuple(taps), tuple(taps)), **kw)
+    via_fn = ufd.upfirdn2d(_nchw(x), ufd.Filter(f), **kw)
     np.testing.assert_allclose(_nhwc(plain), want, **TOL)
     np.testing.assert_allclose(_nhwc(via_fn), want, **TOL)
 
@@ -612,9 +611,9 @@ def test_fir_spec_admits_2d_taps_at_factor_2(up, down):
     kernels' contract: correlation taps flipped on both axes (unless
     ``flip_filter``), the gain folded in, the sizes on ``taps_y``,
     ``taps_x``; from ``Taps2D`` (a filter on any device) or from a host
-    filter given as ``NOT_SEPARABLE`` or no taps, the same spec."""
+    filter given without taps, the same spec."""
     f = _radial()
-    taps = ufd.host_taps(f)
+    taps = ufd.Filter(f).taps
     assert isinstance(taps, ufd.Taps2D) and ufd.filter_taps(f) is None
     spec, why = fir.fir_spec(torch.empty(12, 12, device="meta"), taps, up, down, [1, 2, 3, 4],
                              False, 4.0)
@@ -622,12 +621,43 @@ def test_fir_spec_admits_2d_taps_at_factor_2(up, down):
     assert spec.kernel == spec.form + "_2d" and spec.pads == (3, 4, 1, 2)
     assert spec.taps_y == spec.taps_x == (0.0,) * 12
     np.testing.assert_array_equal(np.asarray(spec.taps_2d), 4.0 * f.double().numpy()[::-1, ::-1])
-    for other in (ufd.NOT_SEPARABLE, None):
-        assert fir.fir_spec(f, other, up, down, [1, 2, 3, 4], False, 4.0) == (spec, "")
+    assert fir.fir_spec(f, None, up, down, [1, 2, 3, 4], False, 4.0) == (spec, "")
     flipped, _ = fir.fir_spec(f, taps, up, down, 0, True, 1.0)
     np.testing.assert_array_equal(np.asarray(flipped.taps_2d), f.double().numpy())
     with pytest.raises(ValueError, match="host taps"):  # no rows: would read the device
-        fir.fir_spec(torch.empty(12, 12, device="meta"), ufd.NOT_SEPARABLE, up, down, 0, False, 1)
+        fir.fir_spec(torch.empty(12, 12, device="meta"), None, up, down, 0, False, 1)
+
+
+@pytest.mark.parametrize("name", ["f4", "sym6", "radial"])
+def test_filter_holds_its_taps_once_and_one_copy_per_device(name, monkeypatch):
+    """A ``Filter`` computes its host taps once (``filter_taps``'s factors,
+    or a 2-D filter's rows), makes one copy per device and gives the spec
+    its host tensor gives; a bare device tensor raises where the kernels
+    would need its taps, and a copied module shares the ``Filter``."""
+    import copy
+
+    host = {"f4": ufd.setup_filter([1, 3, 3, 1]), "sym6": ufd.setup_filter(WAVELETS["sym6"]),
+            "radial": _radial()}[name]
+    f = ufd.Filter(host)
+    factors = ufd.filter_taps(host)
+    assert f.taps == (factors if factors is not None
+                      else ufd.Taps2D(tuple(map(tuple, host.double().tolist()))))
+    calls = []
+    monkeypatch.setattr(ufd, "filter_taps", lambda *a: calls.append(a))
+    x = torch.randn((1, 2, 30, 30), generator=torch.Generator().manual_seed(3))
+    got = [ufd.upfirdn2d(x, f, down=2) for _ in range(2)]
+    assert not calls and torch.equal(got[0], got[1])
+    monkeypatch.undo()
+    assert f.on("cpu") is f.host and f.on("meta") is f.on("meta")
+    assert f.on("meta").device.type == "meta" and copy.deepcopy(f) is f
+    for kw in (dict(down=2), dict(up=2, padding=[6, 5, 6, 5], gain=4.0), dict(padding=3)):
+        args = (kw.get("up", 1), kw.get("down", 1), kw.get("padding", 0), False,
+                kw.get("gain", 1))
+        assert fir.fir_spec(f, f.taps, *args) == fir.fir_spec(host, None, *args)
+        torch.testing.assert_close(ufd.upfirdn2d(x, f, **kw), ufd.upfirdn2d(x, host, **kw),
+                                   rtol=0, atol=0)
+    with pytest.raises(ValueError, match="host taps"):
+        ufd.upfirdn2d(x, host.to("meta"), down=2)
 
 
 @pytest.mark.parametrize("up,down,size", [(1, 1, 12), (4, 1, 12), (1, 4, 12), (1, 2, 13),
@@ -637,13 +667,13 @@ def test_fir_spec_keeps_other_2d_calls_on_the_plain_route(up, down, size):
     stays outside the contract under its reason; the plain version runs."""
     ky, kx = (size, size) if isinstance(size, int) else size
     f = torch.from_numpy(np.random.default_rng(1).standard_normal((ky, kx)).astype(np.float32))
-    taps = ufd.host_taps(f)
+    taps = ufd.Filter(f).taps
     assert fir.fir_spec(f, taps, up, down, 0, False, 1) == (None, "2-D filter, not separable")
     assert fir.fir_spec(f.to("meta"), taps, up, down, 0, False, 1) == (
         None, "2-D filter, not separable")
     x = torch.randn((1, 2, 30, 30), generator=torch.Generator().manual_seed(2))
     kw = dict(up=up, down=down, padding=[6, 6, 6, 6])
-    torch.testing.assert_close(ufd.upfirdn2d(x, f, taps=taps, **kw),
+    torch.testing.assert_close(ufd.upfirdn2d(x, ufd.Filter(f), **kw),
                                ufd.upfirdn2d_plain(x, f, **kw), rtol=0, atol=0)
 
 

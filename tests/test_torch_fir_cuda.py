@@ -99,10 +99,10 @@ def cuda_device():
 
 
 def _run(x, f, up, down, padding, flip, gain, kernel):
-    fn = ufd.upfirdn2d if kernel else ufd.upfirdn2d_plain
-    kw = dict(taps=ufd.filter_taps(f)) if kernel else {}
-    return fn(x, f.to(x.device), up=up, down=down, padding=padding, flip_filter=flip, gain=gain,
-              **kw)
+    kw = dict(up=up, down=down, padding=padding, flip_filter=flip, gain=gain)
+    if kernel:
+        return ufd.upfirdn2d(x, ufd.Filter(f), **kw)
+    return ufd.upfirdn2d_plain(x, f.to(x.device), **kw)
 
 
 def _max_err(a, b):
@@ -169,7 +169,7 @@ def test_upfirdn2d_outside_the_contract_takes_the_counted_plain_route_on_card(cu
     # plain version runs, counted; no kernel is launched for it.
     x = torch.randn((1, 2, 8, 8), device=cuda_device)
     with profiling.recording() as rec:
-        got = ufd.upfirdn2d(x, F4.to(cuda_device), up=3, taps=ufd.filter_taps(F4))
+        got = ufd.upfirdn2d(x, ufd.Filter(F4), up=3)
     torch.testing.assert_close(got, ufd.upfirdn2d_plain(x, F4.to(cuda_device), up=3),
                                rtol=0, atol=0)
     assert rec.under("fir.launch") == {}
@@ -177,7 +177,7 @@ def test_upfirdn2d_outside_the_contract_takes_the_counted_plain_route_on_card(cu
     with pytest.raises(ValueError, match="host taps"):
         ufd.upfirdn2d(x, F4.to(cuda_device))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        ufd.upfirdn2d(x.double(), F4, taps=ufd.filter_taps(F4))
+        ufd.upfirdn2d(x.double(), ufd.Filter(F4))
 
 
 @pytest.mark.cuda
@@ -309,13 +309,11 @@ def test_stylegan3_t_x4_layer_takes_the_x4_kernels(cuda_device):
     up2)."""
     from gantrack_tpu_torch.ops import filtered_lrelu
 
-    fu = SG3X4.to(cuda_device)
-    fd = SG3.to(cuda_device)
+    fu, fd = ufd.Filter(SG3X4), ufd.Filter(SG3)
     x = torch.randn((2, 8, 38, 38), device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
     b = torch.zeros(8, device=cuda_device, dtype=torch.bfloat16)
     with profiling.recording() as rec:
-        y = filtered_lrelu(x, fu, fd, b, up=4, down=2, padding=[-6, -9, -6, -9],
-                           fu_taps=ufd.filter_taps(SG3X4), fd_taps=ufd.filter_taps(SG3))
+        y = filtered_lrelu(x, fu, fd, b, up=4, down=2, padding=[-6, -9, -6, -9])
         assert y.shape == (2, 8, 52, 52)
         launched = dict(rec.under("fir.launch"))
         (g,) = torch.autograd.grad(y.float().square().sum(), x)
@@ -327,11 +325,10 @@ def test_stylegan3_t_x4_layer_takes_the_x4_kernels(cuda_device):
 
 
 def _radial(numtaps=12, cutoff=22.6, width=17.25, rate=128.0):
-    """A radial (2-D) jinc low-pass of StyleGAN3-R's layers, with its host taps."""
+    """A radial (2-D) jinc low-pass of StyleGAN3-R's layers, as a ``Filter``."""
     from gantrack_tpu_torch.models.stylegan3 import design_lowpass_filter
 
-    f = torch.from_numpy(design_lowpass_filter(numtaps, cutoff, width, rate, radial=True))
-    return f, ufd.host_taps(f)
+    return ufd.Filter(design_lowpass_filter(numtaps, cutoff, width, rate, radial=True))
 
 
 # (numtaps, up, down, padding [px0, px1, py0, py1], gain, [N, C, H, W]):
@@ -357,10 +354,11 @@ CASES_2D = [
 
 def _run_2d(x, case, kernel):
     numtaps, up, down, padding, gain, _ = CASES_2D[case]
-    f, taps = _radial(numtaps)
-    fn = ufd.upfirdn2d if kernel else ufd.upfirdn2d_plain
-    kw = dict(taps=taps) if kernel else {}
-    return fn(x, f.to(x.device), up=up, down=down, padding=padding, gain=gain, **kw)
+    f = _radial(numtaps)
+    kw = dict(up=up, down=down, padding=padding, gain=gain)
+    if kernel:
+        return ufd.upfirdn2d(x, f, **kw)
+    return ufd.upfirdn2d_plain(x, f.on(x.device), **kw)
 
 
 @pytest.mark.cuda
@@ -415,10 +413,10 @@ def test_2d_fir_autograd_to_second_order_on_card(cuda_device, case):
 
 
 def _specs_2d():
-    f, taps = _radial()
-    down, _ = fir.fir_spec(f, taps, 1, 2, 0, False, 1.0)
-    up, _ = fir.fir_spec(f, taps, 2, 1, [11, 10, 11, 10], False, 4.0)
-    small, _ = fir.fir_spec(*_radial(5), 1, 2, [1, 2, 0, 1], False, 1.0)
+    f, f5 = _radial(), _radial(5)
+    down, _ = fir.fir_spec(f, f.taps, 1, 2, 0, False, 1.0)
+    up, _ = fir.fir_spec(f, f.taps, 2, 1, [11, 10, 11, 10], False, 4.0)
+    small, _ = fir.fir_spec(f5, f5.taps, 1, 2, [1, 2, 0, 1], False, 1.0)
     return down, up, small
 
 
@@ -469,8 +467,8 @@ def test_stylegan3_r_layer_takes_the_2d_kernels(cuda_device):
                                channel_base=65536, channel_max=1024, num_layers=14,
                                num_critical=2, conv_kernel=1, use_radial_filters=True)
     layer = getattr(net, net.layer_names[4]).to(cuda_device)
-    assert isinstance(layer.down_filter_taps, ufd.Taps2D)
-    assert layer.down_filter.shape == (12, 12) and layer.down_factor == 2
+    assert isinstance(layer.down_filter.taps, ufd.Taps2D)
+    assert layer.down_filter.host.shape == (12, 12) and layer.down_factor == 2
     spec = layer.spec
     x = torch.randn((2, spec.in_channels, spec.in_size, spec.in_size), device=cuda_device,
                     dtype=torch.bfloat16, requires_grad=True)

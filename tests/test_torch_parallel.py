@@ -59,6 +59,8 @@ import torch.multiprocessing as mp
 
 from gantrack_tpu_torch.parallel import mesh as pm
 
+pytestmark = pytest.mark.long  # over 250 s of the tier-1 run: started first
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT = 240
 RES, ZDIM, BATCH = 16, 8, 8

@@ -18,6 +18,8 @@ from h100_bench.reference import nets as ref_nets
 from h100_bench.reference import stylegan3 as ref_sg3
 from h100_bench.reference.numerics import Numerics
 
+pytestmark = pytest.mark.long  # over 250 s of the tier-1 run: started first
+
 FIXTURES = os.path.join(core.ROOT, "h100_bench", "tests", "fixtures")
 TINY_R = dict(family="stylegan3-r", resolution=32, channels=1, cbase=512, cmax=32,
               num_fp16_res=0, map_depth=2, mbstd_group=4)

@@ -29,7 +29,7 @@ from gantrack_tpu_torch.data import InfiniteLoader
 from gantrack_tpu_torch.metrics.metric_utils import (Detector, MetricOptions,
                                                      compute_feature_stats_for_generator)
 from gantrack_tpu_torch.models import stylegan2 as tsg2
-from gantrack_tpu_torch.ops.upfirdn2d import NOT_SEPARABLE, filter_taps, setup_filter, upfirdn2d
+from gantrack_tpu_torch.ops.upfirdn2d import Filter, setup_filter, upfirdn2d
 from gantrack_tpu_torch.training import loss as tloss
 from gantrack_tpu_torch.training import step as tstep
 from gantrack_tpu_torch.training.loop import to_device_batch
@@ -217,26 +217,26 @@ def test_the_generator_pass_spans_each_batch_with_its_seed():
 
 
 def _route_case(case):
-    f = setup_filter([1, 3, 3, 1])
+    f = Filter(setup_filter([1, 3, 3, 1]))
     if case == "kernel":
-        return f, filter_taps(f), dict(up=2, padding=[2, 1, 2, 1]), "upfirdn2d.kernel_route"
+        return f, dict(up=2, padding=[2, 1, 2, 1]), "upfirdn2d.kernel_route"
     if case == "x4 kernel":
-        return f, filter_taps(f), dict(up=4, padding=[2, 1, 2, 1]), "upfirdn2d.kernel_route"
+        return f, dict(up=4, padding=[2, 1, 2, 1]), "upfirdn2d.kernel_route"
     if case == "factor 4":  # a factor 4 outside the kernels' contract: 33 taps
-        f33 = setup_filter(np.hanning(35)[1:-1])
-        return f33, filter_taps(f33), dict(up=4, padding=[17, 16, 17, 16]), \
+        f33 = Filter(setup_filter(np.hanning(35)[1:-1]))
+        return f33, dict(up=4, padding=[17, 16, 17, 16]), \
             "upfirdn2d.plain_route/33 x 33 taps (at most 32 per axis)"
     radial = torch.outer(torch.arange(1.0, 5.0), torch.arange(1.0, 5.0)) + torch.eye(4)
-    return radial, NOT_SEPARABLE, dict(padding=[1, 2, 1, 2]), \
+    return Filter(radial), dict(padding=[1, 2, 1, 2]), \
         "upfirdn2d.plain_route/2-D filter, not separable"
 
 
 @pytest.mark.parametrize("case", ["kernel", "factor 4", "radial", "x4 kernel"])
 def test_upfirdn2d_counts_its_route_where_it_decides(case):
-    f, taps, kw, key = _route_case(case)
+    f, kw, key = _route_case(case)
     x = torch.randn((2, 3, 8, 8), generator=torch.Generator().manual_seed(3))
     with profiling.recording() as rec:
-        upfirdn2d(x, f, taps=taps, **kw)
+        upfirdn2d(x, f, **kw)
     # On the CPU the kernel route computes the plain form: no launch counted.
     assert rec.counters == {key: 1}
 

@@ -20,10 +20,13 @@ variants; the port runs op by op).
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
+
+pytestmark = pytest.mark.long  # over 250 s of the tier-1 run: started first
 
 ZDIM = 16
 LR = 0.0025

@@ -31,7 +31,7 @@ from gantrack_tpu.ops.pallas.upwarp import up_affine_warp as j_up_affine_warp
 from gantrack_tpu.ops.upfirdn2d import setup_filter as j_setup_filter
 from gantrack_tpu.ops.upfirdn2d import upsample2d as j_upsample2d
 from gantrack_tpu_torch.ops import upwarp as uw
-from gantrack_tpu_torch.ops.upfirdn2d import setup_filter
+from gantrack_tpu_torch.ops.upfirdn2d import Filter, setup_filter
 from gantrack_tpu_torch.training.augment import WAVELETS, AugmentPipe, medical_augment_config
 
 torch.set_num_threads(1)
@@ -66,7 +66,7 @@ def _jax_composition(x, theta, out_h, out_w):
 
 
 def _port(x, theta, out_h, out_w):
-    return uw.up_affine_warp(x, theta, FIR, out_h, out_w)
+    return uw.up_affine_warp(x, theta, Filter(FIR), out_h, out_w)
 
 
 def _case(seed=0, n=2, h1=20, w1=22):

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from gantrack_tpu_torch.ops import upwarp as uw
-from gantrack_tpu_torch.ops.upfirdn2d import setup_filter
+from gantrack_tpu_torch.ops.upfirdn2d import Filter, setup_filter
 from gantrack_tpu_torch.training.augment import WAVELETS, AugmentPipe, medical_augment_config
 
 H1, W1, OUT_H, OUT_W = 40, 44, 84, 86
@@ -55,8 +55,8 @@ def _plain_adjoint(g, coeffs, fir, h1, w1):
 
 
 def _fir(dev):
-    fir = setup_filter(WAVELETS["sym6"], device=dev)
-    return fir, tuple(float(v) for v in fir.cpu())
+    fir = Filter(setup_filter(WAVELETS["sym6"]))
+    return fir.on(dev), fir.taps[0]
 
 
 def _close(got, ref, rel=1e-5):
