@@ -54,10 +54,10 @@ def test_the_generator_matches_the_reference_on_shared_weights():
         got = Gp(z, None, noise_mode="const")
     assert got.shape == want.shape == (4, 1, 32, 32)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
-    # The 12 radial down-filters take the FIR kernels' route (↓2, 12 x 12).
-    assert rec.counters.get("upfirdn2d.plain_route/2-D filter, not separable", 0) == 0
-    assert rec.under("upfirdn2d.plain_route") == {}
-    assert rec.counters["upfirdn2d.kernel_route"] == 2 * len(G.names)
+    # Every layer takes the fused filtered_lrelu route, the 12 with radial
+    # down-filters (↓2, 12 x 12) too: no FIR call, none composed.
+    assert rec.counters["filtered_lrelu.fused_route"] == len(G.names)
+    assert rec.under("filtered_lrelu.composed_route") == {} and rec.under("upfirdn2d") == {}
 
 
 @pytest.mark.parametrize("sigma", [10.0, 3.3, 0.0])

@@ -87,11 +87,10 @@ def test_generator_matches_jax_with_carried_weights(cfg):
         got = g(torch.from_numpy(z), None, noise_mode="const")
     assert got.shape == (2, 1, RES, RES) and got.dtype == torch.float32
     _close(_nhwc(got), want)
-    # Every filter pass takes the FIR kernels' route, -r's radial (2-D)
-    # down-filters too: two calls a layer, none on the plain route.
-    radial = rec.counters.get("upfirdn2d.plain_route/2-D filter, not separable", 0)
-    assert radial == 0 and rec.under("upfirdn2d.plain_route") == {}
-    assert rec.counters["upfirdn2d.kernel_route"] == 2 * len(g.synthesis.layer_names)
+    # Every layer takes the fused filtered_lrelu route, -r's radial (2-D)
+    # down-filters too: one call a layer, none composed, no FIR call.
+    assert rec.counters["filtered_lrelu.fused_route"] == len(g.synthesis.layer_names)
+    assert rec.under("filtered_lrelu.composed_route") == {} and rec.under("upfirdn2d") == {}
 
 
 @pytest.mark.parametrize("cfg", ["stylegan3-t", "stylegan3-r"])
